@@ -1,0 +1,57 @@
+"""Carry weights and packed deltas across from numpy.
+
+The JAX package's parameters and ``PackedDelta`` leaves reach the port as
+numpy arrays (the conversion *from* JAX arrays lives with the tests: the
+port never imports jax). bf16 arrives as its raw uint16 bits, the way
+``repro/checkpoint/ckpt.py:48-52`` stores it, with the dtype named in a
+``bit_dtypes`` map keyed by leaf path.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.pack import PackedDelta
+from repro_torch.utils import map_with_paths, resolve_device
+
+_BIT_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def tensor_from_numpy(arr: np.ndarray, bit_dtype: Optional[str] = None,
+                      device=None) -> torch.Tensor:
+    """One array -> tensor; ``bit_dtype`` names the dtype whose raw bits
+    ``arr`` (uint16) holds."""
+    dev = resolve_device(device)
+    arr = np.array(arr, order="C")     # a writable copy; keeps 0-d arrays 0-d
+    if bit_dtype is None:
+        return torch.from_numpy(arr).to(dev)
+    if bit_dtype not in _BIT_DTYPES or arr.dtype.itemsize != 2:
+        raise ValueError(f"cannot reinterpret {arr.dtype} bits as {bit_dtype}")
+    bits = torch.from_numpy(arr.view(np.int16))
+    return bits.view(_BIT_DTYPES[bit_dtype]).to(dev)
+
+
+def params_from_numpy(tree: Any, bit_dtypes: Optional[Mapping[str, str]] = None,
+                      device=None) -> Any:
+    """A nested dict of numpy arrays -> the same dict of tensors."""
+    bit_dtypes = bit_dtypes or {}
+    return map_with_paths(
+        lambda path, a: tensor_from_numpy(a, bit_dtypes.get(path), device), tree)
+
+
+def packed_delta_from_numpy(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
+                            device=None) -> PackedDelta:
+    """One PackedDelta from its arrays (idx, codes, scale, zero) and static
+    meta (h_in, h_out, h_g, keep, alpha, k_bits, m, codec)."""
+    dev = resolve_device(device)
+    return PackedDelta(
+        idx=tensor_from_numpy(arrays["idx"], device=dev),
+        codes=tensor_from_numpy(arrays["codes"], device=dev),
+        scale=tensor_from_numpy(np.asarray(arrays["scale"], np.float32), device=dev),
+        zero=tensor_from_numpy(np.asarray(arrays["zero"], np.int32), device=dev),
+        h_in=int(meta["h_in"]), h_out=int(meta["h_out"]), h_g=int(meta["h_g"]),
+        keep=int(meta["keep"]), alpha=float(meta["alpha"]),
+        k_bits=None if meta["k_bits"] is None else int(meta["k_bits"]),
+        m=int(meta["m"]), codec=str(meta.get("codec", "deltadq")))

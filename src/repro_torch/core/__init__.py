@@ -1,0 +1,29 @@
+"""DeltaDQ core: the paper's contribution as PyTorch functions."""
+from repro_torch.core.apply import (
+    SlotDelta,
+    TenantSegments,
+    apply_linear,
+    delta_matmul,
+    dget,
+    dindex,
+    merge_delta,
+    slot_delta_matmul,
+    stack_tenant_deltas,
+    wrap_slot_deltas,
+    zero_delta_like,
+)
+from repro_torch.core.codecs import DeltaDQCodec, DeltaDQSpec, runtime_delta_tree
+from repro_torch.core.compress import CompressionReport, compress, is_compressible
+from repro_torch.core.dropout import groupwise_dropout_pack, keep_count
+from repro_torch.core.pack import PackedDelta, decode_values, reconstruct_dense
+from repro_torch.core.quant import (
+    QuantParams,
+    compression_ratio,
+    dequantize,
+    pack_bits,
+    quantize,
+    storage_bits_per_value,
+    unpack_bits,
+)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,129 @@
+"""Shared layers for the dense model family (port of ``repro/models/layers.py``).
+
+All matmuls route through :func:`repro_torch.core.apply.apply_linear` so
+every linear site supports the paper's separate-computation delta
+correction. Attention is plain torch ops, q-blocked so long prefill never
+materializes a full [S, S] score tensor per head; it keeps the
+reference's einsum/softmax numerics rather than a fused attention call,
+so the two packages stay comparable.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.apply import apply_linear, dget
+
+_NEG_INF = -1e30
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x [..., S, H, D]; positions [S] or [..., S]."""
+    d = x.shape[-1]
+    half = d // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32, device=x.device))
+    freqs = torch.exp(-log_theta * torch.arange(0, half, dtype=torch.float32,
+                                                device=x.device) / half)
+    ang = positions.to(torch.float32)[..., :, None] * freqs   # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]   # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def head_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """QK-norm: RMSNorm over head_dim. x [..., H, D], scale [D]."""
+    return rmsnorm(x, scale, eps)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+def _attend(q, k, v, q_pos, k_pos, window: int, causal: bool, cap):
+    """One q-block of GQA attention.
+
+    q [B,Sq,Hq,D]; k,v [B,Sk,Hkv,D]; q_pos [Sq] or [B,Sq]; k_pos [Sk] or
+    [B,Sk] (entries < 0 are invalid ring-buffer slots); window: 0 =
+    global, > 0 = sliding window.
+    """
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32)) * (D ** -0.5)
+    scores = softcap(scores, cap)
+    qp = q_pos if q_pos.ndim == 2 else q_pos[None]       # [B*, Sq]
+    kp = k_pos if k_pos.ndim == 2 else k_pos[None]       # [B*, Sk]
+    valid = (kp >= 0)[:, None, :]
+    if causal:
+        valid = valid & (kp[:, None, :] <= qp[:, :, None])
+    if window > 0:
+        valid = valid & (qp[:, :, None] - kp[:, None, :] < window)
+    scores = torch.where(valid[:, None, None], scores,
+                         torch.tensor(_NEG_INF, dtype=scores.dtype,
+                                      device=scores.device))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def attention(q, k, v, q_pos, k_pos, *, window: int = 0, causal: bool = True,
+              cap=None, block_q: int = 1024):
+    """GQA attention, blocked over the query dim to bound live memory."""
+    Sq = q.shape[1]
+    if Sq <= block_q or Sq % block_q:
+        return _attend(q, k, v, q_pos, k_pos, window, causal, cap)
+    outs = []
+    for s0 in range(0, Sq, block_q):
+        pos = q_pos[:, s0:s0 + block_q] if q_pos.ndim == 2 else q_pos[s0:s0 + block_q]
+        outs.append(_attend(q[:, s0:s0 + block_q], k, v, pos, k_pos, window,
+                            causal, cap))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Blocks' inner projections
+# ---------------------------------------------------------------------------
+def qkv_project(x, p, d, cfg, positions, rope_on: bool = True):
+    """x [B,S,d_model] -> q [B,S,Hq,D], k,v [B,S,Hkv,D] (+rope, +qk-norm)."""
+    B, S, _ = x.shape
+    q = apply_linear(x, p["wq"], dget(d, "wq")).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = apply_linear(x, p["wk"], dget(d, "wk")).reshape(B, S, cfg.n_kv, cfg.head_dim)
+    v = apply_linear(x, p["wv"], dget(d, "wv")).reshape(B, S, cfg.n_kv, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if rope_on:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def glu_mlp(x, p, d, act: str):
+    """SwiGLU (silu) / GeGLU (gelu) feed-forward."""
+    gate = apply_linear(x, p["wg"], dget(d, "wg"))
+    up = apply_linear(x, p["wi"], dget(d, "wi"))
+    h = (F.silu(gate) if act == "silu" else _gelu_tanh(gate)) * up
+    return apply_linear(h, p["wo"], dget(d, "wo"))
