@@ -54,6 +54,10 @@ MERGED_REL_TOL = 1e-2
 # the same amplification applies. Each row must also sit nearer its own
 # tenant's logits than any other tenant's.
 MIXED_REL_TOL = 5e-2
+# the segments kernel's library yardstick, one torch.bmm over a per-row
+# f32 dense delta stack, is timed where that stack fits in this many
+# bytes: the decode shapes (1.4 GB at wi, T=8), not prefill (46 GB)
+LIBRARY_STACK_MAX_BYTES = 4e9
 
 
 def log(*a) -> None:
@@ -137,7 +141,7 @@ def _plain_segments(torch, fb, xs, stack, seg_rows, seg_offsets):
     tens of GB."""
     if xs.shape[0] <= 8:
         return fb.segment_correction(xs, stack, seg_rows, seg_offsets)
-    y = torch.empty((xs.shape[0], stack.h_out), device=xs.device)
+    y = torch.zeros((xs.shape[0], stack.h_out), device=xs.device)
     offs = seg_offsets.tolist()
     for s, t in enumerate(seg_rows.tolist()):
         if offs[s + 1] > offs[s]:
@@ -244,7 +248,7 @@ def phase_parity(torch, report: dict) -> dict:
                 plain = time_ms(torch, [lambda s=s: _plain_segments(
                     torch, fb, xs, s, seg.seg_rows, seg.seg_offsets) for s in stacks],
                     iters=4, reps=3)
-                lib = None   # no one library call applies per-row tenant matrices
+                lib = _segments_library_ms(torch, xs, stacks[0], T, seg, ops)
             b_ms, b_by = bound_ms(T * h_in * 4, n_deltas * dbytes, T * h_out * 4,
                                   2.0 * T * nnz)
             times.append({"kernel": kname, "site": site, "h_in": h_in, "h_out": h_out,
@@ -256,6 +260,27 @@ def phase_parity(torch, report: dict) -> dict:
         del ring, dense, stacks
     report["times"] = times
     return worst
+
+
+def _segments_library_ms(torch, xs, stack, T: int, seg, ops):
+    """One torch.bmm of each sorted row against its tenant's dense f32
+    delta (gathered per row before timing), or None where that per-row
+    stack exceeds LIBRARY_STACK_MAX_BYTES. The stack is far larger than
+    L2, so one input suffices. Timed only; the port never calls it."""
+    from repro_torch.core.pack import reconstruct_dense
+    if T * stack.h_in * stack.h_out * 4 > LIBRARY_STACK_MAX_BYTES:
+        return None
+    sorted_rows = torch.as_tensor(_mixed_rows(T), device=DEVICE).long()[seg.order]
+    dense_rows = reconstruct_dense(stack).index_select(0, sorted_rows)
+    x3 = xs.unsqueeze(1)
+    y = torch.bmm(x3, dense_rows)[:, 0]
+    want = ops.delta_spmm_segments(xs, stack, seg.seg_rows, seg.seg_offsets)
+    if not torch.allclose(y, want, **KERNEL_TOL):
+        fail("the segments library yardstick disagrees with the kernel")
+    ms = time_ms(torch, [lambda: torch.bmm(x3, dense_rows)])
+    del dense_rows
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_main_path(torch, kern, report: dict) -> dict:

@@ -27,32 +27,11 @@ import torch
 
 from repro_torch.core.pack import PackedDelta, reconstruct_dense
 
-# Mixed-tenant decode dispatch mode. "segments" (default) groups batch
-# rows by tenant so each unique delta is decoded once per step (requires
-# the SlotDelta to carry a TenantSegments layout — built host-side by
-# serve.scheduler.tenant_segments). "per_row" gathers a per-row delta
-# stack and applies it row by row.
-_SLOT_DISPATCH = "segments"
-
-
 def _note(site: str, **attrs) -> None:
     """Report the chosen dispatch to an open trace context (no-op
     otherwise)."""
     from repro_torch.serve.trace import note_path
     note_path(site, **attrs)
-
-
-def set_slot_dispatch(mode: str) -> None:
-    """Select the mixed-tenant decode dispatch: "segments" | "per_row"."""
-    if mode not in ("segments", "per_row"):
-        raise ValueError(
-            f"slot_dispatch mode {mode!r} not in ('segments', 'per_row')")
-    global _SLOT_DISPATCH
-    _SLOT_DISPATCH = mode
-
-
-def get_slot_dispatch() -> str:
-    return _SLOT_DISPATCH
 
 
 def _pinned(c: torch.Tensor) -> torch.Tensor:
@@ -151,9 +130,10 @@ def _segment_dispatch(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
 
 def slot_delta_matmul(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
     """Mixed-tenant correction: x [B, S, h_in] with row b using tenant
-    slots[b] ("segments" dispatch when the SlotDelta carries a layout,
-    else the per-row gather)."""
-    if sd.segments is not None and _SLOT_DISPATCH == "segments":
+    slots[b]. A SlotDelta that carries a TenantSegments layout takes the
+    segments dispatch (each unique delta decoded once per step); one
+    without (``segments=None``) takes the per-row gather."""
+    if sd.segments is not None:
         _note("slot_dispatch", dispatch="segments")
         return _segment_dispatch(x, sd)
     _note("slot_dispatch", dispatch="per_row")

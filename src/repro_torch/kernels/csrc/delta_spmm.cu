@@ -50,13 +50,14 @@
 //    skips empty ones, and decodes each tenant's tile once per
 //    (segment, row block, column tile, group) -- the invariant
 //    ops.segment_decode_tiles counts. Rows outside the segment are
-//    computed on the staged zeros/other rows and never written.
+//    computed on the staged zeros/other rows and never written. Rows
+//    that no segment covers, and segments whose tenant row lies outside
+//    the stack, get zeros, as the TPU kernel's zero-filled output does.
 //
 // Plain C interface (loaded with ctypes). Every pointer is a device
 // pointer; the kernels launch on the given stream, allocate nothing and
 // return cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,9 +67,6 @@ constexpr int kWarps = 8;              // warps per block
 constexpr int kThreads = kWarps * 32;  // threads per block
 constexpr int kCols = 32;              // output columns per block (one per lane)
 constexpr int kSmemFloats = 8192;      // 32 KB: x chunk [TB][CH], then partials
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 struct Delta {
   const uint8_t* idx;    // [G, keep, O]
@@ -91,8 +89,8 @@ struct Strides {
 // Corrections of rows [r0, r0 + TB) x columns [col0, col0 + 32) for one
 // packed delta. On return, lane l of warp 0 holds out[r] for column
 // col0 + l. Every thread of the block must call it (it synchronises).
-template <typename XT, int TB>
-__device__ void block_correction(const XT* __restrict__ x, const Delta& d,
+template <int TB>
+__device__ void block_correction(const float* __restrict__ x, const Delta& d,
                                  const Shape& s, int r0, int col0,
                                  float* smem, float (&out)[TB]) {
   const int lane = threadIdx.x & 31;
@@ -120,7 +118,7 @@ __device__ void block_correction(const XT* __restrict__ x, const Delta& d,
       const int c = i - r * width;
       const int row = r0 + r;
       smem[r * CH + c] =
-          row < s.T ? to_f32(x[static_cast<size_t>(row) * s.h_in + xcol + c]) : 0.f;
+          row < s.T ? x[static_cast<size_t>(row) * s.h_in + xcol + c] : 0.f;
     }
     __syncthreads();
     if (live) {
@@ -164,14 +162,14 @@ __device__ void block_correction(const XT* __restrict__ x, const Delta& d,
   }
 }
 
-template <typename XT, int TB>
+template <int TB>
 __global__ void __launch_bounds__(kThreads)
-spmm_kernel(const XT* __restrict__ x, Delta d, Shape s, float* __restrict__ y) {
+spmm_kernel(const float* __restrict__ x, Delta d, Shape s, float* __restrict__ y) {
   __shared__ float smem[kSmemFloats];
   const int r0 = blockIdx.x * TB;
   const int col0 = blockIdx.y * kCols;
   float out[TB];
-  block_correction<XT, TB>(x, d, s, r0, col0, smem, out);
+  block_correction<TB>(x, d, s, r0, col0, smem, out);
   const int o = col0 + threadIdx.x;
   if (threadIdx.x < 32 && o < s.O) {
 #pragma unroll
@@ -180,35 +178,46 @@ spmm_kernel(const XT* __restrict__ x, Delta d, Shape s, float* __restrict__ y) {
   }
 }
 
-template <typename XT, int TB>
+template <int TB>
 __global__ void __launch_bounds__(kThreads)
-segments_kernel(const XT* __restrict__ x, Delta stack, Shape s, Strides st,
-                const int* __restrict__ seg_rows,
+segments_kernel(const float* __restrict__ x, Delta stack, Shape s, Strides st,
+                int n_tenants, const int* __restrict__ seg_rows,
                 const int* __restrict__ seg_offsets, int n_seg,
                 float* __restrict__ y) {
+  static_assert(TB <= 32, "one written-row bit per row of the block");
   __shared__ float smem[kSmemFloats];
   const int r0 = blockIdx.x * TB;
   const int col0 = blockIdx.y * kCols;
   const int o = col0 + threadIdx.x;
+  unsigned written = 0u;  // bit r: row r0 + r was written (warp 0's lanes)
   for (int seg = 0; seg < n_seg; ++seg) {
     const int start = seg_offsets[seg];
     const int end = seg_offsets[seg + 1];
-    // block-uniform: empty segments and segments disjoint from this row
-    // block are skipped, so each tenant tile is decoded once per segment
-    if (end <= start || start >= r0 + TB || end <= r0) continue;
     const int t = seg_rows[seg];
+    // block-uniform: empty segments, segments disjoint from this row
+    // block and tenant rows outside the stack are skipped, so each
+    // tenant tile is decoded once per segment
+    if (end <= start || start >= r0 + TB || end <= r0 || t < 0 || t >= n_tenants)
+      continue;
     Delta d{stack.idx + t * st.idx, stack.codes + t * st.codes,
             stack.scale + t * st.scale, stack.zero + t * st.zero};
     float out[TB];
-    block_correction<XT, TB>(x, d, s, r0, col0, smem, out);
+    block_correction<TB>(x, d, s, r0, col0, smem, out);
     if (threadIdx.x < 32 && o < s.O) {
 #pragma unroll
       for (int r = 0; r < TB; ++r) {
         const int row = r0 + r;
-        if (row >= start && row < end && row < s.T)
+        if (row >= start && row < end && row < s.T) {
           y[static_cast<size_t>(row) * s.O + o] = out[r];
+          written |= 1u << r;
+        }
       }
     }
+  }
+  if (threadIdx.x < 32 && o < s.O) {
+#pragma unroll
+    for (int r = 0; r < TB; ++r)
+      if (!(written >> r & 1u) && r0 + r < s.T) y[static_cast<size_t>(r0 + r) * s.O + o] = 0.f;
   }
 }
 
@@ -219,40 +228,36 @@ bool shape_ok(const Shape& s, int tb) {
           s.wbits == 8);
 }
 
-template <typename XT>
-cudaError_t launch_spmm(const void* x, Delta d, Shape s, float* y, int tb,
+cudaError_t launch_spmm(const float* x, Delta d, Shape s, float* y, int tb,
                         cudaStream_t st) {
   const dim3 block(kThreads);
   const dim3 grid((s.T + tb - 1) / tb, (s.O + kCols - 1) / kCols);
-  const XT* xp = static_cast<const XT*>(x);
   switch (tb) {
-    case 8: spmm_kernel<XT, 8><<<grid, block, 0, st>>>(xp, d, s, y); break;
-    case 16: spmm_kernel<XT, 16><<<grid, block, 0, st>>>(xp, d, s, y); break;
-    case 32: spmm_kernel<XT, 32><<<grid, block, 0, st>>>(xp, d, s, y); break;
+    case 8: spmm_kernel<8><<<grid, block, 0, st>>>(x, d, s, y); break;
+    case 16: spmm_kernel<16><<<grid, block, 0, st>>>(x, d, s, y); break;
+    case 32: spmm_kernel<32><<<grid, block, 0, st>>>(x, d, s, y); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-template <typename XT>
-cudaError_t launch_segments(const void* x, Delta d, Shape s, Strides strides,
-                            const int* seg_rows, const int* seg_offsets, int n_seg,
-                            float* y, int tb, cudaStream_t st) {
+cudaError_t launch_segments(const float* x, Delta d, Shape s, Strides strides,
+                            int n_tenants, const int* seg_rows, const int* seg_offsets,
+                            int n_seg, float* y, int tb, cudaStream_t st) {
   const dim3 block(kThreads);
   const dim3 grid((s.T + tb - 1) / tb, (s.O + kCols - 1) / kCols);
-  const XT* xp = static_cast<const XT*>(x);
   switch (tb) {
     case 8:
-      segments_kernel<XT, 8><<<grid, block, 0, st>>>(
-          xp, d, s, strides, seg_rows, seg_offsets, n_seg, y);
+      segments_kernel<8><<<grid, block, 0, st>>>(
+          x, d, s, strides, n_tenants, seg_rows, seg_offsets, n_seg, y);
       break;
     case 16:
-      segments_kernel<XT, 16><<<grid, block, 0, st>>>(
-          xp, d, s, strides, seg_rows, seg_offsets, n_seg, y);
+      segments_kernel<16><<<grid, block, 0, st>>>(
+          x, d, s, strides, n_tenants, seg_rows, seg_offsets, n_seg, y);
       break;
     case 32:
-      segments_kernel<XT, 32><<<grid, block, 0, st>>>(
-          xp, d, s, strides, seg_rows, seg_offsets, n_seg, y);
+      segments_kernel<32><<<grid, block, 0, st>>>(
+          x, d, s, strides, n_tenants, seg_rows, seg_offsets, n_seg, y);
       break;
     default: return cudaErrorInvalidValue;
   }
@@ -263,10 +268,10 @@ cudaError_t launch_segments(const void* x, Delta d, Shape s, Strides strides,
 
 extern "C" {
 
-// x: [T, h_in] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); idx [G, keep, O]
-// uint8; codes [G, kp, O] uint8 or f32 [G, keep, O] (wbits = 0); scale
-// f32 and zero int32 device scalars; y [T, O] f32.
-int delta_spmm_launch(const void* x, int x_bf16, const void* idx,
+// x: [T, h_in] f32; idx [G, keep, O] uint8; codes [G, kp, O] uint8 or
+// f32 [G, keep, O] (wbits = 0); scale f32 and zero int32 device scalars;
+// y [T, O] f32.
+int delta_spmm_launch(const void* x, const void* idx,
                       const void* codes, const void* scale, const void* zero,
                       void* y, int T, int h_in, int O, int h_g, int keep, int kp,
                       int wbits, int tb, void* stream) {
@@ -276,9 +281,7 @@ int delta_spmm_launch(const void* x, int x_bf16, const void* idx,
                 static_cast<const float*>(scale), static_cast<const int*>(zero)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* yp = static_cast<float*>(y);
-  const cudaError_t err = x_bf16 ? launch_spmm<__nv_bfloat16>(x, d, s, yp, tb, st)
-                                 : launch_spmm<float>(x, d, s, yp, tb, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_spmm(static_cast<const float*>(x), d, s, yp, tb, st));
 }
 
 // As delta_spmm_launch, with a tenant-stacked delta: idx [R, G, keep, O],
@@ -286,18 +289,20 @@ int delta_spmm_launch(const void* x, int x_bf16, const void* idx,
 // tenant's block contiguous and the tenant axis strided by idx_stride /
 // codes_stride bytes and scale_stride / zero_stride elements; seg_rows
 // [n_seg] int32 tenant row per segment, seg_offsets [n_seg + 1] int32
-// half-open row ranges over the tenant-sorted rows of x.
-int delta_spmm_segments_launch(const void* x, int x_bf16, const void* idx,
+// half-open row ranges over the tenant-sorted rows of x. Every row of y
+// is written: rows no segment covers, and rows of a segment whose
+// tenant row is outside [0, R), are zero.
+int delta_spmm_segments_launch(const void* x, const void* idx,
                                const void* codes, const void* scale,
-                               const void* zero, long long idx_stride,
+                               const void* zero, int n_tenants, long long idx_stride,
                                long long codes_stride, long long scale_stride,
                                long long zero_stride, const void* seg_rows,
                                const void* seg_offsets, int n_seg, void* y, int T,
                                int h_in, int O, int h_g, int keep, int kp,
                                int wbits, int tb, void* stream) {
   const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
-  if (!shape_ok(s, tb) || n_seg < 1 || idx_stride < 0 || codes_stride < 0 ||
-      scale_stride < 0 || zero_stride < 0)
+  if (!shape_ok(s, tb) || n_seg < 1 || n_tenants < 1 || idx_stride < 0 ||
+      codes_stride < 0 || scale_stride < 0 || zero_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides strides{static_cast<size_t>(idx_stride), static_cast<size_t>(codes_stride),
                         static_cast<size_t>(scale_stride), static_cast<size_t>(zero_stride)};
@@ -307,10 +312,8 @@ int delta_spmm_segments_launch(const void* x, int x_bf16, const void* idx,
   float* yp = static_cast<float*>(y);
   const int* sr = static_cast<const int*>(seg_rows);
   const int* so = static_cast<const int*>(seg_offsets);
-  const cudaError_t err =
-      x_bf16 ? launch_segments<__nv_bfloat16>(x, d, s, strides, sr, so, n_seg, yp, tb, st)
-             : launch_segments<float>(x, d, s, strides, sr, so, n_seg, yp, tb, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_segments(static_cast<const float*>(x), d, s, strides,
+                                          n_tenants, sr, so, n_seg, yp, tb, st));
 }
 
 }  // extern "C"

@@ -103,11 +103,11 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.delta_spmm_launch.argtypes = [
-                p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+                p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_launch.restype = i
             ll = ctypes.c_longlong
             lib.delta_spmm_segments_launch.argtypes = [
-                p, i, p, p, p, p, ll, ll, ll, ll, p, p, i, p,
+                p, p, p, p, p, i, ll, ll, ll, ll, p, p, i, p,
                 i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_segments_launch.restype = i
             _lib = lib
@@ -121,8 +121,8 @@ def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, 
     be strided (a layer slice of a [R, L, ...] stack); each tenant's
     [G, keep|kp, O] block must be contiguous. Device placement is the
     wrappers' check."""
-    if x2.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x dtype {x2.dtype} not in (float32, bfloat16)")
+    if x2.dtype != torch.float32:
+        raise TypeError(f"x dtype {x2.dtype} is not float32")
     if x2.ndim != 2 or x2.shape[1] != d.h_in or not x2.is_contiguous():
         raise ValueError(f"x must be contiguous [T, {d.h_in}], got "
                          f"{tuple(x2.shape)}")
@@ -176,7 +176,7 @@ def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tenso
         return y
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = lib.delta_spmm_launch(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), d.idx.data_ptr(),
+        x2.data_ptr(), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(), y.data_ptr(),
         T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
     _raise_on(err, "delta_spmm")
@@ -187,7 +187,11 @@ def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tenso
 def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
                              seg_rows: torch.Tensor, seg_offsets: torch.Tensor,
                              *, tb: int) -> torch.Tensor:
-    """Row r of tenant-sorted x2 gets x2[r] @ dequant(d[seg_rows[seg(r)]])."""
+    """Row r of tenant-sorted x2 gets x2[r] @ dequant(d[seg_rows[seg(r)]]).
+
+    Rows that no segment covers, and rows of a segment whose tenant row is
+    outside the stack, come back zero (the reference kernel zero-fills its
+    output)."""
     if tb not in ROW_TILES:
         raise ValueError(f"tb={tb} not in {ROW_TILES}")
     _require_cuda(x2)
@@ -205,9 +209,9 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
         return y
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = lib.delta_spmm_segments_launch(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), d.idx.data_ptr(),
+        x2.data_ptr(), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(),
-        d.idx.stride(0), d.codes.stride(0) * d.codes.element_size(),
+        d.idx.shape[0], d.idx.stride(0), d.codes.stride(0) * d.codes.element_size(),
         d.scale.stride(0), d.zero.stride(0),
         seg_rows.data_ptr(), seg_offsets.data_ptr(), S, y.data_ptr(),
         T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)

@@ -136,16 +136,22 @@ def segment_correction(x2: torch.Tensor, d: PackedDelta,
     segment's half-open row range (padding segments are empty). The
     packed bytes are routed to rows through the segment map and
     contracted by the same :func:`_rows_core` the per-row path uses.
+    Rows that no segment covers, and rows of a segment whose tenant row
+    is outside the stack, are zero, as in the kernel.
     """
     T = x2.shape[0]
     _note("segment_correction", formulation="segments-torch", codec=d.codec,
           residency="packed", T=int(T))
     # map each (sorted) row to its segment: count of segment ends <= row
+    offs = seg_offsets.to(torch.int64)
     rows_iota = torch.arange(T, dtype=torch.int64, device=x2.device)
-    row_seg = (rows_iota[:, None] >= seg_offsets.to(torch.int64)[None, 1:]
-               ).sum(dim=1)
-    tenant_rows = seg_rows.to(torch.int64)[row_seg]  # [T]
+    row_seg = (rows_iota[:, None] >= offs[None, 1:]).sum(dim=1)
+    covered = (rows_iota >= offs[0]) & (rows_iota < offs[-1])
+    tenant_rows = seg_rows.to(torch.int64)[row_seg.clamp(max=seg_rows.shape[0] - 1)]
+    covered &= (tenant_rows >= 0) & (tenant_rows < d.idx.shape[0])
+    tenant_rows = torch.where(covered, tenant_rows, 0)   # [T]
     dl = d.with_arrays(d.idx[tenant_rows], d.codes[tenant_rows],
                        d.scale.to(torch.float32)[tenant_rows],
                        d.zero.to(torch.int32)[tenant_rows])
-    return gather_correction_rows(x2[:, None, :], dl)[:, 0]
+    y = gather_correction_rows(x2[:, None, :], dl)[:, 0]
+    return torch.where(covered[:, None], y, 0.0)

@@ -75,7 +75,8 @@ def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
         tb = row_tile(T)
         _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb,
               ob=KERNEL_OB)
-        y = _k.delta_spmm_cuda(x2.contiguous(), d, tb=tb)
+        # the kernels take f32 activations (the TPU kernel upcasts x itself)
+        y = _k.delta_spmm_cuda(x2.to(torch.float32).contiguous(), d, tb=tb)
     return y.reshape(*lead, d.h_out)
 
 
@@ -97,7 +98,7 @@ def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
     _note("delta_spmm_segments", formulation="segments-cuda", codec=d.codec,
           residency="packed", tb=tb, ob=KERNEL_OB)
     return _k.delta_spmm_segments_cuda(
-        x_sorted.contiguous(), d,
+        x_sorted.to(torch.float32).contiguous(), d,
         seg_rows.to(torch.int32).contiguous(),
         seg_offsets.to(torch.int32).contiguous(), tb=tb)
 

@@ -69,9 +69,14 @@ def test_delta_spmm_kernel_matches_plain(cuda, T, h_in, h_out, h_g, alpha, k):
 
 @pytest.mark.gpu
 def test_delta_spmm_kernel_bf16_input(cuda):
+    """The kernels take f32 activations: ops upcasts a bf16 x (exactly),
+    the wrapper itself refuses it."""
     d = _pack(256, 128, 16, 8, 4, 1, cuda)
     x = _x(24, 256, 2, cuda, torch.bfloat16)
     torch.testing.assert_close(ops.delta_spmm(x, d), fb.correction(x, d), **TOL)
+    assert torch.equal(ops.delta_spmm(x, d), ops.delta_spmm(x.float(), d))
+    with pytest.raises(TypeError):
+        kern.delta_spmm_cuda(x, d, tb=32)
 
 
 @pytest.mark.gpu
@@ -103,6 +108,25 @@ def test_segments_kernel_matches_plain_and_spmm_bits(cuda, rows):
     for t in range(3):
         sel = sorted_rows == t
         assert torch.equal(got[sel], ops.delta_spmm(xs, stack.index(t))[sel])
+
+
+@pytest.mark.gpu
+def test_segments_kernel_zero_fills_uncovered_rows(cuda):
+    """Rows past the last segment, and a segment whose tenant row is
+    outside the stack, come back zero, as from the plain version."""
+    tenants = [_pack(64, 96, 16, 8, 4, 40 + t, cuda) for t in range(2)]
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    x = _x(10, 64, 9, cuda)
+    seg_rows = torch.tensor([1, 5, 0], dtype=torch.int32, device=cuda)
+    seg_offsets = torch.tensor([0, 3, 5, 7], dtype=torch.int32, device=cuda)
+    for _ in range(2):     # the second call reuses the first's freed output
+        got = ops.delta_spmm_segments(x, stack, seg_rows, seg_offsets)
+        torch.testing.assert_close(
+            got, fb.segment_correction(x, stack, seg_rows, seg_offsets), **TOL)
+        assert torch.equal(got[3:5], torch.zeros_like(got[3:5]))
+        assert torch.equal(got[7:], torch.zeros_like(got[7:]))
+        assert torch.equal(got[:3], ops.delta_spmm(x[:3], stack.index(1)))
+        del got
 
 
 @pytest.mark.gpu
@@ -144,8 +168,9 @@ def test_launch_checks_accept_layer_slices_and_reject_bad_layouts():
     assert kern.check_inputs(x, layers[0]["w"], stacked=False) == (1, 4)
     with pytest.raises(ValueError):
         kern.check_inputs(_x(4, 32, 0, "cpu"), layers[0]["w"], stacked=False)
-    with pytest.raises(TypeError):
-        kern.check_inputs(x.double(), layers[0]["w"], stacked=False)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError):
+            kern.check_inputs(x.to(dtype), layers[0]["w"], stacked=False)
     bad = layers[0]["w"].with_arrays(layers[0]["w"].idx.to(torch.int32),
                                      layers[0]["w"].codes, layers[0]["w"].scale,
                                      layers[0]["w"].zero)

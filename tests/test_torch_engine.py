@@ -79,10 +79,12 @@ def test_generate_logits_match_reference_bf16():
     logits = []
     toks = teng.generate(name, prompts, max_new_tokens=5, logits_out=logits)
     cache = jlm.init_cache(cfg, 2, 32)
-    jlog, cache = jlm.prefill(cfg, base, {"tokens": jnp.asarray(prompts)}, cache, deltas=d)
+    jlog, cache = jax.jit(jlm.prefill, static_argnums=0)(
+        cfg, base, {"tokens": jnp.asarray(prompts)}, cache, deltas=d)
+    j_decode = jax.jit(jlm.decode_step, static_argnums=0)
     for t in range(5):
         np.testing.assert_allclose(logits[t].numpy(), np.asarray(jlog), atol=1e-3, rtol=1e-3)
-        jlog, cache = jlm.decode_step(cfg, base, cache, jnp.asarray(toks[:, t:t + 1]),
+        jlog, cache = j_decode(cfg, base, cache, jnp.asarray(toks[:, t:t + 1]),
                                       jnp.int32(8 + t), deltas=d)
 
 

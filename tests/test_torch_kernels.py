@@ -2,8 +2,10 @@
 
 On the CPU the port's ``ops.delta_spmm`` / ``ops.delta_spmm_segments``
 run their plain torch versions; the reference runs its Pallas kernels in
-interpret mode. Both see the same packed deltas (made by the reference,
-carried across through numpy) and the same activations, and must agree
+interpret mode. Both see the same packed deltas (packed by the port from
+numpy-seeded deltas and carried across through numpy; the packer itself
+is held exactly against the reference's in ``test_torch_core.py``) and
+the same activations, and must agree
 at atol/rtol 1e-4 in f32 (``tests/test_kernels.py:44``): the two sum in
 different orders. The bit-stability properties the token-identity
 contract rests on are held EXACTLY inside the port.
@@ -19,12 +21,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.core import groupwise_dropout_pack  # noqa: E402
 from repro.core.apply import stack_tenant_deltas as j_stack  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.serve.scheduler import tenant_segments as j_segments  # noqa: E402
 
 from repro_torch.core import apply as tapply  # noqa: E402
+from repro_torch.core.dropout import groupwise_dropout_pack  # noqa: E402
 from repro_torch.kernels import fallback as tfb  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -47,9 +49,12 @@ SWEEP = [   # tests/test_kernels.py:23-31
 
 
 def _pack(h_in, h_out, h_g, alpha, k, seed=0, scale=0.01):
-    rng = jax.random.PRNGKey(seed)
-    d = jax.random.normal(rng, (h_in, h_out)) * scale
-    return groupwise_dropout_pack(rng, d, h_g=h_g, alpha=alpha, k_bits=k)
+    """A reference PackedDelta, packed by the port (no JAX compile per
+    shape) from a numpy-seeded delta."""
+    rng = np.random.default_rng(seed)
+    d = torch.from_numpy((rng.standard_normal((h_in, h_out)) * scale).astype(np.float32))
+    u = torch.from_numpy(rng.random((h_in // h_g, h_g, h_out)).astype(np.float32))
+    return br.packed_to_jax(groupwise_dropout_pack(d, h_g=h_g, alpha=alpha, k_bits=k, u=u))
 
 
 def _x(T, h_in, seed):
@@ -182,6 +187,21 @@ def test_segment_rows_bit_equal_to_per_tenant_rows():
         assert torch.equal(got[sel], per[sel])
 
 
+def test_segment_correction_zero_fills_uncovered_rows():
+    """Rows that no segment covers, and a segment whose tenant row is
+    outside the stack, are zero (the reference kernel zero-fills its
+    output); covered rows keep their bits."""
+    tstk = br.packed_to_port(_stacked(2))
+    x = torch.from_numpy(_x(10, 128, 9))
+    seg_rows = torch.tensor([1, 5, 0], dtype=torch.int32)
+    seg_offsets = torch.tensor([0, 3, 5, 7], dtype=torch.int32)
+    got = tops.delta_spmm_segments(x, tstk, seg_rows, seg_offsets)
+    assert torch.equal(got[3:5], torch.zeros_like(got[3:5]))
+    assert torch.equal(got[7:], torch.zeros_like(got[7:]))
+    assert torch.equal(got[:3], tfb.gather_correction(x[:3], tstk.index(1)))
+    assert torch.equal(got[5:7], tfb.gather_correction(x[5:7], tstk.index(0)))
+
+
 def test_tenant_segments_layout_matches_reference():
     for rows in ([2, 0, 2, 1], [0, 0, 0, 0], [1, 2, 3, 0], [3, 3, 1, 1, 0, 2, 2, 2]):
         a = t_segments(np.asarray(rows, np.int32))
@@ -200,21 +220,19 @@ def test_tenant_segments_layout_matches_reference():
 def test_slot_delta_matmul_modes_match_reference(mode):
     from repro.core.apply import slot_delta_matmul as j_sdm
     from repro.core.apply import wrap_slot_deltas as j_wrap
+    """A SlotDelta with a segment layout takes the segments dispatch; one
+    without (segments=None) the per-row gather, in both packages."""
     stk = _stacked(3)
     rows = np.array([2, 0, 2, 1, 0, 1], np.int32)
     x = _x(len(rows), 128, 8).reshape(len(rows), 1, 128)
-    jseg = jax.tree.map(jnp.asarray, j_segments(rows))
+    segmented = mode == "segments"
+    jseg = jax.tree.map(jnp.asarray, j_segments(rows)) if segmented else None
     want = np.asarray(j_sdm(jnp.asarray(x),
                             j_wrap({"w": stk}, jnp.asarray(rows), segments=jseg)["w"]))
-    tseg = t_segments(rows).to("cpu")
+    tseg = t_segments(rows).to("cpu") if segmented else None
     sd = tapply.wrap_slot_deltas({"w": br.packed_to_port(stk)},
                                  torch.from_numpy(rows).long(), segments=tseg)["w"]
-    prev = tapply.get_slot_dispatch()
-    try:
-        tapply.set_slot_dispatch(mode)
-        got = tapply.slot_delta_matmul(torch.from_numpy(x), sd)
-    finally:
-        tapply.set_slot_dispatch(prev)
+    got = tapply.slot_delta_matmul(torch.from_numpy(x), sd)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 

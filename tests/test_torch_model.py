@@ -35,6 +35,12 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=1e-3, rtol=1
 ARCHS = ["wizard-llama2-7b", "llama3.2-1b"]
 SPEC = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
 
+# the reference's model functions under jit, as its engines call them:
+# one compile per shape instead of one per primitive
+j_forward = jax.jit(jlm.forward, static_argnums=0, static_argnames="remat")
+j_prefill = jax.jit(jlm.prefill, static_argnums=0)
+j_decode = jax.jit(jlm.decode_step, static_argnums=0)
+
 
 @functools.lru_cache(maxsize=None)
 def _setup(name, dtype):
@@ -65,8 +71,8 @@ def _check(got, want, dtype):
 def test_forward_logits_match_reference(name, dtype, with_deltas):
     cfg, base, deltas, tbase, tdeltas = _setup(name, dtype)
     toks = _tokens(cfg, 2, 12, 0)
-    want = jlm.forward(cfg, base, {"tokens": jnp.asarray(toks)},
-                       deltas=deltas if with_deltas else None)
+    want = j_forward(cfg, base, {"tokens": jnp.asarray(toks)},
+                     deltas=deltas if with_deltas else None)
     got = tlm.forward(cfg, tbase, {"tokens": torch.from_numpy(toks).long()},
                       deltas=tdeltas if with_deltas else None)
     _check(got, want, dtype)
@@ -80,15 +86,15 @@ def test_prefill_and_decode_logits_match_reference(name, dtype):
     toks = _tokens(cfg, B, S, 1)
     for d, td in ((None, None), (deltas, tdeltas)):
         jc = jlm.init_cache(cfg, B, max_seq)
-        jlog, jc = jlm.prefill(cfg, base, {"tokens": jnp.asarray(toks)}, jc, deltas=d)
+        jlog, jc = j_prefill(cfg, base, {"tokens": jnp.asarray(toks)}, jc, deltas=d)
         tc = tlm.init_cache(cfg, B, max_seq, device="cpu")
         tlog, tc = tlm.prefill(cfg, tbase, {"tokens": torch.from_numpy(toks).long()},
                                tc, deltas=td)
         _check(tlog, jlog, dtype)
         for t in range(3):
             nxt = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)[:, None]
-            jlog, jc = jlm.decode_step(cfg, base, jc, jnp.asarray(nxt),
-                                       jnp.int32(S + t), deltas=d)
+            jlog, jc = j_decode(cfg, base, jc, jnp.asarray(nxt),
+                                jnp.int32(S + t), deltas=d)
             tlog, tc = tlm.decode_step(cfg, tbase, tc, torch.from_numpy(nxt).long(),
                                        S + t, deltas=td)
             _check(tlog, jlog, dtype)
@@ -107,16 +113,16 @@ def test_decode_step_per_slot_positions_match_reference():
     toks = _tokens(cfg, B, 6, 2)
     pos = np.array([[-2, -1, 0, 1, 2, 3], [0, 1, 2, 3, 4, 5], [-1, 0, 1, 2, 3, 4]],
                    np.int32)
-    jlog, jc = jlm.prefill(cfg, base, {"tokens": jnp.asarray(toks),
-                                       "positions": jnp.asarray(pos)}, jc, deltas=deltas)
+    jlog, jc = j_prefill(cfg, base, {"tokens": jnp.asarray(toks),
+                                     "positions": jnp.asarray(pos)}, jc, deltas=deltas)
     tlog, tc = tlm.prefill(cfg, tbase, {"tokens": torch.from_numpy(toks).long(),
                                         "positions": torch.from_numpy(pos).long()},
                            tc, deltas=tdeltas)
     _check(tlog, jlog, "float32")
     step_pos = pos[:, -1] + 1
     nxt = _tokens(cfg, B, 1, 3)
-    jlog, jc = jlm.decode_step(cfg, base, jc, jnp.asarray(nxt), jnp.asarray(step_pos),
-                               deltas=deltas)
+    jlog, jc = j_decode(cfg, base, jc, jnp.asarray(nxt), jnp.asarray(step_pos),
+                        deltas=deltas)
     tlog, tc = tlm.decode_step(cfg, tbase, tc, torch.from_numpy(nxt).long(),
                                torch.from_numpy(step_pos).long(), deltas=tdeltas)
     _check(tlog, jlog, "float32")

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 import jax
+import jax.numpy as jnp
 
 from repro.core.pack import PackedDelta as JaxPackedDelta
 from repro.utils import flatten_with_paths
@@ -52,6 +53,15 @@ def packed_to_port(d: JaxPackedDelta, device=CPU):
     meta = {k: getattr(d, k) for k in
             ("h_in", "h_out", "h_g", "keep", "alpha", "k_bits", "m", "codec")}
     return convert.packed_delta_from_numpy(arrays, meta, device=device)
+
+
+def packed_to_jax(d) -> JaxPackedDelta:
+    """The port's PackedDelta -> the reference's (arrays through numpy)."""
+    arrays = {k: jnp.asarray(getattr(d, k).detach().cpu().numpy())
+              for k in ("idx", "codes", "scale", "zero")}
+    meta = {k: getattr(d, k) for k in
+            ("h_in", "h_out", "h_g", "keep", "alpha", "k_bits", "m", "codec")}
+    return JaxPackedDelta(**arrays, **meta)
 
 
 def deltas_to_port(deltas, device=CPU):
