@@ -3,18 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain torch version at the full
-wizard-llama2-7b widths, then drives the main serving path at full width
-(32 layers, d_model 4096, bf16 weights, random init from a seed):
-3 tenants compressed at the 128x DeltaDQ spec, ``Engine.generate`` for
-the base and each tenant, and one mixed-tenant decode batch of 8 slots
-through ``lm.decode_step`` with a slot-dispatched delta tree. It checks
-the outputs, that the main path launched both kernels, and prints one
-JSON line of kernel measurements, then the card's name and power limit,
-then a final JSON status line. Any failed check raises: the script exits
-non-zero and prints no status line. It needs CUDA, and the checkout's
-``src/`` beside it. Details go to ``build/chip_smoke_report.json``.
+Builds the port's four CUDA kernels from the sources in this checkout,
+holds each kernel against its plain torch version at the full
+wizard-llama2-7b widths, then drives each of the port's paths at full
+width (32 layers, d_model 4096, bf16 weights, random init from a seed):
+the serving path (3 tenants compressed at the 128x DeltaDQ spec,
+``Engine.generate`` for the base and each tenant, then the merge of
+tenant0's delta into the base weights), one mixed-tenant decode batch of
+8 slots through ``lm.decode_step`` with a slot-dispatched delta tree,
+the quickstart (``launch/quickstart.py``: compress, serve separately and
+merged) and the kernels demo (``launch/kernels_demo.py``: the four
+kernels' entry points). It checks the outputs, that each path launched
+its kernels, and prints one JSON line of kernel measurements, then the
+card's name and power limit, then a final JSON status line. Any failed
+check raises: the script exits non-zero and prints no status line. It
+needs CUDA, and the checkout's ``src/`` beside it. Details go to
+``build/chip_smoke_report.json``.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ SITES = {"wq": (4096, 4096), "wi": (4096, 11008), "mlp_wo": (11008, 4096)}
 H_G, ALPHA = 16, 8.0
 K_CASES = (4, 8, None)
 PARITY_T = (1, 2, 4, 8, 128, 256)
+FUSED_T = (1, 2, 8, 128, 256)
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)      # tests/test_kernels.py:44, f32
 # Random weights plus the launcher's 0.02 tenant noise (larger than the
 # 1/64 init std at d_model 4096) make the 32-layer stack chaotic: a
@@ -58,6 +63,7 @@ MIXED_REL_TOL = 5e-2
 # f32 dense delta stack, is timed where that stack fits in this many
 # bytes: the decode shapes (1.4 GB at wi, T=8), not prefill (46 GB)
 LIBRARY_STACK_MAX_BYTES = 4e9
+DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
 
 
 def log(*a) -> None:
@@ -167,11 +173,33 @@ def phase_parity(torch, report: dict) -> dict:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
-    worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0}
+    worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0, "fused_base_delta": 0.0,
+             "dequant": 0.0}
     rows_out = []
+    n_fused = 0
     for site, (h_in, h_out) in SITES.items():
+        w = (torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02).to(
+            torch.bfloat16)
         for k in K_CASES:
             d = _rand_packed(torch, dropout, h_in, h_out, k, gen)
+            # dequant: no reduction, so bit for bit
+            dense = ops.dequant(d)
+            want = fb.dequant(d)
+            torch.cuda.synchronize()
+            worst["dequant"] = max(worst["dequant"], (dense - want).abs().max().item())
+            if not torch.equal(dense.view(torch.int32), want.view(torch.int32)):
+                fail(f"dequant {site} k={k}: not bit-equal to the plain version")
+            del dense, want
+            for T in FUSED_T:
+                x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+                y = ops.fused_base_delta(x, w, d)
+                want = fb.fused_base_delta(x, w, d)
+                torch.cuda.synchronize()
+                err = (y - want).abs().max().item()
+                worst["fused_base_delta"] = max(worst["fused_base_delta"], err)
+                if not torch.allclose(y, want, **KERNEL_TOL):
+                    fail(f"fused_base_delta {site} k={k} T={T}: max err {err:.3e}")
+                n_fused += 1
             tenants = [_rand_packed(torch, dropout, h_in, h_out, k, gen) for _ in range(4)]
             stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
             for T in PARITY_T:
@@ -212,11 +240,16 @@ def phase_parity(torch, report: dict) -> dict:
                 sel = sorted_rows == t
                 if not torch.equal(ys[sel], per[sel]):
                     fail(f"segments rows != delta_spmm rows ({site} k={k} tenant {t})")
+        del w
     torch.cuda.synchronize()
     log(f"[parity] {len(rows_out)} cases x 2 kernels within atol/rtol 1e-4 "
         f"(worst |err| spmm {worst['delta_spmm']:.3e}, segments "
         f"{worst['delta_spmm_segments']:.3e}); T=1 == row of T=8 and segment "
         f"rows == delta_spmm rows bit for bit at all sites and k_bits")
+    log(f"[parity] dequant bit-equal to its plain version in "
+        f"{len(SITES) * len(K_CASES)} cases; fused_base_delta (bf16 W) within "
+        f"atol/rtol 1e-4 in {n_fused} cases (worst |err| "
+        f"{worst['fused_base_delta']:.3e})")
     report["parity"] = rows_out
 
     # device times at the main path's shapes, 128x spec (k=4), on a ring
@@ -257,9 +290,76 @@ def phase_parity(torch, report: dict) -> dict:
             log(f"[time] {kname:20s} {site:6s} T={T:3d}: kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, library {lib if lib is None else f'{lib:.4f}'}"
                 f" ms, bound {b_ms:.4f} ms ({b_by})")
+        times += _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out)
         del ring, dense, stacks
     report["times"] = times
     return worst
+
+
+def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
+    """Device times of dequant and fused_base_delta on the same ring of
+    8 deltas (128x spec), with 8 distinct bf16 W for the fused kernel."""
+    from repro_torch.core.apply import apply_linear
+    from repro_torch.core.pack import decode_values
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+
+    nnz, dbytes = ring[0].nnz, packed_bytes(ring[0])
+    out = []
+    # dequant: no single PyTorch call decodes the packed codes. Partial
+    # yardstick, the write half only: zero fill + one scatter_ of values
+    # decoded beforehand (int64 indices) into the dense matrix.
+    G, h_g = ring[0].n_groups, ring[0].h_g
+    pre = [(decode_values(d), d.idx.long()) for d in ring]
+
+    def scatter(v, i):
+        return torch.zeros((G, h_g, h_out), device=DEVICE).scatter_(1, i, v)
+
+    if not torch.equal(scatter(*pre[0]).view(h_in, h_out), ops.dequant(ring[0])):
+        fail("the dequant partial yardstick disagrees with the kernel")
+    ms = time_ms(torch, [lambda d=d: ops.dequant(d) for d in ring])
+    plain = time_ms(torch, [lambda d=d: fb.dequant(d) for d in ring], iters=8, reps=3)
+    part = time_ms(torch, [lambda p=p: scatter(*p) for p in pre])
+    b_ms, b_by = bound_ms(0, dbytes, h_in * h_out * 4, 2.0 * nnz)
+    out.append({"kernel": "dequant", "site": site, "h_in": h_in, "h_out": h_out,
+                "T": None, "ms": ms, "plain_ms": plain, "library_ms": None,
+                "library_note": DEQUANT_LIBRARY_NOTE, "scatter_partial_ms": part,
+                "bound_ms": b_ms, "bound_by": b_by})
+    log(f"[time] {'dequant':20s} {site:6s}      : kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, library none ({DEQUANT_LIBRARY_NOTE}); partial yardstick "
+        f"(zero fill + scatter_ of pre-decoded values) {part:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del pre
+
+    # fused: library = one torch.matmul on the merged f32 matrix, built
+    # beforehand; context = the port's unfused apply_linear (cuBLAS base
+    # GEMM on the bf16 W promoted to f32, plus the delta_spmm kernel)
+    ws = [(torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02).to(
+        torch.bfloat16) for _ in ring]
+    merged = [w.float() + dd for w, dd in zip(ws, dense)]
+    for T in (2, 128):
+        x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+        case = list(zip(ws, ring, merged))
+        ms = time_ms(torch, [lambda w=w, d=d: ops.fused_base_delta(x, w, d)
+                             for w, d, _ in case])
+        plain = time_ms(torch, [lambda w=w, d=d: fb.fused_base_delta(x, w, d)
+                                for w, d, _ in case], iters=8, reps=3)
+        lib = time_ms(torch, [lambda m=m: torch.matmul(x, m) for _, _, m in case])
+        unfused = time_ms(torch, [lambda w=w, d=d: apply_linear(x, w, d)
+                                  for w, d, _ in case])
+        b_ms, b_by = bound_ms(T * h_in * 4, h_in * h_out * 2 + dbytes, T * h_out * 4,
+                              2.0 * T * h_in * h_out)
+        out.append({"kernel": "fused_base_delta", "site": site, "h_in": h_in,
+                    "h_out": h_out, "T": T, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "apply_linear_ms": unfused, "bound_ms": b_ms,
+                    "bound_by": b_by})
+        log(f"[time] {'fused_base_delta':20s} {site:6s} T={T:3d}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, library (matmul on merged f32) {lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); context, not the yardstick: unfused "
+            f"apply_linear {unfused:.4f} ms")
+    del ws, merged
+    torch.cuda.empty_cache()
+    return out
 
 
 def _segments_library_ms(torch, xs, stack, T: int, seg, ops):
@@ -345,9 +445,17 @@ def phase_main_path(torch, kern, report: dict) -> dict:
     log(f"[main] base    tokens[0]: {outputs[None][0].tolist()}")
 
     # separate computation == merged weights (f32, see MERGED_REL_TOL), on
-    # tenant0's prefill logits
+    # tenant0's prefill logits; the merge runs the dequant kernel per matrix
+    kern.reset_launches()
     merged = merge_delta({k: {n: w.float() for n, w in v.items()} for k, v in base.items()},
                          eng.store.get("tenant0").deltas)
+    torch.cuda.synchronize()
+    merge_launches = dict(kern.LAUNCHES)
+    log(f"[main] merge of tenant0: launches {merge_launches} (expected dequant "
+        f"{sites}: one per matrix)")
+    if merge_launches["dequant"] != sites:
+        fail(f"the merge launched dequant {merge_launches['dequant']} times, "
+             f"expected {sites}")
     cache = lm.init_cache(cfg, B, 96, device=DEVICE)
     tok = torch.as_tensor(prompts, dtype=torch.int64, device=DEVICE)
     with torch.inference_mode():
@@ -376,11 +484,13 @@ def phase_main_path(torch, kern, report: dict) -> dict:
     log(f"[steps] B={B}: decode step base {steps['decode_None']:.2f} ms, tenant0 "
         f"{steps['decode_tenant0']:.2f} ms; prefill S={S} base "
         f"{steps['prefill_None']:.2f} ms, tenant0 {steps['prefill_tenant0']:.2f} ms")
-    report["main"] = {"launches": launches, "wall_s": wall, "step_ms": steps,
+    report["main"] = {"launches": launches, "merge_launches": merge_launches,
+                      "wall_s": wall, "step_ms": steps,
                       "separate_vs_merged_rel": err / scale,
                       "tokens": {str(k): v.tolist() for k, v in outputs.items()}}
     return {"cfg": cfg, "base": base, "eng": eng, "prompts": prompts,
-            "outputs": outputs, "logits": logits, "launches": launches}
+            "outputs": outputs, "logits": logits, "launches": launches,
+            "merge_launches": merge_launches}
 
 
 def phase_mixed_decode(torch, kern, ctx: dict, report: dict) -> dict:
@@ -474,6 +584,82 @@ def phase_mixed_decode(torch, kern, ctx: dict, report: dict) -> dict:
     return launches
 
 
+def phase_quickstart(torch, kern, report: dict) -> dict:
+    """``launch/quickstart.py``'s function at the full width: compress a
+    perturbed copy at 128x, serve it separately and merged."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import quickstart
+
+    cfg = get_config(ARCH)
+    sites = 7 * cfg.n_layers
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    out = quickstart.run(cfg, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    log(f"[quickstart] {cfg.name} full width: {wall:.1f} s; launches {launches}; "
+        f"separate vs merged rel {out['rel']:.3e} (bound {quickstart.REL_TOL}), the "
+        f"delta moves the logits by {out['delta_gap']:.3e}")
+    sep = out["separate"]
+    if tuple(sep.shape) != (2, 16, cfg.vocab) or not bool(torch.isfinite(sep).all()):
+        fail(f"quickstart logits: shape {tuple(sep.shape)} or non-finite")
+    if not out["ok"]:
+        fail("quickstart: separate computation does not match the merged model")
+    if launches["dequant"] != sites or launches["delta_spmm"] != sites:
+        fail(f"quickstart launched {launches}, expected dequant and delta_spmm "
+             f"{sites} each")
+    report["quickstart"] = {"launches": launches, "wall_s": wall, "rel": out["rel"],
+                            "delta_gap": out["delta_gap"]}
+    return launches
+
+
+def phase_kernels_demo(torch, kern, report: dict) -> dict:
+    """``launch/kernels_demo.py``'s function at the wizard-llama2-7b wi
+    site (T=128, bf16 W): each kernel's public entry point once."""
+    from repro_torch.launch import kernels_demo
+
+    T, h_in, h_out, h_g = kernels_demo.FULL
+    kern.reset_launches()
+    out = kernels_demo.run(DEVICE, T=T, h_in=h_in, h_out=h_out, h_g=h_g,
+                           w_dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    launches = dict(kern.LAUNCHES)
+    log(f"[demo] launches {launches}")
+    for name, r in out.items():
+        if not r["ok"]:
+            fail(f"kernels demo: {name} disagrees with its oracle "
+                 f"({r['max_abs_err']:.3e})")
+        if launches[name] != 1:
+            fail(f"kernels demo launched {name} {launches[name]} times, expected 1")
+    report["demo"] = {"launches": launches, "errors": out}
+    return launches
+
+
+def kernel_entries(report: dict, worst: dict, path_launches: dict) -> list:
+    """The ``kernels`` JSON line: each kernel at the wi site, with its
+    launches from the path that runs it (``path_launches[name]``, the
+    counts read right after that path)."""
+    by = {(t["kernel"], t["site"], t["T"]): t for t in report["times"]}
+    entries = []
+    for name, line, T in (("delta_spmm", 122, 2), ("delta_spmm_segments", 240, 8),
+                          ("fused_base_delta", 173, 128), ("dequant", 311, None)):
+        t = by[(name, "wi", T)]
+        extra = {k: t[k] for k in ("library_note", "scatter_partial_ms",
+                                   "apply_linear_ms") if k in t}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/delta_spmm.cu",
+            "replaces": f"src/repro/kernels/delta_spmm.py:{line}",
+            "launches": path_launches[name][name],
+            "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"wi 4096x11008{'' if T is None else f', T={T}'}, 128x spec",
+            **extra})
+    return entries
+
+
 def _write_report(report: dict, t_start: float) -> None:
     """Everything measured so far, also when a check failed."""
     report["wall_s"] = time.perf_counter() - t_start
@@ -508,23 +694,17 @@ def main() -> int:
             worst = phase_parity(torch, report)
             ctx = phase_main_path(torch, kern, report)
             mixed_launches = phase_mixed_decode(torch, kern, ctx, report)
+            main_launches, merge_launches = ctx["launches"], ctx["merge_launches"]
+            ctx.clear()          # frees the base, the engine and the tenants
+            torch.cuda.empty_cache()
+            phase_quickstart(torch, kern, report)
+            demo_launches = phase_kernels_demo(torch, kern, report)
     finally:
         _write_report(report, t_start)
 
-    main_launches = ctx["launches"]
-    by = {(t["kernel"], t["site"], t["T"]): t for t in report["times"]}
-    entries = []
-    for name, line, T in (("delta_spmm", 122, 2), ("delta_spmm_segments", 240, 8)):
-        t = by[(name, "wi", T)]
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/delta_spmm.cu",
-            "replaces": f"src/repro/kernels/delta_spmm.py:{line}",
-            "launches": (main_launches if name == "delta_spmm" else mixed_launches)[name],
-            "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "shape": f"wi 4096x11008, T={T}, 128x spec"})
+    entries = kernel_entries(report, worst, {
+        "delta_spmm": main_launches, "delta_spmm_segments": mixed_launches,
+        "fused_base_delta": demo_launches, "dequant": merge_launches})
     report["kernels"] = entries
     _write_report(report, t_start)
     log(f"[done] {report['wall_s']:.1f} s")

@@ -13,7 +13,12 @@ from repro_torch.core.apply import (
     zero_delta_like,
 )
 from repro_torch.core.codecs import DeltaDQCodec, DeltaDQSpec, runtime_delta_tree
-from repro_torch.core.compress import CompressionReport, compress, is_compressible
+from repro_torch.core.compress import (
+    CompressionReport,
+    compress,
+    decompress,
+    is_compressible,
+)
 from repro_torch.core.dropout import groupwise_dropout_pack, keep_count
 from repro_torch.core.pack import PackedDelta, decode_values, reconstruct_dense
 from repro_torch.core.quant import (

@@ -25,7 +25,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.pack import PackedDelta, reconstruct_dense
+from repro_torch.core.pack import PackedDelta
 
 def _note(site: str, **attrs) -> None:
     """Report the chosen dispatch to an open trace context (no-op
@@ -262,11 +262,20 @@ def wrap_slot_deltas(stacked: Any, slots: torch.Tensor,
 
 
 def merge_delta(params: Any, deltas: Any) -> Any:
-    """Materialize fine-tuned params = base + dense(delta). (Eval/reference.)"""
+    """Materialize fine-tuned params = base + dense(delta). (Eval/reference.)
+
+    Each matrix's dense delta comes from ``kernels.ops.dequant`` (the
+    dequant kernel on the card); a stacked leaf is merged one slice of
+    its leading axis at a time, so no stacked dense delta is ever held."""
     if isinstance(params, dict):
         return {k: merge_delta(v, deltas.get(k) if isinstance(deltas, dict) else None)
                 for k, v in params.items()}
     if deltas is None:
         return params
-    dense = reconstruct_dense(deltas)
-    return (params.to(torch.float32) + dense).to(params.dtype)
+    if deltas.stack_shape():
+        out = torch.empty_like(params)
+        for i in range(params.shape[0]):
+            out[i] = merge_delta(params[i], deltas.index(i))
+        return out
+    from repro_torch.kernels import ops
+    return (params.to(torch.float32) + ops.dequant(deltas)).to(params.dtype)

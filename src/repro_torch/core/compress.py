@@ -169,3 +169,9 @@ def compress(base_params: Any, ft_params: Any, spec: Optional[DeltaDQSpec] = Non
     deltas = map_with_paths(fn, base_params, ft_params)
     report.wall_s = time.perf_counter() - t0
     return deltas, report
+
+
+def decompress(base_params: Any, deltas: Any) -> Any:
+    """Reconstruct approximate fine-tuned params (reference/eval path)."""
+    from repro_torch.core.apply import merge_delta
+    return merge_delta(base_params, deltas)

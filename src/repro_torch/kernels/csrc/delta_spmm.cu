@@ -1,6 +1,7 @@
-// DeltaDQ delta-correction kernels for Hopper (sm_90a).
+// DeltaDQ delta kernels for Hopper (sm_90a).
 //
-// Two kernels, one device routine:
+// Four kernels; the two correction kernels share one device routine, and
+// all four share the code decode (decode_value):
 //
 //   delta_spmm           y[T, O] = x[T, h_in] @ dequant(delta)
 //                        replaces repro/kernels/delta_spmm.py:122
@@ -9,6 +10,13 @@
 //                        x[r] @ dequant(delta[seg_rows[seg(r)]])
 //                        replaces repro/kernels/delta_spmm.py:240
 //                        delta_spmm_segments_kernel (body _segments_body, :211)
+//   fused_base_delta     y[T, O] = x[T, h_in] @ (W + dequant(delta)), W bf16
+//                        or f32 [h_in, O]
+//                        replaces repro/kernels/delta_spmm.py:173
+//                        fused_base_delta_kernel (body _fused_body, :158)
+//   dequant              the dense delta [h_in, O] f32 (merge path)
+//                        replaces repro/kernels/delta_spmm.py:311
+//                        dequant_kernel (body _dequant_body, :305)
 //
 // The packed delta (repro_torch/core/pack.py) holds, per (group g, kept
 // slot k, output column o), a uint8 local index idx[g, k, o] < h_g and a
@@ -54,10 +62,41 @@
 //    that no segment covers, and segments whose tenant row lies outside
 //    the stack, get zeros, as the TPU kernel's zero-filled output does.
 //
+// fused_base_delta: the TPU kernel's function, y = x @ (W + dense(delta))
+// with the merged weight formed per element in f32 (one rounding, as
+// _fused_body's `w + dense`), not a copy of its blocks. Bound: at decode
+// (T <= 8) it must read W once (2 bytes a weight in bf16: 90 MB at a
+// 4096 x 11008 site, ~27 us) plus the packed delta; at T = 128 the
+// 2 * T * h_in * O f32 operations (~11.5 GFLOP there, ~0.17 ms) bound it.
+// Design: one block per (row block of TB rows, 32 columns), as
+// delta_spmm. The loop over chunks of whole groups stages x[rows, chunk]
+// as block_correction does, and the merged tile W[chunk, 32] + 0 in f32
+// (W read as stored and converted in registers, so bf16 W moves half the
+// bytes). Warp w then owns the chunk's groups g with g % 8 == w: each
+// lane adds (0 + v) at its column's kept rows -- the plain version's
+// w + (zeros scatter-added with v), bit for bit, signed zeros included --
+// and accumulates x[r, i] * merged[i] over the group's rows in increasing
+// i, groups in increasing g; the 8 partials are added in warp order.
+// The lane reads back only what it wrote, so adding needs no barrier.
+// The accumulate is an FMA (as a GEMM's); no bit-identity contract rests
+// on this kernel. Shared memory is sized per (TB, h_g) within 64 KB
+// (dynamic): a chunk holds at least one group at h_g = 256, TB = 32.
+//
+// dequant: the dense delta, (q - z) * s placed at each kept index, 0
+// elsewhere. Bound: writing h_in * O * 4 bytes (180 MB at 4096 x 11008,
+// ~54 us) plus reading the packed delta. Design: each warp owns one
+// (group, 32-column) tile; each lane zero-fills its column's h_g rows of
+// the output, then writes 0 + v at each kept row (the plain version's
+// scatter-add into zeros, bit for bit). Kept indices are distinct within
+// a (group, column) and one thread writes both stores of an address, so
+// no atomics and no barrier; there is no reduction, so the result equals
+// the plain version bit for bit.
+//
 // Plain C interface (loaded with ctypes). Every pointer is a device
 // pointer; the kernels launch on the given stream, allocate nothing and
 // return cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,6 +106,7 @@ constexpr int kWarps = 8;              // warps per block
 constexpr int kThreads = kWarps * 32;  // threads per block
 constexpr int kCols = 32;              // output columns per block (one per lane)
 constexpr int kSmemFloats = 8192;      // 32 KB: x chunk [TB][CH], then partials
+constexpr int kFusedSmemFloats = 16384;  // 64 KB (dynamic): x chunk + merged tile
 
 struct Delta {
   const uint8_t* idx;    // [G, keep, O]
@@ -86,6 +126,31 @@ struct Strides {
   size_t idx, codes, scale, zero;
 };
 
+// The per-matrix constants of the code decode.
+struct Decode {
+  float scale, zf;  // scale, zero point as f32
+  int per;          // codes per byte
+  unsigned mask;    // one code's bits
+};
+
+__device__ __forceinline__ Decode decode_consts(const Delta& d, const Shape& s) {
+  return {*d.scale, static_cast<float>(*d.zero), s.wbits ? 8 / s.wbits : 1,
+          s.wbits ? (1u << s.wbits) - 1u : 0u};
+}
+
+// Kept value k of group g in column o: (q - zero) * scale with explicit
+// round-to-nearest (the plain version's subtract, then multiply), or the
+// raw f32 value when wbits == 0.
+__device__ __forceinline__ float decode_value(const Delta& d, const Shape& s,
+                                              const Decode& c, int g, int k, int o) {
+  if (s.wbits == 0)
+    return reinterpret_cast<const float*>(d.codes)[
+        (static_cast<size_t>(g) * s.keep + k) * s.O + o];
+  const unsigned byte = d.codes[(static_cast<size_t>(g) * s.kp + k / c.per) * s.O + o];
+  const unsigned q = (byte >> ((k % c.per) * s.wbits)) & c.mask;
+  return __fmul_rn(__fsub_rn(static_cast<float>(q), c.zf), c.scale);
+}
+
 // Corrections of rows [r0, r0 + TB) x columns [col0, col0 + 32) for one
 // packed delta. On return, lane l of warp 0 holds out[r] for column
 // col0 + l. Every thread of the block must call it (it synchronises).
@@ -99,10 +164,7 @@ __device__ void block_correction(const float* __restrict__ x, const Delta& d,
   const bool live = o < s.O;
   constexpr int CH = kSmemFloats / TB;   // staged x columns per row
   const int CG = CH / s.h_g;             // whole groups per chunk
-  const float scale = *d.scale;
-  const float zf = static_cast<float>(*d.zero);
-  const int per = s.wbits ? 8 / s.wbits : 1;
-  const unsigned mask = s.wbits ? (1u << s.wbits) - 1u : 0u;
+  const Decode dc = decode_consts(d, s);
 
   float acc[TB];
 #pragma unroll
@@ -129,16 +191,7 @@ __device__ void block_correction(const float* __restrict__ x, const Delta& d,
         const uint8_t* ip = d.idx + static_cast<size_t>(g) * s.keep * s.O + o;
         for (int k = 0; k < s.keep; ++k) {
           const int id = ip[static_cast<size_t>(k) * s.O];
-          float v;
-          if (s.wbits == 0) {
-            v = reinterpret_cast<const float*>(d.codes)[
-                (static_cast<size_t>(g) * s.keep + k) * s.O + o];
-          } else {
-            const unsigned byte =
-                d.codes[(static_cast<size_t>(g) * s.kp + k / per) * s.O + o];
-            const unsigned q = (byte >> ((k % per) * s.wbits)) & mask;
-            v = __fmul_rn(__fsub_rn(static_cast<float>(q), zf), scale);
-          }
+          const float v = decode_value(d, s, dc, g, k, o);
 #pragma unroll
           for (int r = 0; r < TB; ++r)
             acc[r] = __fadd_rn(acc[r], __fmul_rn(xs[r * CH + id], v));
@@ -221,6 +274,115 @@ segments_kernel(const float* __restrict__ x, Delta stack, Shape s, Strides st,
   }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Staged x columns (whole groups) per chunk of the fused kernel: the x
+// chunk [TB][ch] and the merged tile [ch][32] share kFusedSmemFloats.
+int fused_chunk(int tb, const Shape& s) {
+  const int ch = kFusedSmemFloats / (tb + kCols) / s.h_g * s.h_g;
+  return ch < s.h_in ? ch : s.h_in;
+}
+
+size_t fused_smem_bytes(int tb, int ch) {
+  const int stage = (tb + kCols) * ch;
+  const int partials = kWarps * tb * kCols;
+  return static_cast<size_t>(stage > partials ? stage : partials) * sizeof(float);
+}
+
+template <int TB, typename WT>
+__global__ void __launch_bounds__(kThreads)
+fused_kernel(const float* __restrict__ x, const WT* __restrict__ w, Delta d, Shape s,
+             int ch, float* __restrict__ y) {
+  extern __shared__ float smem[];
+  float* xs = smem;             // [TB][ch]
+  float* tile = smem + TB * ch;  // [ch][32] merged W + delta, f32
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * TB;
+  const int col0 = blockIdx.y * kCols;
+  const int o = col0 + lane;
+  const bool live = o < s.O;
+  const int CG = ch / s.h_g;
+  const Decode dc = decode_consts(d, s);
+
+  float acc[TB];
+#pragma unroll
+  for (int r = 0; r < TB; ++r) acc[r] = 0.f;
+
+  for (int g0 = 0; g0 < s.G; g0 += CG) {
+    const int cg = min(CG, s.G - g0);
+    const int width = cg * s.h_g;
+    const size_t xcol = static_cast<size_t>(g0) * s.h_g;
+    __syncthreads();  // the previous chunk's readers are done
+    for (int i = threadIdx.x; i < TB * width; i += kThreads) {
+      const int r = i / width;
+      const int c = i - r * width;
+      const int row = r0 + r;
+      xs[r * ch + c] = row < s.T ? x[static_cast<size_t>(row) * s.h_in + xcol + c] : 0.f;
+    }
+    for (int i = threadIdx.x; i < width * kCols; i += kThreads) {
+      const int c = i & (kCols - 1);
+      const int oc = col0 + c;
+      tile[i] = oc < s.O
+          ? __fadd_rn(to_f32(w[(xcol + (i >> 5)) * s.O + oc]), 0.f)
+          : 0.f;
+    }
+    __syncthreads();
+    if (live) {
+      // warp w owns every group g with g % kWarps == w, in increasing g
+      for (int g = g0 + ((warp - g0 % kWarps) + kWarps) % kWarps; g < g0 + cg;
+           g += kWarps) {
+        float* col = tile + (g - g0) * s.h_g * kCols + lane;
+        const uint8_t* ip = d.idx + static_cast<size_t>(g) * s.keep * s.O + o;
+        for (int k = 0; k < s.keep; ++k) {
+          const int id = ip[static_cast<size_t>(k) * s.O];
+          if (id < s.h_g)
+            col[id * kCols] = __fadd_rn(col[id * kCols],
+                                        __fadd_rn(0.f, decode_value(d, s, dc, g, k, o)));
+        }
+        const float* xg = xs + (g - g0) * s.h_g;
+        for (int i = 0; i < s.h_g; ++i) {
+          const float m = col[i * kCols];
+#pragma unroll
+          for (int r = 0; r < TB; ++r) acc[r] = __fmaf_rn(xg[r * ch + i], m, acc[r]);
+        }
+      }
+    }
+  }
+
+  // fixed-order combine of the per-warp partials: ((w0 + w1) + w2) + ...
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < TB; ++r) smem[(warp * TB + r) * kCols + lane] = acc[r];
+  __syncthreads();
+  if (warp == 0 && live) {
+#pragma unroll
+    for (int r = 0; r < TB; ++r) {
+      float t = smem[r * kCols + lane];
+      for (int v = 1; v < kWarps; ++v) t = __fadd_rn(t, smem[(v * TB + r) * kCols + lane]);
+      if (r0 + r < s.T) y[static_cast<size_t>(r0 + r) * s.O + o] = t;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+dequant_kernel(Delta d, Shape s, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int o = blockIdx.y * kCols + lane;
+  if (g >= s.G || o >= s.O) return;
+  const Decode dc = decode_consts(d, s);
+  float* col = out + static_cast<size_t>(g) * s.h_g * s.O + o;
+  for (int i = 0; i < s.h_g; ++i) col[static_cast<size_t>(i) * s.O] = 0.f;
+  const uint8_t* ip = d.idx + static_cast<size_t>(g) * s.keep * s.O + o;
+  for (int k = 0; k < s.keep; ++k) {
+    const int id = ip[static_cast<size_t>(k) * s.O];
+    if (id < s.h_g)
+      col[static_cast<size_t>(id) * s.O] = __fadd_rn(0.f, decode_value(d, s, dc, g, k, o));
+  }
+}
+
 bool shape_ok(const Shape& s, int tb) {
   return s.T > 0 && s.O > 0 && s.h_g > 0 && s.keep > 0 && s.keep <= s.h_g &&
          s.h_g <= 256 && s.h_g <= kSmemFloats / tb && s.h_in == s.G * s.h_g &&
@@ -262,6 +424,32 @@ cudaError_t launch_segments(const float* x, Delta d, Shape s, Strides strides,
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <int TB, typename WT>
+cudaError_t launch_fused_tb(const float* x, const void* w, Delta d, Shape s, int ch,
+                            float* y, cudaStream_t st) {
+  const size_t smem = fused_smem_bytes(TB, ch);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_kernel<TB, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kFusedSmemFloats * sizeof(float)));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.T + TB - 1) / TB, (s.O + kCols - 1) / kCols);
+  fused_kernel<TB, WT><<<grid, kThreads, smem, st>>>(
+      x, static_cast<const WT*>(w), d, s, ch, y);
+  return cudaGetLastError();
+}
+
+template <typename WT>
+cudaError_t launch_fused(const float* x, const void* w, Delta d, Shape s, float* y,
+                         int tb, cudaStream_t st) {
+  const int ch = fused_chunk(tb, s);
+  switch (tb) {
+    case 8: return launch_fused_tb<8, WT>(x, w, d, s, ch, y, st);
+    case 16: return launch_fused_tb<16, WT>(x, w, d, s, ch, y, st);
+    case 32: return launch_fused_tb<32, WT>(x, w, d, s, ch, y, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -314,6 +502,39 @@ int delta_spmm_segments_launch(const void* x, const void* idx,
   const int* so = static_cast<const int*>(seg_offsets);
   return static_cast<int>(launch_segments(static_cast<const float*>(x), d, s, strides,
                                           n_tenants, sr, so, n_seg, yp, tb, st));
+}
+
+// x [T, h_in] f32; w [h_in, O] bf16 (w_bf16 = 1) or f32 (w_bf16 = 0); the
+// packed delta as for delta_spmm_launch; y [T, O] f32 = x @ (w + dense).
+int fused_base_delta_launch(const void* x, const void* w, int w_bf16, const void* idx,
+                            const void* codes, const void* scale, const void* zero,
+                            void* y, int T, int h_in, int O, int h_g, int keep, int kp,
+                            int wbits, int tb, void* stream) {
+  const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
+  if (!shape_ok(s, tb) || fused_chunk(tb, s) < h_g)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Delta d{static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(codes),
+                static_cast<const float*>(scale), static_cast<const int*>(zero)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  float* yp = static_cast<float*>(y);
+  return static_cast<int>(w_bf16 ? launch_fused<__nv_bfloat16>(xp, w, d, s, yp, tb, st)
+                                 : launch_fused<float>(xp, w, d, s, yp, tb, st));
+}
+
+// The packed delta as for delta_spmm_launch -> out [h_in, O] f32, every
+// element written.
+int dequant_launch(const void* idx, const void* codes, const void* scale,
+                   const void* zero, void* out, int h_in, int O, int h_g, int keep,
+                   int kp, int wbits, void* stream) {
+  const Shape s{1, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
+  if (!shape_ok(s, 8)) return static_cast<int>(cudaErrorInvalidValue);
+  const Delta d{static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(codes),
+                static_cast<const float*>(scale), static_cast<const int*>(zero)};
+  const dim3 grid((s.G + kWarps - 1) / kWarps, (s.O + kCols - 1) / kCols);
+  dequant_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, s, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

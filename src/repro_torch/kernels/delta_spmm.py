@@ -7,6 +7,10 @@ Kernels (source: ``csrc/delta_spmm.cu``, CUDA C++ for ``sm_90a``):
     delta_spmm_segments  mixed-tenant decode: rows sorted by tenant, each
                          tenant's tile decoded once per segment
                          (replaces repro/kernels/delta_spmm.py:240)
+    fused_base_delta     y = x @ (W + dequant(delta)), W bf16 or f32
+                         (replaces repro/kernels/delta_spmm.py:173)
+    dequant              the dense delta [h_in, h_out] f32, merge path
+                         (replaces repro/kernels/delta_spmm.py:311)
 
 The source has a plain C interface: it is compiled with ``nvcc`` into a
 shared library at first use, under ``build/kernels/<source hash>/`` at
@@ -45,7 +49,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 ROW_TILES = (8, 16, 32)
 
 # launch counters: one per kernel, bumped by its wrapper at each launch
-LAUNCHES = {"delta_spmm": 0, "delta_spmm_segments": 0}
+LAUNCHES = {"delta_spmm": 0, "delta_spmm_segments": 0, "fused_base_delta": 0,
+            "dequant": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -110,6 +115,11 @@ def _load() -> ctypes.CDLL:
                 p, p, p, p, p, i, ll, ll, ll, ll, p, p, i, p,
                 i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_segments_launch.restype = i
+            lib.fused_base_delta_launch.argtypes = [
+                p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+            lib.fused_base_delta_launch.restype = i
+            lib.dequant_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.dequant_launch.restype = i
             _lib = lib
     return _lib
 
@@ -126,6 +136,12 @@ def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, 
     if x2.ndim != 2 or x2.shape[1] != d.h_in or not x2.is_contiguous():
         raise ValueError(f"x must be contiguous [T, {d.h_in}], got "
                          f"{tuple(x2.shape)}")
+    return check_delta(d, x2.device, stacked)
+
+
+def check_delta(d: PackedDelta, device: torch.device, stacked: bool) -> tuple[int, int]:
+    """The packed-delta half of :func:`check_inputs`: every array of ``d``
+    on ``device``; returns (kp, wbits)."""
     G, keep, O = d.n_groups, d.keep, d.h_out
     stack = (d.idx.shape[0],) if stacked else ()
     if d.idx.dtype != torch.uint8 or tuple(d.idx.shape) != (*stack, G, keep, O):
@@ -148,14 +164,14 @@ def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, 
             raise ValueError(f"{name} must be contiguous per tenant")
     for name, t in (("idx", d.idx), ("codes", d.codes), ("scale", d.scale),
                     ("zero", d.zero)):
-        if t.device != x2.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
     return kp, wbits
 
 
-def _require_cuda(x2: torch.Tensor) -> None:
-    if not x2.is_cuda:
-        raise ValueError(f"x must be a CUDA tensor, got {x2.device}")
+def _require_cuda(t: torch.Tensor, name: str = "x") -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -218,3 +234,48 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
     _raise_on(err, "delta_spmm_segments")
     LAUNCHES["delta_spmm_segments"] += 1
     return y
+
+
+def fused_base_delta_cuda(x2: torch.Tensor, w: torch.Tensor, d: PackedDelta, *,
+                          tb: int) -> torch.Tensor:
+    """y [T, h_out] f32 = x2 [T, h_in] @ (w + dequant(d)), on the card;
+    ``w`` [h_in, h_out] contiguous bf16 or f32."""
+    if tb not in ROW_TILES:
+        raise ValueError(f"tb={tb} not in {ROW_TILES}")
+    _require_cuda(x2)
+    kp, wbits = check_inputs(x2, d, stacked=False)
+    if w.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w dtype {w.dtype} is neither bfloat16 nor float32")
+    if tuple(w.shape) != (d.h_in, d.h_out) or not w.is_contiguous() or \
+            w.device != x2.device:
+        raise ValueError(f"w must be contiguous [{d.h_in}, {d.h_out}] on {x2.device}, "
+                         f"got {tuple(w.shape)} on {w.device}")
+    lib = _load()
+    T = x2.shape[0]
+    y = torch.empty((T, d.h_out), dtype=torch.float32, device=x2.device)
+    if T == 0:
+        return y
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    err = lib.fused_base_delta_launch(
+        x2.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), d.idx.data_ptr(),
+        d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(), y.data_ptr(),
+        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
+    _raise_on(err, "fused_base_delta")
+    LAUNCHES["fused_base_delta"] += 1
+    return y
+
+
+def dequant_cuda(d: PackedDelta) -> torch.Tensor:
+    """The dense delta [h_in, h_out] f32 of one unstacked matrix, on the
+    card."""
+    _require_cuda(d.idx, "idx")
+    kp, wbits = check_delta(d, d.idx.device, stacked=False)
+    lib = _load()
+    out = torch.empty((d.h_in, d.h_out), dtype=torch.float32, device=d.idx.device)
+    stream = torch.cuda.current_stream(d.idx.device).cuda_stream
+    err = lib.dequant_launch(
+        d.idx.data_ptr(), d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(),
+        out.data_ptr(), d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, stream)
+    _raise_on(err, "dequant")
+    LAUNCHES["dequant"] += 1
+    return out

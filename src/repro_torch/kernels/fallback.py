@@ -14,7 +14,9 @@ out-of-envelope path. Two formulations with opposite scaling:
 
 Mixed-tenant decode adds :func:`gather_correction_rows` (per-row deltas)
 and :func:`segment_correction` (rows sorted by tenant, each segment
-routed to its tenant's packed bytes).
+routed to its tenant's packed bytes). :func:`dequant` and
+:func:`fused_base_delta` are the plain versions of the merge-path and
+fused kernels.
 
 Bit-identity note: the gather contraction is an elementwise multiply
 followed by ``sum`` over one merged (group, keep) axis — NOT a matmul or
@@ -60,6 +62,18 @@ def gather_correction(x2: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     return (sel * vals.reshape(G * K, O)[None]).sum(dim=1)
 
 
+def dequant(d: PackedDelta) -> torch.Tensor:
+    """The dense delta [..., h_in, h_out] f32."""
+    return reconstruct_dense(d)
+
+
+def fused_base_delta(x2: torch.Tensor, w: torch.Tensor,
+                     d: PackedDelta) -> torch.Tensor:
+    """x2 [T, h_in] @ (w + dense(delta)) -> [T, h_out] f32: the merged
+    weight is formed in f32 (one rounding per element), then one matmul."""
+    return x2.to(torch.float32) @ (w.to(torch.float32) + reconstruct_dense(d))
+
+
 def correction(x2: torch.Tensor, d: PackedDelta, *,
                gather_max_t: int = 64) -> torch.Tensor:
     """Formulation chooser: gather for decode-sized T, dense otherwise."""
@@ -79,8 +93,7 @@ def correction_nd(x: torch.Tensor, d: PackedDelta, *,
     if gather_max_t is None:
         from repro_torch.kernels import autotune
         gather_max_t = autotune.lookup(
-            d.h_g, d.keep, d.k_bits, d.h_in, d.h_out,
-            t=x.numel() // x.shape[-1])["gather_max_t"]
+            d.h_g, d.keep, d.k_bits, d.h_in, d.h_out)["gather_max_t"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, d.h_in)
     y = correction(x2, d, gather_max_t=gather_max_t)

@@ -9,6 +9,10 @@ the plain gather/dense formulation, as the reference's ``ops.delta_spmm``
 does (``ops.py:129-131``) — that is the envelope rule, not a fallback on
 failure.
 
+``fused_base_delta`` and ``dequant`` (``ops.py:390-431`` of the
+reference) follow the same rule; ``dequant`` is the merge path's
+(``core/apply.py::merge_delta``).
+
 Tiles: the kernels take every T and h_out as they are (they mask the
 ragged edges themselves), so the reference's row padding and column
 padding have no counterpart. The row tile is the smallest instantiated
@@ -49,9 +53,8 @@ def row_tile(T: int) -> int:
     return _k.ROW_TILES[-1]
 
 
-def _gather_max_t(d: PackedDelta, t: int) -> int:
-    return autotune.lookup(d.h_g, d.keep, d.k_bits, d.h_in, d.h_out,
-                           t=t)["gather_max_t"]
+def _gather_max_t(d: PackedDelta) -> int:
+    return autotune.lookup(d.h_g, d.keep, d.k_bits, d.h_in, d.h_out)["gather_max_t"]
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -63,8 +66,7 @@ def _device_kind(x: torch.Tensor) -> str:
 
 def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     """y = x @ dequant(d). x [..., h_in] -> [..., h_out] (f32)."""
-    T = x.numel() // x.shape[-1]
-    gmax = _gather_max_t(d, T)
+    gmax = _gather_max_t(d)
     if not kernel_supported(d):
         return fallback.correction_nd(x, d, gather_max_t=gmax)
     lead = x.shape[:-1]
@@ -72,7 +74,7 @@ def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     if _device_kind(x2) == "cpu":
         y = fallback.correction(x2, d, gather_max_t=gmax)
     else:
-        tb = row_tile(T)
+        tb = row_tile(x2.shape[0])
         _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb,
               ob=KERNEL_OB)
         # the kernels take f32 activations (the TPU kernel upcasts x itself)
@@ -127,6 +129,35 @@ def delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     offsets = torch.arange(B + 1, dtype=torch.int32, device=x.device) * per_row
     y = delta_spmm_segments(x.reshape(B * per_row, d.h_in), d, rows, offsets)
     return y.reshape(*x.shape[:-1], d.h_out)
+
+
+def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.Tensor:
+    """y = x @ (w + dequant(d)); reads x once (separate computation, fused).
+    x [..., h_in], w [h_in, h_out] -> [..., h_out] f32 (inside the
+    envelope)."""
+    if not kernel_supported(d):
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return (x.to(dt) @ w.to(dt)) + delta_spmm(x, d).to(w.dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, d.h_in)
+    if _device_kind(x2) == "cpu":
+        y = fallback.fused_base_delta(x2, w, d)
+    else:
+        tb = row_tile(x2.shape[0])
+        _note("fused_base_delta", formulation="cuda", codec=d.codec, tb=tb,
+              ob=KERNEL_OB)
+        # f32 activations, as delta_spmm; W is read as stored (bf16 or f32)
+        y = _k.fused_base_delta_cuda(x2.to(torch.float32).contiguous(),
+                                     w.contiguous(), d, tb=tb)
+    return y.reshape(*lead, d.h_out)
+
+
+def dequant(d: PackedDelta) -> torch.Tensor:
+    """Materialize the dense delta [h_in, h_out] f32 (merge path)."""
+    if not kernel_supported(d) or _device_kind(d.idx) == "cpu":
+        return fallback.dequant(d)
+    _note("dequant", formulation="cuda", codec=d.codec, ob=KERNEL_OB)
+    return _k.dequant_cuda(d)
 
 
 def segment_decode_tiles(seg_offsets, *, n_groups: int, h_out: int,

@@ -13,8 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.apply import stack_tenant_deltas  # noqa: E402
+from repro_torch.core.apply import merge_delta, stack_tenant_deltas  # noqa: E402
 from repro_torch.core.dropout import groupwise_dropout_pack  # noqa: E402
+from repro_torch.core.pack import reconstruct_dense  # noqa: E402
 from repro_torch.kernels import delta_spmm as kern  # noqa: E402
 from repro_torch.kernels import fallback as fb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -150,6 +151,98 @@ def test_kernel_wrappers_raise_on_bad_inputs(cuda):
         kern.delta_spmm_cuda(_x(4, 64, 0, "cpu"), d, tb=8)
     with pytest.raises(ValueError):
         kern.delta_spmm_cuda(_x(4, 64, 0, cuda), d, tb=12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,h_in,h_out,h_g,alpha,k", SWEEP)
+def test_dequant_kernel_bit_equal_to_plain(cuda, T, h_in, h_out, h_g, alpha, k):
+    d = _pack(h_in, h_out, h_g, alpha, k, 0, cuda)
+    before = kern.LAUNCHES["dequant"]
+    got = ops.dequant(d)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["dequant"] == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (h_in, h_out)
+    assert torch.equal(got.view(torch.int32), fb.dequant(d).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,h_in,h_out,h_g,alpha,k", SWEEP)
+def test_fused_kernel_matches_plain(cuda, w_dtype, T, h_in, h_out, h_g, alpha, k):
+    d = _pack(h_in, h_out, h_g, alpha, k, 0, cuda)
+    x = _x(T, h_in, 1, cuda)
+    w = (_x(h_in, h_out, 2, cuda) * 0.05).to(w_dtype)
+    before = kern.LAUNCHES["fused_base_delta"]
+    got = ops.fused_base_delta(x, w, d)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["fused_base_delta"] == before + 1
+    torch.testing.assert_close(got, fb.fused_base_delta(x, w, d), **TOL)
+
+
+@pytest.mark.gpu
+def test_fused_kernel_leading_dims_and_rows(cuda):
+    """x [..., h_in] keeps its leading dims; a row does not depend on
+    the batch it is in beyond summation order (the tolerance)."""
+    d = _pack(256, 200, 16, 8, 4, 4, cuda)
+    w = (_x(256, 200, 5, cuda) * 0.05).to(torch.bfloat16)
+    x = _x(40, 256, 6, cuda)
+    full = ops.fused_base_delta(x.reshape(4, 10, 256), w, d)
+    assert tuple(full.shape) == (4, 10, 200)
+    torch.testing.assert_close(ops.fused_base_delta(x[5:6], w, d), full.reshape(40, 200)[5:6],
+                               **TOL)
+
+
+@pytest.mark.gpu
+def test_merge_delta_runs_dequant_per_layer_slice(cuda):
+    layers = [_pack(64, 96, 16, 8, 4, 50 + i, cuda) for i in range(3)]
+    stacked = stack_tenant_deltas([{"w": t} for t in layers])["w"]      # [L=3, ...]
+    params = {"w": (_x(192, 96, 7, cuda) * 0.05).reshape(3, 64, 96).to(torch.bfloat16),
+              "b": _x(1, 96, 8, cuda)[0]}
+    before = kern.LAUNCHES["dequant"]
+    merged = merge_delta(params, {"w": stacked, "b": None})
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["dequant"] == before + 3
+    want = (params["w"].float() + reconstruct_dense(stacked)).to(torch.bfloat16)
+    assert merged["w"].dtype == torch.bfloat16 and torch.equal(merged["w"], want)
+    assert merged["b"] is params["b"]
+
+
+@pytest.mark.gpu
+def test_merge_kernel_wrappers_raise_on_bad_inputs(cuda):
+    d = _pack(64, 32, 16, 8, 4, 7, cuda)
+    x = _x(4, 64, 0, cuda)
+    w = torch.zeros((64, 32), device=cuda)
+    for bad_w in (w.t().contiguous().t(), torch.zeros((32, 64), device=cuda),
+                  w.cpu()):
+        with pytest.raises(ValueError):
+            kern.fused_base_delta_cuda(x, bad_w, d, tb=8)
+    with pytest.raises(TypeError):
+        kern.fused_base_delta_cuda(x, w.double(), d, tb=8)
+    with pytest.raises(TypeError):
+        kern.fused_base_delta_cuda(x.to(torch.bfloat16), w, d, tb=8)
+    with pytest.raises(ValueError):
+        kern.fused_base_delta_cuda(x, w, d, tb=12)
+    with pytest.raises(ValueError):
+        kern.fused_base_delta_cuda(x.cpu(), w, d, tb=8)
+    with pytest.raises(ValueError):
+        kern.dequant_cuda(d.to("cpu"))
+    stacked = stack_tenant_deltas([{"w": d}, {"w": d}])["w"]
+    with pytest.raises(ValueError):
+        kern.dequant_cuda(stacked)
+
+
+def test_merge_kernel_wrappers_refuse_cpu_tensors_before_building():
+    """The fused and dequant wrappers raise on CPU tensors and on deltas
+    they cannot read, without reaching the build (runs on the CPU)."""
+    d = _pack(64, 32, 16, 8, 4, 7, "cpu")
+    with pytest.raises(ValueError):
+        kern.fused_base_delta_cuda(_x(4, 64, 0, "cpu"), torch.zeros((64, 32)), d, tb=8)
+    with pytest.raises(ValueError):
+        kern.dequant_cuda(d)
+    stacked = stack_tenant_deltas([{"w": d}, {"w": d}])["w"]
+    assert kern.check_delta(d, d.idx.device, stacked=False) == (1, 4)
+    with pytest.raises(ValueError):
+        kern.check_delta(stacked, d.idx.device, stacked=False)
 
 
 def test_launch_checks_accept_layer_slices_and_reject_bad_layouts():

@@ -240,3 +240,82 @@ def test_kernel_envelope_matches_reference():
     for h_g, alpha, k in ((16, 8, 4), (256, 2, 4), (64, 8, None), (512, 8, 4)):
         p = _pack(h_g * 2, 32, h_g, alpha, k)
         assert tops.kernel_supported(br.packed_to_port(p)) == jops.kernel_supported(p)
+
+
+# ---------------------------------------------------------------------------
+# dequant / fused_base_delta (the merge path and the kernels entry point)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("T,h_in,h_out,h_g,alpha,k", SWEEP[:5])
+def test_dequant_cpu_bit_equal_to_reference_kernel(T, h_in, h_out, h_g, alpha, k):
+    """No reduction: every element is (q - z) * s or 0 in both packages."""
+    p = _pack(h_in, h_out, h_g, alpha, k)
+    want = np.asarray(jops.dequant(p, interpret=True))
+    tp = br.packed_to_port(p)
+    got = tops.dequant(tp).numpy()
+    assert got.dtype == np.float32 and got.shape == (h_in, h_out)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(tref.dequant_tile_ref(tp).numpy(), want)
+
+
+@pytest.mark.parametrize("T,h_in,h_out,h_g,alpha,k", SWEEP[:3])
+def test_fused_base_delta_cpu_matches_reference_kernel(T, h_in, h_out, h_g, alpha, k):
+    p = _pack(h_in, h_out, h_g, alpha, k)
+    x = _x(T, h_in, 1)
+    w = (np.random.default_rng(2).standard_normal((h_in, h_out)) * 0.05).astype(np.float32)
+    want = np.asarray(jops.fused_base_delta(jnp.asarray(x), jnp.asarray(w), p,
+                                            interpret=True))
+    tp = br.packed_to_port(p)
+    got = tops.fused_base_delta(torch.from_numpy(x), torch.from_numpy(w), tp)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        tref.fused_base_delta_ref(torch.from_numpy(x), torch.from_numpy(w), tp).numpy(),
+        want, **TOL)
+
+
+def test_merge_kernels_outside_envelope_take_plain_formulation():
+    p = _pack(512, 64, 512, 64, 4)            # h_g > MAX_HG
+    tp = br.packed_to_port(p)
+    x = _x(3, 512, 6).reshape(1, 3, 512)
+    w = (np.random.default_rng(3).standard_normal((512, 64)) * 0.05).astype(np.float32)
+    np.testing.assert_array_equal(tops.dequant(tp).numpy(),
+                                  np.asarray(jops.dequant(p, interpret=True)))
+    got = tops.fused_base_delta(torch.from_numpy(x), torch.from_numpy(w), tp)
+    want = jops.fused_base_delta(jnp.asarray(x), jnp.asarray(w), p, interpret=True)
+    assert tuple(got.shape) == (1, 3, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_autotune_gather_max_t_matches_reference_table(monkeypatch):
+    """The port's crossover equals the reference's at every base entry of
+    the committed table (it only picks the CPU formulation); tiles are
+    not taken."""
+    import json
+
+    from repro.kernels import autotune as jat
+    from repro_torch.kernels import autotune as tat
+    monkeypatch.delenv("REPRO_AUTOTUNE_TABLE", raising=False)
+    jat.invalidate_cache()
+    with open(jat.DEFAULT_TABLE_PATH) as f:
+        entries = json.load(f)["entries"]
+    keys = [k for k in entries if "@" not in k]
+    assert len(keys) == len(tat.GATHER_MAX_T)
+    for key in keys:
+        h_g, keep, kb, h_in, h_out = key.split("/")
+        args = (int(h_g), int(keep), None if kb == "None" else int(kb), int(h_in),
+                int(h_out))
+        want = jat.lookup(*args)["gather_max_t"]
+        assert want == max(int(entries[key]["gather_max_t"]), jat.MIN_GATHER_T)
+        assert tat.lookup(*args)["gather_max_t"] == want, key
+        assert {k: v for k, v in tat.lookup(*args).items() if k != "gather_max_t"} \
+            == {k: v for k, v in tat.DEFAULTS.items() if k != "gather_max_t"}
+    assert tat.lookup(16, 2, 4, 4096, 11008) == tat.DEFAULTS
+
+
+def test_kernels_demo_plain_versions_agree_with_oracles():
+    from repro_torch.launch import kernels_demo
+    T, h_in, h_out, h_g = kernels_demo.DEMO
+    out = kernels_demo.run("cpu", T=T, h_in=h_in, h_out=h_out, h_g=h_g, verbose=False)
+    assert set(out) == {"delta_spmm", "delta_spmm_segments", "fused_base_delta",
+                        "dequant"}
+    assert all(r["ok"] for r in out.values()), out

@@ -153,3 +153,37 @@ def test_port_init_params_layout_matches_reference():
     p2 = tlm.init_params(cfg, 0, device="cpu")
     assert torch.equal(p1["attn"]["wq"], p2["attn"]["wq"])
     assert p1["attn"]["wq"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decompress_matches_reference(dtype):
+    """The merge path (``decompress`` -> ``merge_delta`` -> ``ops.dequant``
+    per layer slice) against the reference's ``decompress``."""
+    from repro.core.compress import decompress as j_decompress
+
+    from repro_torch.core import decompress
+    from repro_torch.utils import iter_leaves
+
+    cfg, base, deltas, tbase, tdeltas = _setup("wizard-llama2-7b", dtype)
+    want = dict(iter_leaves(br.params_to_port(jax.jit(j_decompress)(base, deltas))))
+    got = dict(iter_leaves(decompress(tbase, tdeltas)))
+    assert set(got) == set(want)
+    for path, g in got.items():
+        w = want[path]
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        if dtype == "float32":
+            assert torch.equal(g, w), path
+        else:
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       **TOL[dtype], err_msg=path)
+
+
+def test_quickstart_separate_equals_merged_within_bound():
+    from repro_torch.configs import get_smoke_config as t_smoke
+    from repro_torch.launch import quickstart
+
+    cfg = t_smoke(quickstart.ARCH)
+    out = quickstart.run(cfg, device="cpu", verbose=False)
+    assert tuple(out["separate"].shape) == (2, 16, cfg.vocab)
+    assert bool(torch.isfinite(out["separate"]).all())
+    assert out["rel"] <= quickstart.REL_TOL and out["ok"], out["rel"]
