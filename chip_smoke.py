@@ -35,9 +35,14 @@ ARCH = "wizard-llama2-7b"     # served at its full published width
 SRC = os.path.join(HERE, "src")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s without
-# tensor cores — the kernels multiply and add in f32 on CUDA cores
+# tensor cores — the correction kernels multiply and add in f32 on CUDA
+# cores, in a fixed order that tensor cores cannot keep — and dense TF32
+# tensor-core FLOP/s, the fused kernel's unit (3xTF32: three tf32
+# products per f32 product, so the kernel can reach at most ~1/3 of it;
+# the bound counts the function's 2*T*h_in*O operations once)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 # full-width wizard-llama2-7b sites (h_in, h_out) and the 128x packing
 SITES = {"wq": (4096, 4096), "wi": (4096, 11008), "mlp_wo": (11008, 4096)}
@@ -45,6 +50,13 @@ H_G, ALPHA = 16, 8.0
 K_CASES = (4, 8, None)
 PARITY_T = (1, 2, 4, 8, 128, 256)
 FUSED_T = (1, 2, 8, 128, 256)
+PREFILL_T = (128, 256)             # delta_spmm's prefill route (row tile 128)
+# delta_spmm's two routes above 32 rows (tb=32 and the 128-row prefill
+# tile) timed against each other around the edges of ops.spmm_row_tile's
+# rule, in alternating rounds for their spread
+ROUTE_T = (64, 96, 128, 160, 256)
+ROUTE_ROUNDS = 5
+ORDER_SITE, ORDER_T = "wi", (1, 8, 128, 256)   # bit-exact kernel-order checks
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)      # tests/test_kernels.py:44, f32
 # Random weights plus the launcher's 0.02 tenant noise (larger than the
 # 1/64 init std at d_model 4096) make the 32-layer stack chaotic: a
@@ -100,9 +112,10 @@ def packed_bytes(d) -> int:
     return sum(t.numel() * t.element_size() for t in (d.idx, d.codes, d.scale, d.zero))
 
 
-def bound_ms(x_bytes: int, delta_bytes: int, y_bytes: int, flops: float) -> tuple:
+def bound_ms(x_bytes: int, delta_bytes: int, y_bytes: int, flops: float,
+             flop_per_s: float = F32_FLOP_PER_S) -> tuple:
     t_bytes = (x_bytes + delta_bytes + y_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -127,10 +140,15 @@ def phase_build(kern) -> float:
     path = kern.build()
     dt = time.perf_counter() - t0
     log(f"[build] {path} in {dt:.1f} s")
+    name, spill = "?", ""
     with open(os.path.join(os.path.dirname(path), "build.log")) as f:
         for line in f:
-            if "registers" in line or "spill" in line:
-                log(f"[build] ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                log(f"[build] ptxas {name}: {line.split(':', 1)[1].strip()}; {spill}")
     return dt
 
 
@@ -161,14 +179,43 @@ def _mixed_rows(T: int, n_tenants: int = 4):
     return np.random.default_rng(T).integers(0, n_tenants, T).astype(np.int32)
 
 
+def _check_order(torch, kern, ref, x, d, where: str) -> int:
+    """Both delta_spmm routes (the decode tile for T and the 128-row
+    prefill tile) equal kernels/ref.py's kernel-order oracle bit for bit."""
+    from repro_torch.kernels import ops
+    want = ref.correction_kernel_order(x, d)
+    tiles = (ops.row_tile(x.shape[0]), *kern.PREFILL_TILES)
+    for tb in tiles:
+        y = kern.delta_spmm_cuda(x, d, tb=tb)
+        if not torch.equal(y.view(torch.int32), want.view(torch.int32)):
+            n_bad = int((y != want).sum().item())
+            fail(f"delta_spmm {where} tb={tb}: {n_bad} elements differ from "
+                 f"correction_kernel_order")
+    return len(tiles)
+
+
+def _check_prefill_bits(torch, kern, ops, x, d, where: str) -> None:
+    """delta_spmm at T rows (the prefill route) equals the same rows in
+    chunks of 8 (the tb=8 route) bit for bit, and a second call gives the
+    same bits."""
+    y = ops.delta_spmm(x, d)
+    chunks = torch.cat([kern.delta_spmm_cuda(x[i:i + 8], d, tb=8)
+                        for i in range(0, x.shape[0], 8)])
+    if not torch.equal(y.view(torch.int32), chunks.view(torch.int32)):
+        fail(f"delta_spmm {where}: prefill rows != tb=8 rows")
+    if not torch.equal(y.view(torch.int32), ops.delta_spmm(x, d).view(torch.int32)):
+        fail(f"delta_spmm {where}: two calls differ")
+
+
 def phase_parity(torch, report: dict) -> dict:
-    """Both kernels against their plain versions at full widths, the
+    """The kernels against their plain versions at full widths, the
     bit-identity properties, and device times at decode/prefill shapes."""
     from repro_torch.core import dropout
     from repro_torch.core.apply import stack_tenant_deltas
     from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.kernels import delta_spmm as kern
     from repro_torch.kernels import fallback as fb
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.serve.scheduler import tenant_segments
 
     gen = torch.Generator(device=DEVICE)
@@ -176,10 +223,11 @@ def phase_parity(torch, report: dict) -> dict:
     worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0, "fused_base_delta": 0.0,
              "dequant": 0.0}
     rows_out = []
-    n_fused = 0
+    n_fused = n_order = 0
     for site, (h_in, h_out) in SITES.items():
         w = (torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02).to(
             torch.bfloat16)
+        w32 = torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02
         for k in K_CASES:
             d = _rand_packed(torch, dropout, h_in, h_out, k, gen)
             # dequant: no reduction, so bit for bit
@@ -192,14 +240,19 @@ def phase_parity(torch, report: dict) -> dict:
             del dense, want
             for T in FUSED_T:
                 x = torch.randn((T, h_in), generator=gen, device=DEVICE)
-                y = ops.fused_base_delta(x, w, d)
-                want = fb.fused_base_delta(x, w, d)
-                torch.cuda.synchronize()
-                err = (y - want).abs().max().item()
-                worst["fused_base_delta"] = max(worst["fused_base_delta"], err)
-                if not torch.allclose(y, want, **KERNEL_TOL):
-                    fail(f"fused_base_delta {site} k={k} T={T}: max err {err:.3e}")
-                n_fused += 1
+                for wt in (w, w32):
+                    y = ops.fused_base_delta(x, wt, d)
+                    want = fb.fused_base_delta(x, wt, d)
+                    torch.cuda.synchronize()
+                    err = (y - want).abs().max().item()
+                    worst["fused_base_delta"] = max(worst["fused_base_delta"], err)
+                    if not torch.allclose(y, want, **KERNEL_TOL):
+                        fail(f"fused_base_delta {site} k={k} T={T} W {wt.dtype}: max err "
+                             f"{err:.3e}")
+                    if not torch.equal(y.view(torch.int32),
+                                       ops.fused_base_delta(x, wt, d).view(torch.int32)):
+                        fail(f"fused_base_delta {site} k={k} T={T}: two calls differ")
+                    n_fused += 1
             tenants = [_rand_packed(torch, dropout, h_in, h_out, k, gen) for _ in range(4)]
             stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
             for T in PARITY_T:
@@ -221,6 +274,16 @@ def phase_parity(torch, report: dict) -> dict:
                 worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], err_s)
                 if not torch.allclose(ys, wants, **KERNEL_TOL):
                     fail(f"delta_spmm_segments {site} k={k} T={T}: max err {err_s:.3e}")
+                if T in PREFILL_T:
+                    _check_prefill_bits(torch, kern, ops, x, d, f"{site} k={k} T={T}")
+                    sorted_rows = torch.as_tensor(_mixed_rows(T), device=DEVICE)[seg.order]
+                    for t in range(4):
+                        sel = sorted_rows == t
+                        if not torch.equal(ys[sel], ops.delta_spmm(xs, stack.index(t))[sel]):
+                            fail(f"segments rows != prefill delta_spmm rows ({site} k={k} "
+                                 f"T={T} tenant {t})")
+                if site == ORDER_SITE and T in ORDER_T:
+                    n_order += _check_order(torch, kern, ref, x, d, f"{site} k={k} T={T}")
                 rows_out.append({"site": site, "k_bits": k, "T": T,
                                  "spmm_err": err, "segments_err": err_s})
             # a T=1 row has the bits it has inside T=8
@@ -240,16 +303,22 @@ def phase_parity(torch, report: dict) -> dict:
                 sel = sorted_rows == t
                 if not torch.equal(ys[sel], per[sel]):
                     fail(f"segments rows != delta_spmm rows ({site} k={k} tenant {t})")
-        del w
+        del w, w32
     torch.cuda.synchronize()
+    if ORDER_T and n_order != len(K_CASES) * len(ORDER_T) * (1 + len(kern.PREFILL_TILES)):
+        fail(f"the kernel-order checks ran {n_order} times")
     log(f"[parity] {len(rows_out)} cases x 2 kernels within atol/rtol 1e-4 "
         f"(worst |err| spmm {worst['delta_spmm']:.3e}, segments "
         f"{worst['delta_spmm_segments']:.3e}); T=1 == row of T=8 and segment "
         f"rows == delta_spmm rows bit for bit at all sites and k_bits")
+    log(f"[parity] delta_spmm at T {list(PREFILL_T)} == the same rows through tb=8, "
+        f"bit for bit, and two calls equal, at all sites and k_bits; both routes "
+        f"(decode tile, 128 rows) == ref.correction_kernel_order bit for bit at "
+        f"{ORDER_SITE}, k_bits {list(K_CASES)}, T {list(ORDER_T)} ({n_order} checks)")
     log(f"[parity] dequant bit-equal to its plain version in "
-        f"{len(SITES) * len(K_CASES)} cases; fused_base_delta (bf16 W) within "
+        f"{len(SITES) * len(K_CASES)} cases; fused_base_delta (bf16 and f32 W) within "
         f"atol/rtol 1e-4 in {n_fused} cases (worst |err| "
-        f"{worst['fused_base_delta']:.3e})")
+        f"{worst['fused_base_delta']:.3e}), two calls bit-equal")
     report["parity"] = rows_out
 
     # device times at the main path's shapes, 128x spec (k=4), on a ring
@@ -262,15 +331,20 @@ def phase_parity(torch, report: dict) -> dict:
                                        (ring[i], ring[(i + 1) % 8], ring[(i + 2) % 8],
                                         ring[(i + 3) % 8])])["w"] for i in range(8)]
         nnz, dbytes = ring[0].nnz, packed_bytes(ring[0])
+        routes = _time_routes(torch, kern, ops, ring, gen, site, h_in)
+        report.setdefault("routes", []).extend(routes.values())
         for kname, T in (("delta_spmm", 2), ("delta_spmm", 8), ("delta_spmm", 128),
                          ("delta_spmm", 256), ("delta_spmm_segments", 8),
                          ("delta_spmm_segments", 256)):
             x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+            replaced = None
             if kname == "delta_spmm":
                 ms = time_ms(torch, [lambda d=d: ops.delta_spmm(x, d) for d in ring])
                 plain = time_ms(torch, [lambda d=d: fb.correction(x, d) for d in ring],
                                 iters=8, reps=3)
                 lib = time_ms(torch, [lambda w=w: torch.matmul(x, w) for w in dense])
+                if T in PREFILL_T:   # the route the prefill kernel replaced (tb=32)
+                    replaced = routes[T]["tb32_ms"]
                 n_deltas = 1
             else:
                 seg = tenant_segments(_mixed_rows(T)).to(DEVICE)
@@ -286,14 +360,41 @@ def phase_parity(torch, report: dict) -> dict:
                                   2.0 * T * nnz)
             times.append({"kernel": kname, "site": site, "h_in": h_in, "h_out": h_out,
                           "T": T, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                          "bound_ms": b_ms, "bound_by": b_by})
+                          "bound_ms": b_ms, "bound_by": b_by, "replaced_ms": replaced})
             log(f"[time] {kname:20s} {site:6s} T={T:3d}: kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, library {lib if lib is None else f'{lib:.4f}'}"
-                f" ms, bound {b_ms:.4f} ms ({b_by})")
+                f" ms, bound {b_ms:.4f} ms ({b_by})"
+                + ("" if replaced is None else
+                   f"; replaced route (tb=32, median of the [route] rounds) {replaced:.4f} ms"))
         times += _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out)
         del ring, dense, stacks
     report["times"] = times
     return worst
+
+
+def _time_routes(torch, kern, ops, ring, gen, site, h_in) -> dict:
+    """delta_spmm's tb=32 route and its 128-row prefill tile at ROUTE_T,
+    timed in ROUTE_ROUNDS alternating rounds on the ring: {T: row}, each
+    round's time and the medians."""
+    pre = kern.PREFILL_TILES[0]
+    out = {}
+    for T in ROUTE_T:
+        x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+        rounds = {32: [], pre: []}
+        for _ in range(ROUTE_ROUNDS):
+            for tb, per in rounds.items():
+                per.append(time_ms(torch, [lambda d=d, tb=tb: kern.delta_spmm_cuda(
+                    x, d, tb=tb) for d in ring]))
+        row = {"site": site, "T": T, "ops_tile": ops.spmm_row_tile(T, ring[0]),
+               "tb32_rounds": rounds[32], "prefill_rounds": rounds[pre],
+               "tb32_ms": statistics.median(rounds[32]),
+               "prefill_ms": statistics.median(rounds[pre])}
+        out[T] = row
+        log(f"[route] delta_spmm {site:6s} T={T:3d}: tb=32 {row['tb32_ms']:.4f} ms "
+            f"({min(rounds[32]):.4f}-{max(rounds[32]):.4f}), tb={pre} "
+            f"{row['prefill_ms']:.4f} ms ({min(rounds[pre]):.4f}-{max(rounds[pre]):.4f}) "
+            f"over {ROUTE_ROUNDS} rounds; ops takes tb={row['ops_tile']}")
+    return out
 
 
 def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
@@ -348,7 +449,7 @@ def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
         unfused = time_ms(torch, [lambda w=w, d=d: apply_linear(x, w, d)
                                   for w, d, _ in case])
         b_ms, b_by = bound_ms(T * h_in * 4, h_in * h_out * 2 + dbytes, T * h_out * 4,
-                              2.0 * T * h_in * h_out)
+                              2.0 * T * h_in * h_out, TF32_FLOP_PER_S)
         out.append({"kernel": "fused_base_delta", "site": site, "h_in": h_in,
                     "h_out": h_out, "T": T, "ms": ms, "plain_ms": plain,
                     "library_ms": lib, "apply_linear_ms": unfused, "bound_ms": b_ms,
@@ -424,15 +525,19 @@ def phase_main_path(torch, kern, report: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kern.LAUNCHES)
+    prefill_launches = kern.ROUTES["delta_spmm_prefill"]
     sites = 7 * cfg.n_layers
     expect = 3 * sites * NEW          # prefill + (NEW - 1) decode steps per tenant
     log(f"[main] Engine.generate base + 3 tenants, B={B} S={S} new={NEW}: "
         f"{wall:.2f} s; launches {launches} (expected delta_spmm {expect}: "
-        f"{sites} sites x {NEW} calls x 3 tenants)")
+        f"{sites} sites x {NEW} calls x 3 tenants), of which {prefill_launches} on "
+        f"the prefill route (expected {3 * sites}: the T={B * S} prefill)")
     if launches["delta_spmm"] <= 0:
         fail("the main path never launched delta_spmm")
     if launches["delta_spmm"] != expect:
         fail(f"delta_spmm launched {launches['delta_spmm']} times, expected {expect}")
+    if prefill_launches != 3 * sites:
+        fail(f"the prefill route launched {prefill_launches} times, expected {3 * sites}")
     for tenant, gen in outputs.items():
         if gen.shape != (B, NEW) or gen.min() < 0 or gen.max() >= cfg.vocab:
             fail(f"bad tokens for {tenant}: shape {gen.shape}")
@@ -484,7 +589,8 @@ def phase_main_path(torch, kern, report: dict) -> dict:
     log(f"[steps] B={B}: decode step base {steps['decode_None']:.2f} ms, tenant0 "
         f"{steps['decode_tenant0']:.2f} ms; prefill S={S} base "
         f"{steps['prefill_None']:.2f} ms, tenant0 {steps['prefill_tenant0']:.2f} ms")
-    report["main"] = {"launches": launches, "merge_launches": merge_launches,
+    report["main"] = {"launches": launches, "prefill_route_launches": prefill_launches,
+                      "merge_launches": merge_launches,
                       "wall_s": wall, "step_ms": steps,
                       "separate_vs_merged_rel": err / scale,
                       "tokens": {str(k): v.tolist() for k, v in outputs.items()}}
@@ -647,6 +753,12 @@ def kernel_entries(report: dict, worst: dict, path_launches: dict) -> list:
         t = by[(name, "wi", T)]
         extra = {k: t[k] for k in ("library_note", "scatter_partial_ms",
                                    "apply_linear_ms") if k in t}
+        if name == "delta_spmm":   # its prefill route, at the main path's prefill T
+            p = by[(name, "wi", 128)]
+            extra["prefill_route"] = {
+                "T": 128, "launches": report["main"]["prefill_route_launches"],
+                **{k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "replaced_ms")}}
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/delta_spmm.cu",

@@ -3,11 +3,14 @@
 Kernels (source: ``csrc/delta_spmm.cu``, CUDA C++ for ``sm_90a``):
 
     delta_spmm           y = x @ dequant(delta)
-                         (replaces repro/kernels/delta_spmm.py:122)
+                         (replaces repro/kernels/delta_spmm.py:122); row
+                         tiles 8/16/32 (columns in lanes) and, at prefill,
+                         128 (rows in lanes), with the same bits
     delta_spmm_segments  mixed-tenant decode: rows sorted by tenant, each
                          tenant's tile decoded once per segment
                          (replaces repro/kernels/delta_spmm.py:240)
-    fused_base_delta     y = x @ (W + dequant(delta)), W bf16 or f32
+    fused_base_delta     y = x @ (W + dequant(delta)), W bf16 or f32, on
+                         tensor cores in 3xTF32
                          (replaces repro/kernels/delta_spmm.py:173)
     dequant              the dense delta [h_in, h_out] f32, merge path
                          (replaces repro/kernels/delta_spmm.py:311)
@@ -45,20 +48,27 @@ BUILD_ROOT = os.path.join(_REPO, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# row tiles the kernels are instantiated for (template TB)
+# row tiles of spmm_kernel and segments_kernel (template TB); the fused
+# kernel takes the same values, as caps on its own row tile
 ROW_TILES = (8, 16, 32)
+# row tile of delta_spmm's prefill kernel (rows in lanes), delta_spmm only
+PREFILL_TILES = (128,)
+SPMM_TILES = ROW_TILES + PREFILL_TILES
 
-# launch counters: one per kernel, bumped by its wrapper at each launch
+# launch counters: one per kernel, bumped by its wrapper at each launch;
+# ROUTES counts the delta_spmm launches that took the prefill kernel
 LAUNCHES = {"delta_spmm": 0, "delta_spmm_segments": 0, "fused_base_delta": 0,
             "dequant": 0}
+ROUTES = {"delta_spmm_prefill": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -108,7 +118,7 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.delta_spmm_launch.argtypes = [
-                p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_launch.restype = i
             ll = ctypes.c_longlong
             lib.delta_spmm_segments_launch.argtypes = [
@@ -116,12 +126,23 @@ def _load() -> ctypes.CDLL:
                 i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_segments_launch.restype = i
             lib.fused_base_delta_launch.argtypes = [
-                p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+                p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
             lib.fused_base_delta_launch.restype = i
+            lib.delta_spmm_prefill_ok.argtypes = [i, i, i]
+            lib.delta_spmm_prefill_ok.restype = i
+            lib.fused_base_delta_splits.argtypes = [i, i, i, i]
+            lib.fused_base_delta_splits.restype = i
             lib.dequant_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.dequant_launch.restype = i
             _lib = lib
     return _lib
+
+
+def prefill_fits(tb: int, h_g: int, keep: int) -> bool:
+    """Whether the prefill kernel takes row tile ``tb`` for groups of
+    ``h_g`` rows with ``keep`` kept values (its shared memory fits); asks
+    the library."""
+    return tb in PREFILL_TILES and bool(_load().delta_spmm_prefill_ok(tb, h_g, keep))
 
 
 def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, int]:
@@ -180,23 +201,38 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tensor:
-    """y [T, h_out] f32 = x2 [T, h_in] @ dequant(d), on the card."""
-    if tb not in ROW_TILES:
-        raise ValueError(f"tb={tb} not in {ROW_TILES}")
+    """y [T, h_out] f32 = x2 [T, h_in] @ dequant(d), on the card.
+
+    ``tb`` in :data:`ROW_TILES` takes the columns-in-lanes kernel, in
+    :data:`PREFILL_TILES` the rows-in-lanes prefill kernel (where its
+    shared memory fits, :func:`prefill_fits`); a row has the same bits
+    under every tile."""
+    if tb not in SPMM_TILES:
+        raise ValueError(f"tb={tb} not in {SPMM_TILES}")
     _require_cuda(x2)
     kp, wbits = check_inputs(x2, d, stacked=False)
+    if tb in PREFILL_TILES and not prefill_fits(tb, d.h_g, d.keep):
+        raise ValueError(f"tb={tb}: the prefill kernel's shared memory does not fit "
+                         f"h_g={d.h_g}, keep={d.keep}")
     lib = _load()
     T = x2.shape[0]
     y = torch.empty((T, d.h_out), dtype=torch.float32, device=x2.device)
     if T == 0:
         return y
+    # the prefill kernel stages x transposed, blocked by tb rows:
+    # [ceil(T / tb), h_in, tb]
+    xT = torch.empty((-(-T // tb), d.h_in, tb), dtype=torch.float32, device=x2.device) \
+        if tb in PREFILL_TILES else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = lib.delta_spmm_launch(
         x2.data_ptr(), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(), y.data_ptr(),
+        None if xT is None else xT.data_ptr(),
         T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
     _raise_on(err, "delta_spmm")
     LAUNCHES["delta_spmm"] += 1
+    if tb in PREFILL_TILES:
+        ROUTES["delta_spmm_prefill"] += 1
     return y
 
 
@@ -239,7 +275,12 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
 def fused_base_delta_cuda(x2: torch.Tensor, w: torch.Tensor, d: PackedDelta, *,
                           tb: int) -> torch.Tensor:
     """y [T, h_out] f32 = x2 [T, h_in] @ (w + dequant(d)), on the card;
-    ``w`` [h_in, h_out] contiguous bf16 or f32."""
+    ``w`` [h_in, h_out] contiguous bf16 or f32.
+
+    ``tb`` (8, 16 or 32) caps the kernel's row tile: 16 rows for tb <= 16,
+    else 32 rows for T <= 32 and 64 above. Where the tiles leave SMs idle
+    the kernel splits K over blocks into a workspace allocated here, then
+    adds the splits in a fixed order (the same bits from call to call)."""
     if tb not in ROW_TILES:
         raise ValueError(f"tb={tb} not in {ROW_TILES}")
     _require_cuda(x2)
@@ -255,10 +296,14 @@ def fused_base_delta_cuda(x2: torch.Tensor, w: torch.Tensor, d: PackedDelta, *,
     y = torch.empty((T, d.h_out), dtype=torch.float32, device=x2.device)
     if T == 0:
         return y
+    splits = lib.fused_base_delta_splits(T, d.h_in, d.h_out, tb)
+    ws = torch.empty((splits, T, d.h_out), dtype=torch.float32, device=x2.device) \
+        if splits > 1 else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = lib.fused_base_delta_launch(
         x2.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), splits,
         T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
     _raise_on(err, "fused_base_delta")
     LAUNCHES["fused_base_delta"] += 1

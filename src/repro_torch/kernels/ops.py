@@ -17,8 +17,11 @@ Tiles: the kernels take every T and h_out as they are (they mask the
 ragged edges themselves), so the reference's row padding and column
 padding have no counterpart. The row tile is the smallest instantiated
 tile holding the whole batch when T <= 32 — the decode fast path of
-``ops.py:220-223``, one row block — and 32 otherwise. Output columns go
-32 to a block. Neither choice changes a row's bits.
+``ops.py:220-223``, one row block — and 32 otherwise
+(:func:`row_tile`: the segments and fused kernels). ``delta_spmm`` takes
+its prefill kernel's 128-row tile above 64 rows (:func:`spmm_row_tile`). Output columns go 32 to a block in the decode
+kernels, 32 or 64 in the prefill kernel and 128 in the fused kernel.
+No choice changes a row's bits in the correction kernels.
 """
 from __future__ import annotations
 
@@ -31,7 +34,13 @@ from repro_torch.kernels import delta_spmm as _k
 
 MAX_HG = 256
 MAX_KEEP = 128
-KERNEL_OB = 32     # output columns per block in the CUDA kernels
+KERNEL_OB = 32     # output columns per block in the decode and dequant kernels
+FUSED_OB = 128     # output columns per block in the fused kernel
+# delta_spmm takes the prefill kernel's 128-row tile from this many rows:
+# on an H100 it beat or tied 32-row tiles at every full-width site from 65
+# rows on (T = 96, 128, 160, 256) and lost to them at wi at 64 rows
+# (chip_smoke.py's [route] lines, PERF.md)
+PREFILL_MIN_T = 65
 
 
 def _note(site: str, **attrs) -> None:
@@ -51,6 +60,16 @@ def row_tile(T: int) -> int:
         if T <= tb:
             return tb
     return _k.ROW_TILES[-1]
+
+
+def spmm_row_tile(T: int, d: PackedDelta) -> int:
+    """delta_spmm's row tile: the prefill kernel's 128 rows from
+    :data:`PREFILL_MIN_T` rows where its shared memory fits, else
+    :func:`row_tile`. Every tile gives a row the same bits."""
+    tb = _k.PREFILL_TILES[0]
+    if T >= PREFILL_MIN_T and _k.prefill_fits(tb, d.h_g, d.keep):
+        return tb
+    return row_tile(T)
 
 
 def _gather_max_t(d: PackedDelta) -> int:
@@ -74,9 +93,11 @@ def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     if _device_kind(x2) == "cpu":
         y = fallback.correction(x2, d, gather_max_t=gmax)
     else:
-        tb = row_tile(x2.shape[0])
-        _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb,
-              ob=KERNEL_OB)
+        tb = spmm_row_tile(x2.shape[0], d)
+        if tb <= 32:
+            _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb, ob=KERNEL_OB)
+        else:   # the prefill kernel picks 64 or 32 columns by the SM count
+            _note("delta_spmm", formulation="cuda-prefill", codec=d.codec, tb=tb)
         # the kernels take f32 activations (the TPU kernel upcasts x itself)
         y = _k.delta_spmm_cuda(x2.to(torch.float32).contiguous(), d, tb=tb)
     return y.reshape(*lead, d.h_out)
@@ -144,8 +165,8 @@ def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.
         y = fallback.fused_base_delta(x2, w, d)
     else:
         tb = row_tile(x2.shape[0])
-        _note("fused_base_delta", formulation="cuda", codec=d.codec, tb=tb,
-              ob=KERNEL_OB)
+        _note("fused_base_delta", formulation="cuda-3xtf32", codec=d.codec, tb=tb,
+              ob=FUSED_OB)
         # f32 activations, as delta_spmm; W is read as stored (bf16 or f32)
         y = _k.fused_base_delta_cuda(x2.to(torch.float32).contiguous(),
                                      w.contiguous(), d, tb=tb)

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.pack import PackedDelta, reconstruct_dense
+from repro_torch.core.pack import PackedDelta, decode_values, reconstruct_dense
 
 
 def delta_spmm_ref(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
@@ -26,3 +26,28 @@ def fused_base_delta_ref(x: torch.Tensor, w: torch.Tensor,
 def dequant_tile_ref(d: PackedDelta) -> torch.Tensor:
     """Materialize the dense delta [h_in, h_out] (f32)."""
     return reconstruct_dense(d, dtype=torch.float32)
+
+
+def correction_kernel_order(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
+    """x [T, h_in] @ dequant(delta) -> [T, h_out] f32 in the CUDA
+    correction kernels' reduction order, bit for bit.
+
+    Eight class partials: P_c is a chain ``acc = acc + x[r, g*h_g + id] * v``
+    from 0, over the groups g = c (mod 8) in increasing g, then the kept
+    slots k = 0..keep-1, each product and each sum rounded on its own (no
+    FMA). Then ((P0 + P1) + P2) + ... + P7. Elementwise torch ops round
+    each result separately, so this is the kernels' arithmetic, one
+    (group, slot) at a time."""
+    x = x.to(torch.float32)
+    vals = decode_values(d)                                   # [G, K, O]
+    G, K, O = vals.shape
+    base = torch.arange(G, dtype=torch.int64, device=x.device)[:, None, None] * d.h_g
+    gidx = d.idx.to(torch.int64) + base                       # [G, K, O]
+    total = None
+    for c in range(8):
+        part = torch.zeros((x.shape[0], O), dtype=torch.float32, device=x.device)
+        for g in range(c, G, 8):
+            for k in range(K):
+                part = part + x[:, gidx[g, k]] * vals[g, k]
+        total = part if c == 0 else total + part
+    return total

@@ -18,7 +18,7 @@ from repro_torch.core.dropout import groupwise_dropout_pack  # noqa: E402
 from repro_torch.core.pack import reconstruct_dense  # noqa: E402
 from repro_torch.kernels import delta_spmm as kern  # noqa: E402
 from repro_torch.kernels import fallback as fb  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.serve.scheduler import tenant_segments  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)   # f32, the two sum in different orders
@@ -88,6 +88,40 @@ def test_delta_spmm_kernel_rows_bit_stable(cuda):
     full = ops.delta_spmm(x, d)
     for sl in (slice(0, 1), slice(3, 11), slice(5, 6), slice(20, 40)):
         assert torch.equal(ops.delta_spmm(x[sl], d), full[sl])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [64, 100, 128, 256])
+@pytest.mark.parametrize("h_in,h_out,h_g,alpha,k", [c[1:] for c in SWEEP])
+def test_delta_spmm_prefill_rows_equal_tb8_rows(cuda, T, h_in, h_out, h_g, alpha, k):
+    """delta_spmm above 32 rows, on the prefill route (128-row tile) where
+    ops takes it and on tb=32 elsewhere (T=64; h_g=256, whose 128-row
+    slabs do not fit), gives every row the bits of the tb=8 route and of
+    the kernel-order oracle."""
+    d = _pack(h_in, h_out, h_g, alpha, k, 0, cuda)
+    x = _x(T, h_in, 11, cuda)
+    prefill = ops.spmm_row_tile(T, d) in kern.PREFILL_TILES
+    assert prefill == (T > 64 and h_g < 256)
+    before = kern.ROUTES["delta_spmm_prefill"]
+    got = ops.delta_spmm(x, d)
+    torch.cuda.synchronize()
+    assert kern.ROUTES["delta_spmm_prefill"] == before + int(prefill)
+    chunks = torch.cat([kern.delta_spmm_cuda(x[i:i + 8], d, tb=8) for i in range(0, T, 8)])
+    assert torch.equal(got.view(torch.int32), chunks.view(torch.int32))
+    want = ref.correction_kernel_order(x, d)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tb", kern.PREFILL_TILES)
+@pytest.mark.parametrize("h_out", [200, 12800])    # 32- and 64-column blocks on 132 SMs
+def test_delta_spmm_prefill_multi_block_deterministic(cuda, tb, h_out):
+    d = _pack(64, h_out, 16, 8, 4, 12, cuda)
+    x = _x(300, 64, 13, cuda)
+    a = kern.delta_spmm_cuda(x, d, tb=tb)
+    b = kern.delta_spmm_cuda(x, d, tb=tb)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a.view(torch.int32), kern.delta_spmm_cuda(x, d, tb=32).view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -177,6 +211,23 @@ def test_fused_kernel_matches_plain(cuda, w_dtype, T, h_in, h_out, h_g, alpha, k
     torch.cuda.synchronize()
     assert kern.LAUNCHES["fused_base_delta"] == before + 1
     torch.testing.assert_close(got, fb.fused_base_delta(x, w, d), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h_out", [96, 200, 100])   # 100: bf16 rows not 16-byte aligned
+@pytest.mark.parametrize("T", [2, 16, 17, 128])
+def test_fused_kernel_ragged_shapes_and_splits(cuda, w_dtype, h_out, T):
+    """Ragged rows and columns, the K split (T=2 over one column block
+    splits K) and its fixed-order combine: within tolerance, and two calls
+    give the same bits."""
+    d = _pack(256, h_out, 16, 8, 4, 14, cuda)
+    x = _x(T, 256, 15, cuda)
+    w = (_x(256, h_out, 16, cuda) * 0.05).to(w_dtype)
+    got = ops.fused_base_delta(x, w, d)
+    torch.testing.assert_close(got, fb.fused_base_delta(x, w, d), **TOL)
+    again = ops.fused_base_delta(x, w, d)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -271,3 +322,47 @@ def test_launch_checks_accept_layer_slices_and_reject_bad_layouts():
         kern.check_inputs(x, bad, stacked=False)
     with pytest.raises(ValueError):
         kern.delta_spmm_cuda(x, layers[0]["w"], tb=8)       # a CPU tensor
+
+
+def test_prefill_row_tiles_are_delta_spmm_only(monkeypatch):
+    """delta_spmm takes the 128-row prefill tile above 64 rows where its
+    shared memory fits; the segments and fused kernels keep 8/16/32 (CPU)."""
+    def no_build():
+        raise AssertionError("the tile choice asked the library")
+    monkeypatch.setattr(kern, "_load", no_build)
+    d = _pack(64, 32, 16, 8, 4, 7, "cpu")
+    # up to 64 rows the choice never asks whether the prefill tile fits
+    assert [ops.spmm_row_tile(T, d) for T in (1, 8, 9, 32, 33, 64)] == [8, 8, 16, 32, 32, 32]
+    # past 64 rows it does (the library's answer, a card test, stood in for)
+    monkeypatch.setattr(kern, "prefill_fits", lambda tb, h_g, keep: h_g < 256)
+    assert [ops.spmm_row_tile(T, d) for T in (65, 100, 128, 129, 160, 161, 256, 300)] \
+        == [128] * 8
+    big = _pack(512, 32, 256, 16, 4, 7, "cpu")             # h_g 256: 128 rows do not fit
+    assert ops.spmm_row_tile(128, big) == 32
+    assert [ops.row_tile(T) for T in (1, 9, 33, 128, 256)] == [8, 16, 32, 32, 32]
+    assert set(kern.PREFILL_TILES).isdisjoint(kern.ROW_TILES)
+
+
+@pytest.mark.gpu
+def test_prefill_fits_asks_the_library(cuda):
+    assert kern.prefill_fits(128, 16, 2) and kern.prefill_fits(128, 128, 16)
+    assert not kern.prefill_fits(128, 256, 16)       # two 128-row slabs of 256 rows
+    assert not kern.prefill_fits(64, 16, 2)          # not a prefill tile
+
+
+def test_prefill_tiles_rejected_by_segments_and_fused_before_building(monkeypatch):
+    def no_build():
+        raise AssertionError("the wrapper reached the build")
+    monkeypatch.setattr(kern, "_load", no_build)
+    d = _pack(64, 32, 16, 8, 4, 7, "cpu")
+    stack = stack_tenant_deltas([{"w": d}, {"w": d}])["w"]
+    rows = torch.zeros(1, dtype=torch.int32)
+    offs = torch.tensor([0, 4], dtype=torch.int32)
+    for tb in (64, *kern.PREFILL_TILES):
+        with pytest.raises(ValueError, match=f"tb={tb}"):
+            kern.delta_spmm_segments_cuda(_x(4, 64, 0, "cpu"), stack, rows, offs, tb=tb)
+        with pytest.raises(ValueError, match=f"tb={tb}"):
+            kern.fused_base_delta_cuda(_x(4, 64, 0, "cpu"), torch.zeros((64, 32)), d, tb=tb)
+    for tb in (12, 64):
+        with pytest.raises(ValueError, match=f"tb={tb}"):
+            kern.delta_spmm_cuda(_x(4, 64, 0, "cpu"), d, tb=tb)

@@ -82,6 +82,31 @@ def test_delta_spmm_cpu_matches_reference_kernel(T, h_in, h_out, h_g, alpha, k):
                                want, **TOL)
 
 
+@pytest.mark.parametrize("T,h_in,h_out,h_g,alpha,k", SWEEP)
+def test_correction_kernel_order_matches_plain_and_reference(T, h_in, h_out, h_g, alpha, k):
+    """kernels/ref.py's oracle of the CUDA kernels' reduction order is the
+    same function: within 1e-5 of the plain version (another order) and
+    within the kernel tolerance of the reference's interpret-mode kernel."""
+    p = _pack(h_in, h_out, h_g, alpha, k)
+    tp = br.packed_to_port(p)
+    x = torch.from_numpy(_x(T, h_in, 1))
+    got = tref.correction_kernel_order(x, tp)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (T, h_out)
+    torch.testing.assert_close(got, tfb.correction(x, tp), atol=1e-5, rtol=1e-5)
+    want = np.asarray(jops.delta_spmm(jnp.asarray(x.numpy()), p, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_correction_kernel_order_rows_are_t_invariant():
+    """A row's bits do not depend on the rows beside it (the contract the
+    kernels keep at every T and row tile)."""
+    tp = br.packed_to_port(_pack(256, 96, 16, 8, 4, seed=3, scale=0.5))
+    x = torch.from_numpy(_x(40, 256, 4) * 2.0)
+    full = tref.correction_kernel_order(x, tp)
+    for sl in (slice(0, 1), slice(3, 11), slice(5, 6), slice(8, 40)):
+        assert torch.equal(tref.correction_kernel_order(x[sl], tp), full[sl])
+
+
 def test_delta_spmm_bf16_input_and_leading_dims():
     p = _pack(256, 128, 64, 8, 4)
     x = _x(32, 256, 3).reshape(4, 8, 256)
