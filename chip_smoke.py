@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT/src]
 
 Builds the port's four CUDA kernels from the sources in this checkout,
 holds each kernel against its plain torch version at the full
@@ -51,9 +52,12 @@ K_CASES = (4, 8, None)
 PARITY_T = (1, 2, 4, 8, 128, 256)
 FUSED_T = (1, 2, 8, 128, 256)
 PREFILL_T = (128, 256)             # delta_spmm's prefill route (row tile 128)
-# delta_spmm's two routes above 32 rows (tb=32 and the 128-row prefill
-# tile) timed against each other around the edges of ops.spmm_row_tile's
-# rule, in alternating rounds for their spread
+DECODE_T = (1, 2, 4, 8, 16, 32, 64)   # delta_spmm's decode route, timed
+# the mixed decode step's slot layout (0 = base): 4 two-row segments
+MIXED_SLOT_ROWS = (0, 1, 2, 3, 1, 0, 3, 2)
+# delta_spmm's two routes (the decode route at its 8-row tile and the
+# 128-row prefill tile) timed against each other around the edges of
+# ops.spmm_row_tile's rule, in alternating rounds for their spread
 ROUTE_T = (64, 96, 128, 160, 256)
 ROUTE_ROUNDS = 5
 ORDER_SITE, ORDER_T = "wi", (1, 8, 128, 256)   # bit-exact kernel-order checks
@@ -76,6 +80,8 @@ MIXED_REL_TOL = 5e-2
 # bytes: the decode shapes (1.4 GB at wi, T=8), not prefill (46 GB)
 LIBRARY_STACK_MAX_BYTES = 4e9
 DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
+REPLACED_NOTE = ("the kernel this one replaced is gone from this checkout; it is timed "
+                 "by the parent commit's chip_smoke.py in the same chip call (PERF.md)")
 
 
 def log(*a) -> None:
@@ -89,22 +95,48 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
-def time_ms(torch, fns, iters: int = 20, reps: int = 5) -> float:
+def time_ms(torch, fns, iters: int = 20, reps: int = 5, eager: bool = False) -> float:
     """Median per-call device time of cycling through ``fns`` (a ring of
-    calls on distinct inputs, so each call finds its inputs cold in L2)."""
+    calls on distinct inputs, so each call finds its inputs cold in L2).
+
+    The calls are captured once in a CUDA graph and the graph is replayed
+    between two events, so the time is the card's: a decode-size kernel
+    takes less time on the card than one eager call takes to enqueue on
+    the host, and timing an eager loop would measure the host. ``eager``
+    times an eager loop instead: the plain versions (which read values
+    back to the host) and whole model steps (the latency a caller sees)."""
     for f in fns:
         f()
+    torch.cuda.synchronize()
+    graph = None
+    if eager:
+        def run():
+            for i in range(iters):
+                fns[i % len(fns)]()
+    else:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for f in fns:
+                f()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(iters):
+                fns[i % len(fns)]()
+        run = graph.replay
+    run()
     torch.cuda.synchronize()
     per = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for i in range(iters):
-            fns[i % len(fns)]()
+        run()
         end.record()
         end.synchronize()
         per.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(per)
 
 
@@ -303,14 +335,29 @@ def phase_parity(torch, report: dict) -> dict:
                 sel = sorted_rows == t
                 if not torch.equal(ys[sel], per[sel]):
                     fail(f"segments rows != delta_spmm rows ({site} k={k} tenant {t})")
+            # 8 one-row slots (delta_spmm_slots): each row has its delta's bits
+            slots = stack_tenant_deltas([{"w": tenants[b % 4]} for b in range(8)])["w"]
+            ysl = ops.delta_spmm_slots(x8.reshape(8, 1, h_in), slots)
+            for b in range(8):
+                if not torch.equal(ysl[b, 0], ops.delta_spmm(x8[b:b + 1], tenants[b % 4])[0]):
+                    fail(f"slot row {b} != delta_spmm row ({site} k={k})")
+            # rows no segment covers and an out-of-stack tenant row are zero
+            yz = ops.delta_spmm_segments(x8, stack, torch.tensor([1, 9], device=DEVICE,
+                                                                 dtype=torch.int32),
+                                         torch.tensor([1, 3, 5], device=DEVICE,
+                                                      dtype=torch.int32))
+            if yz[[0, 3, 4, 5, 6, 7]].any() or not torch.equal(
+                    yz[1:3], ops.delta_spmm(x8[1:3], stack.index(1))):
+                fail(f"segments zero fill ({site} k={k})")
         del w, w32
     torch.cuda.synchronize()
     if ORDER_T and n_order != len(K_CASES) * len(ORDER_T) * (1 + len(kern.PREFILL_TILES)):
         fail(f"the kernel-order checks ran {n_order} times")
     log(f"[parity] {len(rows_out)} cases x 2 kernels within atol/rtol 1e-4 "
         f"(worst |err| spmm {worst['delta_spmm']:.3e}, segments "
-        f"{worst['delta_spmm_segments']:.3e}); T=1 == row of T=8 and segment "
-        f"rows == delta_spmm rows bit for bit at all sites and k_bits")
+        f"{worst['delta_spmm_segments']:.3e}); T=1 == row of T=8, segment rows and "
+        f"slot rows == delta_spmm rows bit for bit, uncovered and out-of-stack segment "
+        f"rows zero, at all sites and k_bits")
     log(f"[parity] delta_spmm at T {list(PREFILL_T)} == the same rows through tb=8, "
         f"bit for bit, and two calls equal, at all sites and k_bits; both routes "
         f"(decode tile, 128 rows) == ref.correction_kernel_order bit for bit at "
@@ -327,71 +374,123 @@ def phase_parity(torch, report: dict) -> dict:
     for site, (h_in, h_out) in SITES.items():
         ring = [_rand_packed(torch, dropout, h_in, h_out, 4, gen) for _ in range(8)]
         dense = [reconstruct_dense(d) for d in ring]
-        stacks = [stack_tenant_deltas([{"w": z} for z in
-                                       (ring[i], ring[(i + 1) % 8], ring[(i + 2) % 8],
-                                        ring[(i + 3) % 8])])["w"] for i in range(8)]
-        nnz, dbytes = ring[0].nnz, packed_bytes(ring[0])
         routes = _time_routes(torch, kern, ops, ring, gen, site, h_in)
         report.setdefault("routes", []).extend(routes.values())
-        for kname, T in (("delta_spmm", 2), ("delta_spmm", 8), ("delta_spmm", 128),
-                         ("delta_spmm", 256), ("delta_spmm_segments", 8),
-                         ("delta_spmm_segments", 256)):
-            x = torch.randn((T, h_in), generator=gen, device=DEVICE)
-            replaced = None
-            if kname == "delta_spmm":
-                ms = time_ms(torch, [lambda d=d: ops.delta_spmm(x, d) for d in ring])
-                plain = time_ms(torch, [lambda d=d: fb.correction(x, d) for d in ring],
-                                iters=8, reps=3)
-                lib = time_ms(torch, [lambda w=w: torch.matmul(x, w) for w in dense])
-                if T in PREFILL_T:   # the route the prefill kernel replaced (tb=32)
-                    replaced = routes[T]["tb32_ms"]
-                n_deltas = 1
-            else:
-                seg = tenant_segments(_mixed_rows(T)).to(DEVICE)
-                xs = x.index_select(0, seg.order)
-                n_deltas = len(set(_mixed_rows(T).tolist()))
-                ms = time_ms(torch, [lambda s=s: ops.delta_spmm_segments(
-                    xs, s, seg.seg_rows, seg.seg_offsets) for s in stacks])
-                plain = time_ms(torch, [lambda s=s: _plain_segments(
-                    torch, fb, xs, s, seg.seg_rows, seg.seg_offsets) for s in stacks],
-                    iters=4, reps=3)
-                lib = _segments_library_ms(torch, xs, stacks[0], T, seg, ops)
-            b_ms, b_by = bound_ms(T * h_in * 4, n_deltas * dbytes, T * h_out * 4,
-                                  2.0 * T * nnz)
-            times.append({"kernel": kname, "site": site, "h_in": h_in, "h_out": h_out,
-                          "T": T, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                          "bound_ms": b_ms, "bound_by": b_by, "replaced_ms": replaced})
-            log(f"[time] {kname:20s} {site:6s} T={T:3d}: kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, library {lib if lib is None else f'{lib:.4f}'}"
-                f" ms, bound {b_ms:.4f} ms ({b_by})"
-                + ("" if replaced is None else
-                   f"; replaced route (tb=32, median of the [route] rounds) {replaced:.4f} ms"))
+        for T in DECODE_T + PREFILL_T:
+            times.append(_time_spmm(torch, ops, fb, ring, dense, gen, site, T,
+                                    routes.get(T)))
+        for layout, T in (("mixed", 8), ("slots", 8), ("random", 256)):
+            times.append(_time_segments(torch, ops, fb, ring, gen, site, layout, T))
         times += _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out)
-        del ring, dense, stacks
+        del ring, dense
     report["times"] = times
     return worst
 
 
+def _ms(v) -> str:
+    return "none" if v is None else f"{v:.4f}"
+
+
+def _log_time(t: dict, extra: str = "", tag: str = "time") -> None:
+    log(f"[{tag}] {t['kernel']:20s} {t['site']:6s} T={t['T']:3d}"
+        f"{'' if 'layout' not in t else ' ' + t['layout']}: kernel {t['ms']:.4f} ms, "
+        f"plain {_ms(t['plain_ms'])} ms, library {_ms(t['library_ms'])} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){extra}")
+
+
+def _time_spmm(torch, ops, fb, ring, dense, gen, site, T, route, full=True) -> dict:
+    """delta_spmm at T rows on the ring: the route ops takes and (full)
+    its plain version and one torch.matmul on the dense delta."""
+    h_in, h_out = ring[0].h_in, ring[0].h_out
+    x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+    ms = time_ms(torch, [lambda d=d: ops.delta_spmm(x, d) for d in ring])
+    plain = lib = None
+    if full:
+        plain = time_ms(torch, [lambda d=d: fb.correction(x, d) for d in ring], iters=8,
+                        reps=3, eager=True)
+        lib = time_ms(torch, [lambda w=w: torch.matmul(x, w) for w in dense])
+    b_ms, b_by = bound_ms(T * h_in * 4, packed_bytes(ring[0]), T * h_out * 4,
+                          2.0 * T * ring[0].nnz)
+    t = {"kernel": "delta_spmm", "site": site, "h_in": h_in, "h_out": h_out, "T": T,
+         "route": "prefill" if T in PREFILL_T else "decode", "ms": ms, "plain_ms": plain,
+         "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+    extra = ""
+    if route is not None:    # the other route, from the [route] rounds
+        other = "decode_ms" if t["route"] == "prefill" else "prefill_ms"
+        t["other_route_ms"] = route[other]
+        extra = f"; other route ({other[:-3]}, median of the [route] rounds) {route[other]:.4f} ms"
+    _log_time(t, extra, "time" if full else "kernel-times")
+    return t
+
+
+def _time_segments(torch, ops, fb, ring, gen, site, layout, T, full=True) -> dict:
+    """delta_spmm_segments on 4-tenant stacks of the ring: ``mixed`` is
+    the mixed decode step's layout (4 two-row segments, padded to 8),
+    ``random`` T rows over 4 tenants; ``slots`` is delta_spmm_slots on 8
+    distinct deltas (8 one-row segments of a row-gathered stack)."""
+    import numpy as np
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.serve.scheduler import tenant_segments
+    h_in, h_out = ring[0].h_in, ring[0].h_out
+    x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+    if layout == "slots":
+        stacks = [stack_tenant_deltas([{"w": ring[(i + j) % 8]} for j in range(8)])["w"]
+                  for i in range(2)]
+        x3 = x.reshape(T, 1, h_in)
+        n_deltas = T
+        ms = time_ms(torch, [lambda s=s: ops.delta_spmm_slots(x3, s) for s in stacks])
+        plain = lib = None
+        if full:
+            plain = time_ms(torch, [lambda s=s: fb.gather_correction_rows(x3, s)
+                                    for s in stacks], iters=4, reps=3, eager=True)
+            lib = _bmm_library_ms(torch, x, stacks[0], list(range(T)),
+                                  ops.delta_spmm_slots(x3, stacks[0])[:, 0])
+    else:
+        rows = np.asarray(MIXED_SLOT_ROWS if layout == "mixed" else _mixed_rows(T), np.int32)
+        stacks = [stack_tenant_deltas([{"w": ring[(i + j) % 8]} for j in range(4)])["w"]
+                  for i in range(8)]
+        seg = tenant_segments(rows).to(DEVICE)
+        xs = x.index_select(0, seg.order)
+        n_deltas = len(set(rows.tolist()))
+        ms = time_ms(torch, [lambda s=s: ops.delta_spmm_segments(
+            xs, s, seg.seg_rows, seg.seg_offsets) for s in stacks])
+        plain = lib = None
+        if full:
+            plain = time_ms(torch, [lambda s=s: _plain_segments(
+                torch, fb, xs, s, seg.seg_rows, seg.seg_offsets) for s in stacks],
+                iters=4, reps=3, eager=True)
+            lib = _bmm_library_ms(torch, xs, stacks[0], rows[seg.order.cpu().numpy()].tolist(),
+                                  ops.delta_spmm_segments(xs, stacks[0], seg.seg_rows,
+                                                          seg.seg_offsets))
+    b_ms, b_by = bound_ms(T * h_in * 4, n_deltas * packed_bytes(ring[0]), T * h_out * 4,
+                          2.0 * T * ring[0].nnz)
+    t = {"kernel": "delta_spmm_segments", "layout": layout, "site": site, "h_in": h_in,
+         "h_out": h_out, "T": T, "ms": ms, "plain_ms": plain, "library_ms": lib,
+         "bound_ms": b_ms, "bound_by": b_by}
+    _log_time(t, tag="time" if full else "kernel-times")
+    return t
+
+
 def _time_routes(torch, kern, ops, ring, gen, site, h_in) -> dict:
-    """delta_spmm's tb=32 route and its 128-row prefill tile at ROUTE_T,
-    timed in ROUTE_ROUNDS alternating rounds on the ring: {T: row}, each
-    round's time and the medians."""
-    pre = kern.PREFILL_TILES[0]
+    """delta_spmm's decode route (its 8-row tile) and its 128-row prefill
+    tile at ROUTE_T, timed in ROUTE_ROUNDS alternating rounds on the ring:
+    {T: row}, each round's time and the medians."""
+    pre, dec = kern.PREFILL_TILES[0], kern.ROW_TILES[-1]
     out = {}
     for T in ROUTE_T:
         x = torch.randn((T, h_in), generator=gen, device=DEVICE)
-        rounds = {32: [], pre: []}
+        rounds = {dec: [], pre: []}
         for _ in range(ROUTE_ROUNDS):
             for tb, per in rounds.items():
                 per.append(time_ms(torch, [lambda d=d, tb=tb: kern.delta_spmm_cuda(
                     x, d, tb=tb) for d in ring]))
         row = {"site": site, "T": T, "ops_tile": ops.spmm_row_tile(T, ring[0]),
-               "tb32_rounds": rounds[32], "prefill_rounds": rounds[pre],
-               "tb32_ms": statistics.median(rounds[32]),
+               "decode_rounds": rounds[dec], "prefill_rounds": rounds[pre],
+               "decode_ms": statistics.median(rounds[dec]),
                "prefill_ms": statistics.median(rounds[pre])}
         out[T] = row
-        log(f"[route] delta_spmm {site:6s} T={T:3d}: tb=32 {row['tb32_ms']:.4f} ms "
-            f"({min(rounds[32]):.4f}-{max(rounds[32]):.4f}), tb={pre} "
+        log(f"[route] delta_spmm {site:6s} T={T:3d}: decode tb={dec} {row['decode_ms']:.4f} ms "
+            f"({min(rounds[dec]):.4f}-{max(rounds[dec]):.4f}), tb={pre} "
             f"{row['prefill_ms']:.4f} ms ({min(rounds[pre]):.4f}-{max(rounds[pre]):.4f}) "
             f"over {ROUTE_ROUNDS} rounds; ops takes tb={row['ops_tile']}")
     return out
@@ -419,7 +518,8 @@ def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
     if not torch.equal(scatter(*pre[0]).view(h_in, h_out), ops.dequant(ring[0])):
         fail("the dequant partial yardstick disagrees with the kernel")
     ms = time_ms(torch, [lambda d=d: ops.dequant(d) for d in ring])
-    plain = time_ms(torch, [lambda d=d: fb.dequant(d) for d in ring], iters=8, reps=3)
+    plain = time_ms(torch, [lambda d=d: fb.dequant(d) for d in ring], iters=8, reps=3,
+                    eager=True)
     part = time_ms(torch, [lambda p=p: scatter(*p) for p in pre])
     b_ms, b_by = bound_ms(0, dbytes, h_in * h_out * 4, 2.0 * nnz)
     out.append({"kernel": "dequant", "site": site, "h_in": h_in, "h_out": h_out,
@@ -444,7 +544,7 @@ def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
         ms = time_ms(torch, [lambda w=w, d=d: ops.fused_base_delta(x, w, d)
                              for w, d, _ in case])
         plain = time_ms(torch, [lambda w=w, d=d: fb.fused_base_delta(x, w, d)
-                                for w, d, _ in case], iters=8, reps=3)
+                                for w, d, _ in case], iters=8, reps=3, eager=True)
         lib = time_ms(torch, [lambda m=m: torch.matmul(x, m) for _, _, m in case])
         unfused = time_ms(torch, [lambda w=w, d=d: apply_linear(x, w, d)
                                   for w, d, _ in case])
@@ -463,19 +563,20 @@ def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
     return out
 
 
-def _segments_library_ms(torch, xs, stack, T: int, seg, ops):
-    """One torch.bmm of each sorted row against its tenant's dense f32
-    delta (gathered per row before timing), or None where that per-row
-    stack exceeds LIBRARY_STACK_MAX_BYTES. The stack is far larger than
-    L2, so one input suffices. Timed only; the port never calls it."""
+def _bmm_library_ms(torch, xs, stack, row_tenants, want):
+    """One torch.bmm of each row against its tenant's dense f32 delta
+    (gathered per row before timing), or None where that per-row stack
+    exceeds LIBRARY_STACK_MAX_BYTES; checked against the kernel's ``want``.
+    The stack is far larger than L2, so one input suffices. Timed only;
+    the port never calls it."""
     from repro_torch.core.pack import reconstruct_dense
+    T = xs.shape[0]
     if T * stack.h_in * stack.h_out * 4 > LIBRARY_STACK_MAX_BYTES:
         return None
-    sorted_rows = torch.as_tensor(_mixed_rows(T), device=DEVICE).long()[seg.order]
-    dense_rows = reconstruct_dense(stack).index_select(0, sorted_rows)
+    rows = torch.as_tensor(row_tenants, device=DEVICE).long()
+    dense_rows = reconstruct_dense(stack).index_select(0, rows)
     x3 = xs.unsqueeze(1)
     y = torch.bmm(x3, dense_rows)[:, 0]
-    want = ops.delta_spmm_segments(xs, stack, seg.seg_rows, seg.seg_offsets)
     if not torch.allclose(y, want, **KERNEL_TOL):
         fail("the segments library yardstick disagrees with the kernel")
     ms = time_ms(torch, [lambda: torch.bmm(x3, dense_rows)])
@@ -526,18 +627,24 @@ def phase_main_path(torch, kern, report: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(kern.LAUNCHES)
     prefill_launches = kern.ROUTES["delta_spmm_prefill"]
+    decode_launches = kern.ROUTES["delta_spmm_decode"]
     sites = 7 * cfg.n_layers
     expect = 3 * sites * NEW          # prefill + (NEW - 1) decode steps per tenant
     log(f"[main] Engine.generate base + 3 tenants, B={B} S={S} new={NEW}: "
         f"{wall:.2f} s; launches {launches} (expected delta_spmm {expect}: "
         f"{sites} sites x {NEW} calls x 3 tenants), of which {prefill_launches} on "
-        f"the prefill route (expected {3 * sites}: the T={B * S} prefill)")
+        f"the prefill route (expected {3 * sites}: the T={B * S} prefill) and "
+        f"{decode_launches} on the decode route (expected {expect - 3 * sites}: "
+        f"T={B} decode steps)")
     if launches["delta_spmm"] <= 0:
         fail("the main path never launched delta_spmm")
     if launches["delta_spmm"] != expect:
         fail(f"delta_spmm launched {launches['delta_spmm']} times, expected {expect}")
     if prefill_launches != 3 * sites:
         fail(f"the prefill route launched {prefill_launches} times, expected {3 * sites}")
+    if decode_launches != expect - 3 * sites:
+        fail(f"the decode route launched {decode_launches} times, expected "
+             f"{expect - 3 * sites}")
     for tenant, gen in outputs.items():
         if gen.shape != (B, NEW) or gen.min() < 0 or gen.max() >= cfg.vocab:
             fail(f"bad tokens for {tenant}: shape {gen.shape}")
@@ -575,7 +682,8 @@ def phase_main_path(torch, kern, report: dict) -> dict:
         f"tenant-vs-base gap {gap:.3e}")
     if not err <= MERGED_REL_TOL * scale or not err < 0.1 * gap:
         fail("separate computation does not match the merged model")
-    # where a step's time goes, after the counted run: device time of one
+    # where a step's time goes, after the counted run: the time of one
+    # eager step as a caller sees it (host enqueue included),
     # decode step (B=2) and one prefill (B=2, S=64), base vs tenant0
     steps = {}
     for name in (None, "tenant0"):
@@ -583,13 +691,14 @@ def phase_main_path(torch, kern, report: dict) -> dict:
         cache = lm.init_cache(cfg, B, 96, device=DEVICE)
         nxt = torch.as_tensor(outputs[name][:, :1], dtype=torch.int64, device=DEVICE)
         steps[f"prefill_{name}"] = time_ms(torch, [lambda: lm.prefill(
-            cfg, base, {"tokens": tok}, cache, deltas=d)], iters=3, reps=3)
+            cfg, base, {"tokens": tok}, cache, deltas=d)], iters=3, reps=3, eager=True)
         steps[f"decode_{name}"] = time_ms(torch, [lambda: lm.decode_step(
-            cfg, base, cache, nxt, S, deltas=d)], iters=5, reps=3)
+            cfg, base, cache, nxt, S, deltas=d)], iters=5, reps=3, eager=True)
     log(f"[steps] B={B}: decode step base {steps['decode_None']:.2f} ms, tenant0 "
         f"{steps['decode_tenant0']:.2f} ms; prefill S={S} base "
         f"{steps['prefill_None']:.2f} ms, tenant0 {steps['prefill_tenant0']:.2f} ms")
     report["main"] = {"launches": launches, "prefill_route_launches": prefill_launches,
+                      "decode_route_launches": decode_launches,
                       "merge_launches": merge_launches,
                       "wall_s": wall, "step_ms": steps,
                       "separate_vs_merged_rel": err / scale,
@@ -677,12 +786,12 @@ def phase_mixed_decode(torch, kern, ctx: dict, report: dict) -> dict:
         fail("mixed decode never launched delta_spmm_segments")
     if worst > MIXED_REL_TOL:
         fail(f"mixed decode logits differ from per-tenant decode by {worst:.3e}")
-    # device time of one mixed step vs the base model alone at B=8
+    # one eager mixed step vs the base model alone at B=8
     with torch.inference_mode():
         step_ms = {"mixed": time_ms(torch, [lambda: lm.decode_step(
-            cfg, base, mixed, toks, pos, deltas=sd)], iters=5, reps=3),
+            cfg, base, mixed, toks, pos, deltas=sd)], iters=5, reps=3, eager=True),
             "base_b8": time_ms(torch, [lambda: lm.decode_step(
-                cfg, base, mixed, toks, pos)], iters=5, reps=3)}
+                cfg, base, mixed, toks, pos)], iters=5, reps=3, eager=True)}
     log(f"[steps] B=8 decode step: mixed {step_ms['mixed']:.2f} ms, base alone "
         f"{step_ms['base_b8']:.2f} ms")
     report["mixed"] = {"launches": launches, "worst_rel": worst, "step_ms": step_ms,
@@ -742,23 +851,55 @@ def phase_kernels_demo(torch, kern, report: dict) -> dict:
     return launches
 
 
+def kernel_times(torch) -> list:
+    """``--kernel-times``: device times of the decode-side correction
+    kernels alone (delta_spmm at DECODE_T, the three segments layouts) at
+    every site, on the same seeded deltas as a full run; no checks, no
+    plain versions, no library calls. Run with ``--src`` pointing at
+    another checkout's ``src/``, it times that checkout's kernels with
+    this script's method, so two commits compare in one chip call."""
+    from repro_torch.core import dropout
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1234)
+    out = []
+    for site, (h_in, h_out) in SITES.items():
+        ring = [_rand_packed(torch, dropout, h_in, h_out, 4, gen) for _ in range(8)]
+        for T in DECODE_T:
+            out.append(_time_spmm(torch, ops, fb, ring, None, gen, site, T, None, full=False))
+        for layout, T in (("mixed", 8), ("slots", 8), ("random", 256)):
+            out.append(_time_segments(torch, ops, fb, ring, gen, site, layout, T, full=False))
+        del ring
+    return out
+
+
 def kernel_entries(report: dict, worst: dict, path_launches: dict) -> list:
     """The ``kernels`` JSON line: each kernel at the wi site, with its
     launches from the path that runs it (``path_launches[name]``, the
     counts read right after that path)."""
-    by = {(t["kernel"], t["site"], t["T"]): t for t in report["times"]}
+    by = {(t["kernel"], t["site"], t["T"], t.get("layout")): t for t in report["times"]}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = []
-    for name, line, T in (("delta_spmm", 122, 2), ("delta_spmm_segments", 240, 8),
-                          ("fused_base_delta", 173, 128), ("dequant", 311, None)):
-        t = by[(name, "wi", T)]
-        extra = {k: t[k] for k in ("library_note", "scatter_partial_ms",
+    for name, line, T, layout in (("delta_spmm", 122, 2, None),
+                                  ("delta_spmm_segments", 240, 8, "mixed"),
+                                  ("fused_base_delta", 173, 128, None),
+                                  ("dequant", 311, None, None)):
+        t = by[(name, "wi", T, layout)]
+        extra = {k: t[k] for k in ("layout", "library_note", "scatter_partial_ms",
                                    "apply_linear_ms") if k in t}
-        if name == "delta_spmm":   # its prefill route, at the main path's prefill T
-            p = by[(name, "wi", 128)]
+        if name in ("delta_spmm", "delta_spmm_segments"):
+            extra.update(replaced_ms=None, replaced_note=REPLACED_NOTE)
+        if name == "delta_spmm":   # both routes, at the main path's T
+            p = by[(name, "wi", 128, None)]
+            extra["decode_route"] = {
+                "T": 2, "launches": report["main"]["decode_route_launches"],
+                **{k: t[k] for k in keys}, "replaced_ms": None,
+                "replaced_note": REPLACED_NOTE}
             extra["prefill_route"] = {
                 "T": 128, "launches": report["main"]["prefill_route_launches"],
-                **{k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "replaced_ms")}}
+                **{k: p[k] for k in keys}, "decode_route_ms": p.get("other_route_ms")}
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/delta_spmm.cu",
@@ -781,20 +922,34 @@ def _write_report(report: dict, t_start: float) -> None:
         json.dump(report, f, indent=1, default=str)
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    """No arguments: the full smoke run. ``--kernel-times [--src DIR]``:
+    only :func:`kernel_times`, importing ``repro_torch`` from DIR (default
+    this checkout's ``src/``)."""
     try:
         import torch
     except ImportError:
         log("chip_smoke: torch is not installed")
         return 1
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        log(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout")
+    times_only = "--kernel-times" in argv
+    src = argv[argv.index("--src") + 1] if "--src" in argv else SRC
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        log(f"chip_smoke: no repro_torch under {src}; run it from a checkout")
         return 2
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
         return 1
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, os.path.abspath(src))
     from repro_torch.kernels import delta_spmm as kern
+
+    if times_only:
+        with torch.inference_mode():
+            smi = phase_device(torch)
+            log(f"[kernel-times] repro_torch from {os.path.abspath(src)}")
+            kern.build()
+            times = kernel_times(torch)
+        print(json.dumps({"kernel_times": times, "device": smi}), flush=True)
+        return 0
 
     t_start = time.perf_counter()
     report: dict = {}
@@ -829,4 +984,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

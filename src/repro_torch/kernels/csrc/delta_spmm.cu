@@ -1,17 +1,19 @@
 // DeltaDQ delta kernels for Hopper (sm_90a).
 //
-// Four kernels; the two correction kernels share one device routine, and
-// all four share the code decode (decode_value, decode_raw):
+// Four kernels; the two correction kernels share one device routine
+// (cluster_correction), and all four share the code decode (decode_value,
+// decode_raw):
 //
 //   delta_spmm           y[T, O] = x[T, h_in] @ dequant(delta)
 //                        replaces repro/kernels/delta_spmm.py:122
 //                        delta_spmm_kernel (body _spmm_body, :108);
-//                        spmm_kernel for T <= 32, spmm_prefill_kernel
-//                        (same bits) above
+//                        spmm_decode_kernel up to 64 rows,
+//                        spmm_prefill_kernel (same bits) above
 //   delta_spmm_segments  row r of tenant-sorted x gets
 //                        x[r] @ dequant(delta[seg_rows[seg(r)]])
 //                        replaces repro/kernels/delta_spmm.py:240
-//                        delta_spmm_segments_kernel (body _segments_body, :211)
+//                        delta_spmm_segments_kernel (body _segments_body, :211);
+//                        segments_decode_kernel
 //   fused_base_delta     y[T, O] = x[T, h_in] @ (W + dequant(delta)), W bf16
 //                        or f32 [h_in, O]
 //                        replaces repro/kernels/delta_spmm.py:173
@@ -34,40 +36,61 @@
 // is a memory bound. At prefill (T = 256) the 2 * T * nnz f32
 // operations (~2.9 GFLOP for the same site, ~43 us) bound it instead.
 //
-// Design of spmm_kernel (T <= 32) and segments_kernel (a simple, correct
-// first version; wgmma/TMA/persistent blocks are later work):
-//  * Grid: one block per (row block of TB rows, tile of 32 columns).
-//    Blocks carry nothing between each other; a loop over groups inside
-//    the block takes the place of the TPU's sequential G grid axis.
-//  * x[rows, chunk of groups] is staged in shared memory as f32; each
-//    lane owns one output column, reads its column of the [keep, 32]
-//    idx/codes tile straight from global memory (32 consecutive bytes a
-//    warp, coalesced) and decodes each kept value ONCE per (block,
-//    group) into a register, then applies it to all TB staged rows.
-//    The TPU's one-hot scatter to a dense [h_g, Ob] tile has no meaning
-//    here: a register gather from the staged x row replaces it.
-//  * The 8 warps of a block split the groups: warp w owns every group
-//    g with g % 8 == w, visited in increasing g; the 8 partial sums are
-//    then added in warp order 0..7. The reduction order of every output
-//    element is therefore fixed by (G, keep) alone -- never by T, the
-//    row tile, the block layout or the segment layout -- so a row's
-//    correction has the same bits alone, in a batch, or in any segment,
-//    and delta_spmm_segments rows equal delta_spmm rows bit for bit.
-//    No atomics, no split over blocks. Multiplies and adds are explicit
-//    round-to-nearest (no FMA contraction), matching the plain torch
-//    version's multiply-then-sum up to summation order.
-//  * Segments: a block walks the segments that overlap its row block,
-//    skips empty ones, and decodes each tenant's tile once per
-//    (segment, row block, column tile, group) -- the invariant
-//    ops.segment_decode_tiles counts. Rows outside the segment are
-//    computed on the staged zeros/other rows and never written. Rows
-//    that no segment covers, and segments whose tenant row lies outside
-//    the stack, get zeros, as the TPU kernel's zero-filled output does.
+// The bit contract of the correction kernels: every y[r, o] is eight
+// class chains P_c (c = 0..7), each over the groups g = c (mod 8) in
+// increasing g and inside a group the kept slots k = 0..keep-1, with each
+// product and each sum rounded on its own (__fmul_rn, __fadd_rn: no FMA,
+// no tensor cores), then ((P0 + P1) + P2) + ... + P7. The order is fixed
+// by (G, keep) alone -- never by T, the row tile, the route or the
+// segment layout -- so a row has the same bits alone, in a batch, on
+// either route and in any segment (kernels/ref.py::correction_kernel_order
+// is its CPU oracle).
+//
+// delta_spmm at decode (spmm_decode_kernel, up to 64 rows) and
+// delta_spmm_segments (segments_decode_kernel). Bound: reading the packed
+// bytes once (~2.5 us at a 4096 x 11008 site); T * nnz terms then cost
+// one shared-memory gather of x each, 32 a clock an SM (~1.5 us at T = 2,
+// ~6 us at T = 8 there). So both are latency-bound unless each SM keeps
+// tens of KB of loads in flight and every SM has work. Design:
+//  * A cluster of 8 blocks owns a (row range of at most 8 rows, tile of
+//    128 columns); block c runs class chain P_c, so a cluster holds all
+//    eight chains side by side and the grid has 8x the blocks of one
+//    block a tile (>= 256 blocks at every full-width site, T <= 8). It
+//    needs only its class's eighth of x: the rows' x columns of groups
+//    c, c + 8, ... are staged once (16-byte cp.async) as a dense slab.
+//  * Each of a block's 64 threads owns two adjacent columns (two
+//    independent chains, 2-byte idx/code loads); a warp's lanes read one
+//    group's x slab at the same kept slot, so their gathers fall in h_g
+//    consecutive words (conflict-free for h_g <= 32). Each kept value is
+//    decoded once per (block, column, slot) and applied to every row.
+//    Two columns a thread keep wi's 688 blocks in one wave.
+//  * All threads start the class's [keep, 128] idx/code rows as 16-byte
+//    cp.async copies, one copy group a step: a class share up to 48 KB
+//    (12 KB at wi at the 128x spec) is one step, all of it in flight from
+//    the start and one barrier in all; a larger one streams through a
+//    ring of 4 stages of ~12 KB, one barrier a step. Not bulk copies: a
+//    128-byte row is too small for the TMA engine's fixed cost a copy.
+//    Each thread copies one fixed 16-byte column of every 8th row, so
+//    issuing takes no division. Shapes off the main path (rows that are
+//    not 16-byte aligned, a ragged last tile, f32 codes) take plain loads.
+//  * Rows: a block computes only real rows -- the count (1..8) selects
+//    an instance of the routine -- so T = 2 costs 2 rows, not a padded
+//    tile; T = 9..64 takes row tiles of 8 (the last one shorter).
+//  * Combine: each block writes its partial [rows][128] to its shared
+//    memory; after a cluster barrier block c reads columns c * 16 .. + 15
+//    of all eight partials over distributed shared memory and adds them
+//    in class order. No workspace, no second pass, no atomics.
+//  * Segments run in parallel: the grid's second axis enumerates the
+//    segments' row tiles (each block finds its own by a warp prefix sum
+//    over seg_offsets; the host bounds their count without reading the
+//    device), so each block computes only its segment's rows with its
+//    tenant's bytes. Empty segments get no tile; blocks past the last
+//    tile leave at once. Rows that no segment covers and segments whose
+//    tenant row is outside the stack are zero-filled by the blocks.
 //
 // delta_spmm at prefill (row tile 128, taken by ops.spmm_row_tile above
-// 64 rows, where it beats spmm_kernel<32>): the same
-// function and the same reduction order as spmm_kernel, so its rows equal
-// spmm_kernel<8>'s bit for bit. Bound: at the 128x spec 2 * T * nnz f32
+// 64 rows): the same function and the same reduction order as the decode
+// route, so its rows equal the decode route's bit for bit. Bound: at the 128x spec 2 * T * nnz f32
 // CUDA-core operations (~0.02 ms at wi, T = 128); but every term needs one
 // 4-byte shared-memory load of x (the order forbids tensor cores and
 // FMA), so 128 B/clk/SM caps it at 32 terms/clk/SM: ~0.10 ms there.
@@ -88,7 +111,7 @@
 // decoded while this step computes. Each thread keeps the current class
 // partial in registers and folds it into a running total in shared
 // memory at each class's end: P0, then ((P0 + P1) + P2) + ..., exactly
-// the eight warp partials and the warp-order combine of block_correction.
+// the eight class chains and the class-order combine of the decode route.
 // Columns narrow from 64 to 32 when the 64-column grid would give SMs
 // fewer than 4 blocks (wq, MLP wo and wi at T = 128). A step's fixed cost
 // (barrier, copies, tables) set the speed on the card, hence the many
@@ -133,6 +156,7 @@
 // pointer; the kernels launch on the given stream, allocate nothing and
 // return cudaGetLastError() after the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,10 +165,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;              // warps per block
-constexpr int kThreads = kWarps * 32;  // threads per block
-constexpr int kCols = 32;              // output columns per block (one per lane)
-constexpr int kSmemFloats = 8192;      // 32 KB: x chunk [TB][CH], then partials
+constexpr int kWarps = 8;              // class chains; warps of a prefill row half
+constexpr int kThreads = kWarps * 32;  // threads per block (dequant, prefill row half)
+constexpr int kCols = 32;              // output columns per dequant block (one per lane)
 constexpr size_t kSmemMax = 232448;    // dynamic shared memory a block may opt into
 
 struct Delta {
@@ -188,129 +211,6 @@ __device__ __forceinline__ float decode_value(const Delta& d, const Shape& s,
   const unsigned byte = d.codes[(static_cast<size_t>(g) * s.kp + k / c.per) * s.O + o];
   const unsigned q = (byte >> ((k % c.per) * s.wbits)) & c.mask;
   return __fmul_rn(__fsub_rn(static_cast<float>(q), c.zf), c.scale);
-}
-
-// Corrections of rows [r0, r0 + TB) x columns [col0, col0 + 32) for one
-// packed delta. On return, lane l of warp 0 holds out[r] for column
-// col0 + l. Every thread of the block must call it (it synchronises).
-template <int TB>
-__device__ void block_correction(const float* __restrict__ x, const Delta& d,
-                                 const Shape& s, int r0, int col0,
-                                 float* smem, float (&out)[TB]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int o = col0 + lane;
-  const bool live = o < s.O;
-  constexpr int CH = kSmemFloats / TB;   // staged x columns per row
-  const int CG = CH / s.h_g;             // whole groups per chunk
-  const Decode dc = decode_consts(d, s);
-
-  float acc[TB];
-#pragma unroll
-  for (int r = 0; r < TB; ++r) acc[r] = 0.f;
-
-  for (int g0 = 0; g0 < s.G; g0 += CG) {
-    const int cg = min(CG, s.G - g0);
-    const int width = cg * s.h_g;
-    __syncthreads();  // the previous chunk's readers are done
-    const size_t xcol = static_cast<size_t>(g0) * s.h_g;
-    for (int i = threadIdx.x; i < TB * width; i += kThreads) {
-      const int r = i / width;
-      const int c = i - r * width;
-      const int row = r0 + r;
-      smem[r * CH + c] =
-          row < s.T ? x[static_cast<size_t>(row) * s.h_in + xcol + c] : 0.f;
-    }
-    __syncthreads();
-    if (live) {
-      // warp w owns every group g with g % kWarps == w, in increasing g
-      for (int g = g0 + ((warp - g0 % kWarps) + kWarps) % kWarps; g < g0 + cg;
-           g += kWarps) {
-        const float* xs = smem + (g - g0) * s.h_g;
-        const uint8_t* ip = d.idx + static_cast<size_t>(g) * s.keep * s.O + o;
-        for (int k = 0; k < s.keep; ++k) {
-          const int id = ip[static_cast<size_t>(k) * s.O];
-          const float v = decode_value(d, s, dc, g, k, o);
-#pragma unroll
-          for (int r = 0; r < TB; ++r)
-            acc[r] = __fadd_rn(acc[r], __fmul_rn(xs[r * CH + id], v));
-        }
-      }
-    }
-  }
-
-  // fixed-order combine of the per-warp partials: ((w0 + w1) + w2) + ...
-  __syncthreads();  // all warps are done reading the staged x
-#pragma unroll
-  for (int r = 0; r < TB; ++r) smem[(warp * TB + r) * 32 + lane] = acc[r];
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int r = 0; r < TB; ++r) {
-      float t = smem[r * 32 + lane];
-      for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, smem[(w * TB + r) * 32 + lane]);
-      out[r] = t;
-    }
-  }
-}
-
-template <int TB>
-__global__ void __launch_bounds__(kThreads)
-spmm_kernel(const float* __restrict__ x, Delta d, Shape s, float* __restrict__ y) {
-  __shared__ float smem[kSmemFloats];
-  const int r0 = blockIdx.x * TB;
-  const int col0 = blockIdx.y * kCols;
-  float out[TB];
-  block_correction<TB>(x, d, s, r0, col0, smem, out);
-  const int o = col0 + threadIdx.x;
-  if (threadIdx.x < 32 && o < s.O) {
-#pragma unroll
-    for (int r = 0; r < TB; ++r)
-      if (r0 + r < s.T) y[static_cast<size_t>(r0 + r) * s.O + o] = out[r];
-  }
-}
-
-template <int TB>
-__global__ void __launch_bounds__(kThreads)
-segments_kernel(const float* __restrict__ x, Delta stack, Shape s, Strides st,
-                int n_tenants, const int* __restrict__ seg_rows,
-                const int* __restrict__ seg_offsets, int n_seg,
-                float* __restrict__ y) {
-  static_assert(TB <= 32, "one written-row bit per row of the block");
-  __shared__ float smem[kSmemFloats];
-  const int r0 = blockIdx.x * TB;
-  const int col0 = blockIdx.y * kCols;
-  const int o = col0 + threadIdx.x;
-  unsigned written = 0u;  // bit r: row r0 + r was written (warp 0's lanes)
-  for (int seg = 0; seg < n_seg; ++seg) {
-    const int start = seg_offsets[seg];
-    const int end = seg_offsets[seg + 1];
-    const int t = seg_rows[seg];
-    // block-uniform: empty segments, segments disjoint from this row
-    // block and tenant rows outside the stack are skipped, so each
-    // tenant tile is decoded once per segment
-    if (end <= start || start >= r0 + TB || end <= r0 || t < 0 || t >= n_tenants)
-      continue;
-    Delta d{stack.idx + t * st.idx, stack.codes + t * st.codes,
-            stack.scale + t * st.scale, stack.zero + t * st.zero};
-    float out[TB];
-    block_correction<TB>(x, d, s, r0, col0, smem, out);
-    if (threadIdx.x < 32 && o < s.O) {
-#pragma unroll
-      for (int r = 0; r < TB; ++r) {
-        const int row = r0 + r;
-        if (row >= start && row < end && row < s.T) {
-          y[static_cast<size_t>(row) * s.O + o] = out[r];
-          written |= 1u << r;
-        }
-      }
-    }
-  }
-  if (threadIdx.x < 32 && o < s.O) {
-#pragma unroll
-    for (int r = 0; r < TB; ++r)
-      if (!(written >> r & 1u) && r0 + r < s.T) y[static_cast<size_t>(r0 + r) * s.O + o] = 0.f;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -400,11 +300,348 @@ __device__ __forceinline__ unsigned load_code(const Delta& d, const Shape& s,
 }
 
 // decode_value's arithmetic on a code word already loaded (same bits)
+// float(q) for q < 2^23, exactly, without the conversion unit: the bits
+// of 2^23 + q, minus 2^23 (full-rate integer and f32 operations)
+__device__ __forceinline__ float small_u2f(unsigned q) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | q), 8388608.f);
+}
+
 __device__ __forceinline__ float decode_raw(const Shape& s, const Decode& c,
                                             unsigned raw, int k) {
   if (s.wbits == 0) return __uint_as_float(raw);
   const unsigned q = (raw >> ((k & (c.per - 1)) * s.wbits)) & c.mask;
-  return __fmul_rn(__fsub_rn(static_cast<float>(q), c.zf), c.scale);
+  return __fmul_rn(__fsub_rn(small_u2f(q), c.zf), c.scale);
+}
+
+// groups of class c (g = c, c + 8, ...) among G
+__host__ __device__ __forceinline__ int class_count(int c, int G) {
+  return c < G ? (G - c + kWarps - 1) / kWarps : 0;
+}
+
+// ---------------------------------------------------------------------------
+// delta_spmm at decode and delta_spmm_segments: one cluster of 8 blocks a
+// (row range, column tile), block c running class chain P_c (see the note
+// at the top)
+// ---------------------------------------------------------------------------
+constexpr int kDecThreads = 64;                     // two adjacent output columns a thread
+constexpr int kDecCols = 2 * kDecThreads;           // columns of a tile
+constexpr int kDecMaxRows = 8;                      // rows a block computes at most
+constexpr int kDecCombineCols = kDecCols / kWarps;  // columns each block of a cluster writes
+constexpr int kDecStages = 4;                       // ring depth for a large class share
+constexpr size_t kDecShareMax = 48 * 1024;          // a class share this small is one step
+constexpr size_t kDecStageBytes = 12 * 1024;        // else a ring of stages about this large
+
+// The launch plan of a decode tile: groups a step holds (sg), ring depth
+// (ns), rows a block computes at most (rt), whether the idx/code rows of
+// full tiles ride 16-byte cp.async (vec: 1-byte codes in 16-byte aligned
+// rows) and whether x does (xvec).
+struct DecPlan {
+  int sg, ns, rt, vec, xvec;
+};
+
+// raw bytes of one group's [keep, kDecCols] tile: idx rows, then code rows
+__host__ __device__ __forceinline__ int dec_group_bytes(const Shape& s) {
+  const int code_bytes = s.wbits ? s.kp * kDecCols : s.keep * kDecCols * 4;
+  return (s.keep * kDecCols + code_bytes + 15) / 16 * 16;
+}
+
+// Shared memory: the ring [ns][sg groups], the class's x slab
+// [rt][nq * h_g] f32 and the class partial [rt][kDecCols] f32.
+size_t dec_smem_bytes(const Shape& s, int sg, int ns, int rt) {
+  const size_t nq = class_count(0, s.G);
+  return static_cast<size_t>(ns) * sg * dec_group_bytes(s) +
+         static_cast<size_t>(rt) * nq * s.h_g * sizeof(float) +
+         static_cast<size_t>(rt) * kDecCols * sizeof(float);
+}
+
+// The largest row tile <= tb (at most 8) whose stages fit: a class share of
+// at most kDecShareMax bytes is staged whole as one step (one wait, one
+// barrier; splitting it into 4 or 8 steps measured slower on the card), a
+// larger one streams through a ring of kDecStages (or 2) stages of about
+// kDecStageBytes.
+bool dec_plan(const Shape& s, int tb, DecPlan& p) {
+  const int nq = class_count(0, s.G);
+  const size_t gb = dec_group_bytes(s);
+  int sg, ns;
+  if (nq * gb <= kDecShareMax) {
+    sg = nq;
+    ns = 1;
+  } else {
+    sg = std::max<int>(1, static_cast<int>(kDecStageBytes / gb));
+    ns = kDecStages;
+  }
+  for (int rt = std::min(tb, kDecMaxRows); rt >= 1; rt /= 2)
+    for (int n = ns; n >= std::min(ns, 2); n /= 2)
+      if (dec_smem_bytes(s, sg, n, rt) <= kSmemMax) {
+        p.sg = sg;
+        p.ns = n;
+        p.rt = rt;
+        return true;
+      }
+  return false;
+}
+
+// Rows [row0, row0 + R) x columns [col0, col0 + kDecCols) of x @
+// dequant(d). Called by all 8 blocks of a cluster with the same arguments
+// (it synchronises the cluster). Block c (its rank) stages x's columns of
+// the groups of class c and streams their [keep, kDecCols] idx/code tiles,
+// each thread running P_c of its two columns for the R rows; then block c
+// writes columns c * 16 .. c * 16 + 15 of the tile as ((P0 + P1) + ...) +
+// P7, reading the other blocks' partials from their shared memory.
+template <int R>
+__device__ void cluster_correction(const float* __restrict__ x, const Delta& d,
+                                   const Shape& s, const DecPlan& p, int row0, int col0,
+                                   float* __restrict__ y, unsigned char* smem) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int keep = s.keep, h_g = s.h_g;
+  const int nq = class_count(c, s.G);  // this class's groups
+  const int SW = nq * h_g;             // x slab row stride
+  const int gb = dec_group_bytes(s);
+  const int stage_n = p.sg * gb;
+  const int ncol = min(kDecCols, s.O - col0);
+  const int code_rows = s.wbits ? s.kp : keep;
+  const int nsteps = (nq + p.sg - 1) / p.sg;
+  unsigned char* ring = smem;
+  float* slab = reinterpret_cast<float*>(ring + p.ns * stage_n);
+  float* part = slab + p.rt * class_count(0, s.G) * h_g;
+  const Decode dc = decode_consts(d, s);
+  const int pshift = __ffs(dc.per) - 1;  // codes per byte is a power of two
+
+  // step n (groups q0 .. q0 + ng - 1 of the class) -> stage n % ns, one
+  // cp.async group a step: 16-byte copies spread over all threads for a
+  // full tile of 1-byte codes in 16-byte aligned rows, else plain loads
+  // by each thread of its own columns (zero past O)
+  auto issue = [&](int n) {
+    if (n < nsteps) {
+      unsigned char* st = ring + (n % p.ns) * stage_n;
+      const int q0 = n * p.sg, ng = min(p.sg, nq - q0);
+      if (p.vec && ncol == kDecCols) {
+        // every row is 8 chunks, so thread t copies chunk t % 8 of the
+        // step's rows t / 8, t / 8 + 8, ...: no division a copy, since
+        // issuing the copies is a large share of a decode call
+        const int rpg = keep + code_rows, v = tid & 7;
+        int qq = (tid >> 3) / rpg, rr = (tid >> 3) - qq * rpg;
+        while (qq < ng) {
+          const size_t g = c + kWarps * (q0 + qq);
+          const unsigned char* src = rr < keep ? d.idx + (g * keep + rr) * s.O
+                                               : d.codes + (g * code_rows + rr - keep) * s.O;
+          cp_async16(st + qq * gb + rr * kDecCols + v * 16, src + col0 + v * 16, 16);
+          for (rr += kDecThreads / 8; rr >= rpg; rr -= rpg) ++qq;
+        }
+      } else {
+        for (int j = 2 * tid; j < 2 * tid + 2; ++j) {
+          const bool live = j < ncol;
+          const size_t o = col0 + j;
+          for (int qq = 0; qq < ng; ++qq) {
+            const size_t g = c + kWarps * (q0 + qq);
+            unsigned char* gs = st + qq * gb;
+            for (int k = 0; k < keep; ++k)
+              gs[k * kDecCols + j] = live ? d.idx[(g * keep + k) * s.O + o] : 0;
+            for (int r = 0; r < code_rows; ++r) {
+              if (s.wbits)
+                gs[(keep + r) * kDecCols + j] =
+                    live ? d.codes[(g * code_rows + r) * s.O + o] : 0;
+              else
+                reinterpret_cast<float*>(gs + keep * kDecCols)[r * kDecCols + j] =
+                    live ? reinterpret_cast<const float*>(d.codes)[(g * keep + r) * s.O + o]
+                         : 0.f;
+            }
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // x[row0 + r][g * h_g + i] of the class's groups -> slab[r][q * h_g + i]
+  // (the first cp.async group), then every stage, all free at the start;
+  // a later step goes into the stage that the step before it freed
+  if (p.xvec) {
+    // 16-byte chunk e of a slab row: group q = e / v4, chunk e % v4 of it
+    // (a shift where h_g is a power of two)
+    const int v4 = h_g / 4, lv = (v4 & (v4 - 1)) ? -1 : __ffs(v4) - 1;
+    for (int r = 0; r < R; ++r)
+      for (int e = tid; e < nq * v4; e += kDecThreads) {
+        const int q = lv >= 0 ? e >> lv : e / v4, i4 = e - q * v4;
+        cp_async16(slab + r * SW + q * h_g + i4 * 4,
+                   x + static_cast<size_t>(row0 + r) * s.h_in +
+                       static_cast<size_t>(c + kWarps * q) * h_g + i4 * 4,
+                   16);
+      }
+  } else {
+    for (int e = tid; e < R * SW; e += kDecThreads) {
+      const int r = e / SW, rem = e - r * SW;
+      const int q = rem / h_g, i = rem - q * h_g;
+      slab[e] = x[static_cast<size_t>(row0 + r) * s.h_in +
+                  static_cast<size_t>(c + kWarps * q) * h_g + i];
+    }
+  }
+  cp_async_commit();
+  for (int n = 0; n < p.ns; ++n) issue(n);
+  int committed = 1 + p.ns;  // cp.async groups: the slab, then one a step
+
+  float acc[2][R];  // columns 2 tid and 2 tid + 1
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[0][r] = acc[1][r] = 0.f;
+  for (int n = 0; n < nsteps; ++n) {
+    cp_async_wait(max(committed - (n + 2), 0));  // the slab and steps <= n
+    __syncthreads();  // step n and the slab are in for all; step n - 1 is done
+    if (n > 0) {
+      issue(n + p.ns - 1);
+      ++committed;
+    }
+    if (2 * tid < ncol) {
+      const unsigned char* st = ring + (n % p.ns) * stage_n;
+      const int q0 = n * p.sg, nterms = min(p.sg, nq - q0) * keep;
+      // P_c: the class's groups in increasing g, each group's kept slots
+      // in order, one rounded product and one rounded sum a term
+      int qq = 0, k = 0;
+#pragma unroll 4
+      for (int j = 0; j < nterms; ++j) {
+        const unsigned char* gs = st + qq * gb;
+        const unsigned ids = *reinterpret_cast<const unsigned short*>(gs + k * kDecCols + 2 * tid);
+        unsigned raw0, raw1;
+        if (s.wbits) {
+          const unsigned cw = *reinterpret_cast<const unsigned short*>(
+              gs + (keep + (k >> pshift)) * kDecCols + 2 * tid);
+          raw0 = cw & 0xffu;
+          raw1 = cw >> 8;
+        } else {
+          const uint2 cw = *reinterpret_cast<const uint2*>(gs + keep * kDecCols +
+                                                           k * kDecCols * 4 + 8 * tid);
+          raw0 = cw.x;
+          raw1 = cw.y;
+        }
+        const float v0 = decode_raw(s, dc, raw0, k), v1 = decode_raw(s, dc, raw1, k);
+        const float* xq = slab + (q0 + qq) * h_g;
+        const float* x0 = xq + (ids & 0xffu);
+        const float* x1 = xq + (ids >> 8);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[0][r] = __fadd_rn(acc[0][r], __fmul_rn(x0[r * SW], v0));
+          acc[1][r] = __fadd_rn(acc[1][r], __fmul_rn(x1[r * SW], v1));
+        }
+        if (++k == keep) {
+          k = 0;
+          ++qq;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    *reinterpret_cast<float2*>(part + r * kDecCols + 2 * tid) = make_float2(acc[0][r], acc[1][r]);
+  cluster.sync();  // every class partial of the tile is in
+  for (int e = tid; e < R * kDecCombineCols; e += kDecThreads) {
+    const int r = e / kDecCombineCols;
+    const int cc = c * kDecCombineCols + e % kDecCombineCols;
+    if (col0 + cc < s.O) {
+      float t = cluster.map_shared_rank(part, 0)[r * kDecCols + cc];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w)
+        t = __fadd_rn(t, cluster.map_shared_rank(part, w)[r * kDecCols + cc]);
+      y[static_cast<size_t>(row0 + r) * s.O + col0 + cc] = t;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+// cluster_correction at R = rows (1..8), one instance per count, so a
+// block computes only real rows
+__device__ __forceinline__ void rows_correction(int rows, const float* x, const Delta& d,
+                                                const Shape& s, const DecPlan& p, int row0,
+                                                int col0, float* y, unsigned char* smem) {
+  switch (rows) {
+    case 1: cluster_correction<1>(x, d, s, p, row0, col0, y, smem); break;
+    case 2: cluster_correction<2>(x, d, s, p, row0, col0, y, smem); break;
+    case 3: cluster_correction<3>(x, d, s, p, row0, col0, y, smem); break;
+    case 4: cluster_correction<4>(x, d, s, p, row0, col0, y, smem); break;
+    case 5: cluster_correction<5>(x, d, s, p, row0, col0, y, smem); break;
+    case 6: cluster_correction<6>(x, d, s, p, row0, col0, y, smem); break;
+    case 7: cluster_correction<7>(x, d, s, p, row0, col0, y, smem); break;
+    default: cluster_correction<8>(x, d, s, p, row0, col0, y, smem); break;
+  }
+}
+
+// grid (8 * column tiles, row tiles of p.rt rows); the last row tile holds
+// what is left of T. __maxnreg__: left to itself ptxas took 64 registers
+// and spilled in the 8-row instance.
+__global__ void __cluster_dims__(kWarps, 1, 1) __maxnreg__(128)
+spmm_decode_kernel(const float* __restrict__ x, Delta d, Shape s, DecPlan p,
+                   float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  const int row0 = blockIdx.y * p.rt;
+  rows_correction(min(p.rt, s.T - row0), x, d, s, p, row0, (blockIdx.x / kWarps) * kDecCols,
+                  y, dsmem);
+}
+
+// Rows [r0, r1) x this cluster block's kDecCombineCols columns of the tile
+// at col0 <- 0.
+__device__ __forceinline__ void zero_rows(float* __restrict__ y, const Shape& s, int r0,
+                                          int r1, int col0) {
+  const int c = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  for (int e = threadIdx.x; e < (r1 - r0) * kDecCombineCols; e += kDecThreads) {
+    const int o = col0 + c * kDecCombineCols + e % kDecCombineCols;
+    if (o < s.O) y[static_cast<size_t>(r0 + e / kDecCombineCols) * s.O + o] = 0.f;
+  }
+}
+
+// grid (8 * column tiles, tiles + 1): blockIdx.y enumerates the row tiles
+// of the segments in segment order, each tile p.rt rows from its
+// segment's start (gridDim.y - 1 bounds their count from above; the
+// blocks past the last tile leave at once). The last y zero-fills the
+// rows before the first segment and after the last; a segment whose
+// tenant row lies outside the stack is zero-filled by its own tiles.
+// seg_offsets must be non-decreasing (tenant_segments' layout).
+__global__ void __cluster_dims__(kWarps, 1, 1) __maxnreg__(128)
+segments_decode_kernel(const float* __restrict__ x, Delta stack, Shape s, Strides st,
+                       int n_tenants, const int* __restrict__ seg_rows,
+                       const int* __restrict__ seg_offsets, int n_seg, DecPlan p,
+                       float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  const int col0 = (blockIdx.x / kWarps) * kDecCols;
+  auto offset = [&](int i) { return min(max(seg_offsets[i], 0), s.T); };
+  if (blockIdx.y == gridDim.y - 1) {
+    zero_rows(y, s, 0, offset(0), col0);
+    zero_rows(y, s, max(offset(0), offset(n_seg)), s.T, col0);
+    return;
+  }
+  // the segment of tile blockIdx.y: each warp scans the segments 32 at a
+  // time (a prefix sum of their tile counts), all warps alike
+  const int lane = threadIdx.x & 31;
+  int want = blockIdx.y, seg = -1, tile = 0;
+  for (int base = 0; base < n_seg && seg < 0; base += 32) {
+    const int i = base + lane;
+    const int n_tiles = i < n_seg ? (max(offset(i + 1) - offset(i), 0) + p.rt - 1) / p.rt : 0;
+    int incl = n_tiles;
+    for (int sh = 1; sh < 32; sh <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, sh);
+      if (lane >= sh) incl += v;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (want < total) {
+      const int f = __ffs(__ballot_sync(0xffffffffu, incl > want)) - 1;
+      seg = base + f;
+      tile = want - (__shfl_sync(0xffffffffu, incl, f) - __shfl_sync(0xffffffffu, n_tiles, f));
+    } else {
+      want -= total;
+    }
+  }
+  if (seg < 0) return;  // past the last tile: the whole cluster leaves
+  const int row0 = offset(seg) + tile * p.rt;
+  const int rows = min(p.rt, offset(seg + 1) - row0);
+  const int t = seg_rows[seg];
+  if (t < 0 || t >= n_tenants) {
+    zero_rows(y, s, row0, row0 + rows, col0);
+    return;
+  }
+  const Delta d{stack.idx + t * st.idx, stack.codes + t * st.codes, stack.scale + t * st.scale,
+                stack.zero + t * st.zero};
+  rows_correction(rows, x, d, s, p, row0, col0, y, dsmem);
 }
 
 // ---------------------------------------------------------------------------
@@ -487,10 +724,6 @@ __device__ __forceinline__ void prefill_terms(float (&part)[2], const float* xp,
 struct Step {
   int c, j0, ng;
 };
-
-__device__ __forceinline__ int class_count(int c, int G) {
-  return c < G ? (G - c + kWarps - 1) / kWarps : 0;
-}
 
 __device__ __forceinline__ Step first_step(int G, int sg) {
   return {0, 0, min(sg, class_count(0, G))};
@@ -661,7 +894,7 @@ spmm_prefill_kernel(const float* __restrict__ xT, int Tp, Delta d, Shape s, int 
       }
     }
     // at the end of a class, fold its partial into the total: P0, then
-    // ((P0 + P1) + P2) + ..., as block_correction's warp-order combine
+    // ((P0 + P1) + P2) + ..., the class-order combine
     if (cur.j0 + cur.ng >= class_count(cur.c, G)) {
 #pragma unroll
       for (int j = 0; j < C; ++j) {
@@ -676,7 +909,7 @@ spmm_prefill_kernel(const float* __restrict__ xT, int Tp, Delta d, Shape s, int 
     cur = next_step(cur, G, sg);
   }
 
-  // classes with no group (G < 8) add their zero partial, as the idle warps do
+  // classes with no group (G < 8) add their zero partial, as on the decode route
 #pragma unroll
   for (int j = 0; j < C; ++j) {
     const int o = col0 + warp * C + j;
@@ -974,46 +1207,63 @@ dequant_kernel(Delta d, Shape s, float* __restrict__ out) {
   }
 }
 
-bool shape_ok(const Shape& s, int tb) {
+bool dec_tile(int tb) { return tb == 1 || tb == 2 || tb == 4 || tb == kDecMaxRows; }
+
+bool shape_ok(const Shape& s) {
   return s.T > 0 && s.O > 0 && s.h_g > 0 && s.keep > 0 && s.keep <= s.h_g &&
-         s.h_g <= 256 && s.h_g <= kSmemFloats / tb && s.h_in == s.G * s.h_g &&
+         s.h_g <= 256 && s.h_in == s.G * s.h_g &&
          (s.wbits == 0 || s.wbits == 1 || s.wbits == 2 || s.wbits == 4 ||
           s.wbits == 8);
 }
 
-cudaError_t launch_spmm(const float* x, Delta d, Shape s, float* y, int tb,
-                        cudaStream_t st) {
-  const dim3 block(kThreads);
-  const dim3 grid((s.T + tb - 1) / tb, (s.O + kCols - 1) / kCols);
-  switch (tb) {
-    case 8: spmm_kernel<8><<<grid, block, 0, st>>>(x, d, s, y); break;
-    case 16: spmm_kernel<16><<<grid, block, 0, st>>>(x, d, s, y); break;
-    case 32: spmm_kernel<32><<<grid, block, 0, st>>>(x, d, s, y); break;
-    default: return cudaErrorInvalidValue;
-  }
+// The decode route's plan for row tile tb (1, 2, 4 or 8 rows at most a
+// block); vec and xvec from the row alignments. False where even one row
+// does not fit (an h_in far beyond the envelope's models).
+bool dec_launch_plan(const float* x, const Delta& d, const Shape& s, int tb, bool strides_ok,
+                     DecPlan& p, size_t& smem) {
+  if (!dec_plan(s, tb, p)) return false;
+  p.vec = strides_ok && s.wbits && s.O % 16 == 0 && reinterpret_cast<uintptr_t>(d.idx) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(d.codes) % 16 == 0;
+  p.xvec = s.h_g % 4 == 0 && s.h_in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  smem = dec_smem_bytes(s, p.sg, p.ns, p.rt);
+  return true;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return smem > 48 * 1024 ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem))
+                          : cudaSuccess;
+}
+
+cudaError_t launch_spmm_decode(const float* x, Delta d, Shape s, float* y, int tb,
+                               cudaStream_t st) {
+  DecPlan p;
+  size_t smem;
+  if (!dec_launch_plan(x, d, s, tb, true, p, smem)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(spmm_decode_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(kWarps * ((s.O + kDecCols - 1) / kDecCols), (s.T + p.rt - 1) / p.rt);
+  spmm_decode_kernel<<<grid, kDecThreads, smem, st>>>(x, d, s, p, y);
   return cudaGetLastError();
 }
 
 cudaError_t launch_segments(const float* x, Delta d, Shape s, Strides strides,
                             int n_tenants, const int* seg_rows, const int* seg_offsets,
                             int n_seg, float* y, int tb, cudaStream_t st) {
-  const dim3 block(kThreads);
-  const dim3 grid((s.T + tb - 1) / tb, (s.O + kCols - 1) / kCols);
-  switch (tb) {
-    case 8:
-      segments_kernel<8><<<grid, block, 0, st>>>(
-          x, d, s, strides, n_tenants, seg_rows, seg_offsets, n_seg, y);
-      break;
-    case 16:
-      segments_kernel<16><<<grid, block, 0, st>>>(
-          x, d, s, strides, n_tenants, seg_rows, seg_offsets, n_seg, y);
-      break;
-    case 32:
-      segments_kernel<32><<<grid, block, 0, st>>>(
-          x, d, s, strides, n_tenants, seg_rows, seg_offsets, n_seg, y);
-      break;
-    default: return cudaErrorInvalidValue;
-  }
+  DecPlan p;
+  size_t smem;
+  const bool strides_ok = strides.idx % 16 == 0 && strides.codes % 16 == 0;
+  if (!dec_launch_plan(x, d, s, tb, strides_ok, p, smem)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(segments_decode_kernel, smem);
+  if (err != cudaSuccess) return err;
+  // segments' tiles: m nonempty segments (m <= min(n_seg, T)) of T rows in
+  // all need at most m + (T - m) / rt tiles, largest at m = min(n_seg, T);
+  // one more y zero-fills the rows outside the segments
+  const int m = std::min(n_seg, s.T);
+  const dim3 grid(kWarps * ((s.O + kDecCols - 1) / kDecCols), m + (s.T - m) / p.rt + 1);
+  segments_decode_kernel<<<grid, kDecThreads, smem, st>>>(
+      x, d, s, strides, n_tenants, seg_rows, seg_offsets, n_seg, p, y);
   return cudaGetLastError();
 }
 
@@ -1141,25 +1391,26 @@ extern "C" {
 
 // x: [T, h_in] f32; idx [G, keep, O] uint8; codes [G, kp, O] uint8 or
 // f32 [G, keep, O] (wbits = 0); scale f32 and zero int32 device scalars;
-// y [T, O] f32. Row tiles 8, 16 and 32 take spmm_kernel, 128 the prefill
-// kernel (same bits) where delta_spmm_prefill_ok, which needs xT: f32
-// scratch of h_in * Tp elements, Tp = T rounded up to 128 (unused for the
-// other tiles).
+// y [T, O] f32. Row tiles 1, 2, 4 and 8 take the decode kernel (tb caps
+// the rows a block computes), 128 the prefill kernel (same bits) where
+// delta_spmm_prefill_ok, which needs xT: f32 scratch of h_in * Tp
+// elements, Tp = T rounded up to 128 (unused for the other tiles).
 int delta_spmm_launch(const void* x, const void* idx,
                       const void* codes, const void* scale, const void* zero,
                       void* y, void* xT, int T, int h_in, int O, int h_g, int keep, int kp,
                       int wbits, int tb, void* stream) {
   const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
-  if (!shape_ok(s, tb > 32 ? 8 : tb) || (tb > 32 && !prefill_fits(tb, h_g, keep)))
+  const bool prefill = tb == kPrefillRows;
+  if (!shape_ok(s) || (prefill ? !prefill_fits(tb, h_g, keep) : !dec_tile(tb)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Delta d{static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(codes),
                 static_cast<const float*>(scale), static_cast<const int*>(zero)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* yp = static_cast<float*>(y);
   const float* xp = static_cast<const float*>(x);
-  if (tb > 32 && xT == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(tb > 32 ? launch_prefill(xp, static_cast<float*>(xT), d, s, yp, st)
-                                  : launch_spmm(xp, d, s, yp, tb, st));
+  if (prefill && xT == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(prefill ? launch_prefill(xp, static_cast<float*>(xT), d, s, yp, st)
+                                  : launch_spmm_decode(xp, d, s, yp, tb, st));
 }
 
 // 1 where delta_spmm_launch takes row tile tb (128) on its prefill kernel
@@ -1175,7 +1426,8 @@ int delta_spmm_prefill_ok(int tb, int h_g, int keep) {
 // [n_seg] int32 tenant row per segment, seg_offsets [n_seg + 1] int32
 // half-open row ranges over the tenant-sorted rows of x. Every row of y
 // is written: rows no segment covers, and rows of a segment whose
-// tenant row is outside [0, R), are zero.
+// tenant row is outside [0, R), are zero. seg_offsets must be
+// non-decreasing; tb (1, 2, 4 or 8) caps the rows a block computes.
 int delta_spmm_segments_launch(const void* x, const void* idx,
                                const void* codes, const void* scale,
                                const void* zero, int n_tenants, long long idx_stride,
@@ -1185,7 +1437,7 @@ int delta_spmm_segments_launch(const void* x, const void* idx,
                                int h_in, int O, int h_g, int keep, int kp,
                                int wbits, int tb, void* stream) {
   const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
-  if (!shape_ok(s, tb) || n_seg < 1 || n_tenants < 1 || idx_stride < 0 ||
+  if (!shape_ok(s) || !dec_tile(tb) || n_seg < 1 || n_tenants < 1 || idx_stride < 0 ||
       codes_stride < 0 || scale_stride < 0 || zero_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides strides{static_cast<size_t>(idx_stride), static_cast<size_t>(codes_stride),
@@ -1216,7 +1468,7 @@ int fused_base_delta_launch(const void* x, const void* w, int w_bf16, const void
                             void* y, void* ws, int splits, int T, int h_in, int O, int h_g,
                             int keep, int kp, int wbits, int tb, void* stream) {
   const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
-  if ((tb != 8 && tb != 16 && tb != 32) || !shape_ok(s, tb) ||
+  if ((tb != 8 && tb != 16 && tb != 32) || !shape_ok(s) ||
       splits != fused_splits_for(T, h_in, O, tb) || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Delta d{static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(codes),
@@ -1236,7 +1488,7 @@ int dequant_launch(const void* idx, const void* codes, const void* scale,
                    const void* zero, void* out, int h_in, int O, int h_g, int keep,
                    int kp, int wbits, void* stream) {
   const Shape s{1, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
-  if (!shape_ok(s, 8)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(s)) return static_cast<int>(cudaErrorInvalidValue);
   const Delta d{static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(codes),
                 static_cast<const float*>(scale), static_cast<const int*>(zero)};
   const dim3 grid((s.G + kWarps - 1) / kWarps, (s.O + kCols - 1) / kCols);

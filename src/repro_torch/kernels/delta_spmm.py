@@ -3,11 +3,13 @@
 Kernels (source: ``csrc/delta_spmm.cu``, CUDA C++ for ``sm_90a``):
 
     delta_spmm           y = x @ dequant(delta)
-                         (replaces repro/kernels/delta_spmm.py:122); row
-                         tiles 8/16/32 (columns in lanes) and, at prefill,
-                         128 (rows in lanes), with the same bits
-    delta_spmm_segments  mixed-tenant decode: rows sorted by tenant, each
-                         tenant's tile decoded once per segment
+                         (replaces repro/kernels/delta_spmm.py:122); the
+                         decode route (up to 8 rows a cluster of 8 blocks,
+                         columns in lanes) and, at prefill, the 128-row
+                         tile (rows in lanes), with the same bits
+    delta_spmm_segments  mixed-tenant decode: rows sorted by tenant, the
+                         segments' row tiles computed in parallel on the
+                         decode route's routine
                          (replaces repro/kernels/delta_spmm.py:240)
     fused_base_delta     y = x @ (W + dequant(delta)), W bf16 or f32, on
                          tensor cores in 3xTF32
@@ -48,18 +50,21 @@ BUILD_ROOT = os.path.join(_REPO, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# row tiles of spmm_kernel and segments_kernel (template TB); the fused
-# kernel takes the same values, as caps on its own row tile
-ROW_TILES = (8, 16, 32)
+# row tiles of the decode route (delta_spmm up to 64 rows) and of the
+# segments kernel: the most rows one block computes; a block computes
+# only real rows, so a tile is a cap, not a padding
+ROW_TILES = (1, 2, 4, 8)
 # row tile of delta_spmm's prefill kernel (rows in lanes), delta_spmm only
 PREFILL_TILES = (128,)
 SPMM_TILES = ROW_TILES + PREFILL_TILES
+# caps on the fused kernel's own row tile (16, 32 or 64 rows)
+FUSED_TILES = (8, 16, 32)
 
 # launch counters: one per kernel, bumped by its wrapper at each launch;
-# ROUTES counts the delta_spmm launches that took the prefill kernel
+# ROUTES splits the delta_spmm launches by route
 LAUNCHES = {"delta_spmm": 0, "delta_spmm_segments": 0, "fused_base_delta": 0,
             "dequant": 0}
-ROUTES = {"delta_spmm_prefill": 0}
+ROUTES = {"delta_spmm_decode": 0, "delta_spmm_prefill": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -203,9 +208,10 @@ def _raise_on(err: int, name: str) -> None:
 def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tensor:
     """y [T, h_out] f32 = x2 [T, h_in] @ dequant(d), on the card.
 
-    ``tb`` in :data:`ROW_TILES` takes the columns-in-lanes kernel, in
-    :data:`PREFILL_TILES` the rows-in-lanes prefill kernel (where its
-    shared memory fits, :func:`prefill_fits`); a row has the same bits
+    ``tb`` in :data:`ROW_TILES` takes the decode route (at most ``tb``
+    rows a block; the library lowers it where its shared memory would not
+    fit), in :data:`PREFILL_TILES` the rows-in-lanes prefill kernel (where
+    its shared memory fits, :func:`prefill_fits`); a row has the same bits
     under every tile."""
     if tb not in SPMM_TILES:
         raise ValueError(f"tb={tb} not in {SPMM_TILES}")
@@ -231,8 +237,7 @@ def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tenso
         T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
     _raise_on(err, "delta_spmm")
     LAUNCHES["delta_spmm"] += 1
-    if tb in PREFILL_TILES:
-        ROUTES["delta_spmm_prefill"] += 1
+    ROUTES["delta_spmm_prefill" if tb in PREFILL_TILES else "delta_spmm_decode"] += 1
     return y
 
 
@@ -243,7 +248,9 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
 
     Rows that no segment covers, and rows of a segment whose tenant row is
     outside the stack, come back zero (the reference kernel zero-fills its
-    output)."""
+    output). ``seg_offsets`` must be non-decreasing (the layout of
+    ``serve.scheduler.tenant_segments``); ``tb`` in :data:`ROW_TILES` caps
+    the rows one block computes."""
     if tb not in ROW_TILES:
         raise ValueError(f"tb={tb} not in {ROW_TILES}")
     _require_cuda(x2)
@@ -277,12 +284,13 @@ def fused_base_delta_cuda(x2: torch.Tensor, w: torch.Tensor, d: PackedDelta, *,
     """y [T, h_out] f32 = x2 [T, h_in] @ (w + dequant(d)), on the card;
     ``w`` [h_in, h_out] contiguous bf16 or f32.
 
-    ``tb`` (8, 16 or 32) caps the kernel's row tile: 16 rows for tb <= 16,
-    else 32 rows for T <= 32 and 64 above. Where the tiles leave SMs idle
-    the kernel splits K over blocks into a workspace allocated here, then
-    adds the splits in a fixed order (the same bits from call to call)."""
-    if tb not in ROW_TILES:
-        raise ValueError(f"tb={tb} not in {ROW_TILES}")
+    ``tb`` in :data:`FUSED_TILES` caps the kernel's row tile: 16 rows for
+    tb <= 16, else 32 rows for T <= 32 and 64 above. Where the tiles leave
+    SMs idle the kernel splits K over blocks into a workspace allocated
+    here, then adds the splits in a fixed order (the same bits from call
+    to call)."""
+    if tb not in FUSED_TILES:
+        raise ValueError(f"tb={tb} not in {FUSED_TILES}")
     _require_cuda(x2)
     kp, wbits = check_inputs(x2, d, stacked=False)
     if w.dtype not in (torch.bfloat16, torch.float32):

@@ -15,13 +15,17 @@ reference) follow the same rule; ``dequant`` is the merge path's
 
 Tiles: the kernels take every T and h_out as they are (they mask the
 ragged edges themselves), so the reference's row padding and column
-padding have no counterpart. The row tile is the smallest instantiated
-tile holding the whole batch when T <= 32 — the decode fast path of
-``ops.py:220-223``, one row block — and 32 otherwise
-(:func:`row_tile`: the segments and fused kernels). ``delta_spmm`` takes
-its prefill kernel's 128-row tile above 64 rows (:func:`spmm_row_tile`). Output columns go 32 to a block in the decode
-kernels, 32 or 64 in the prefill kernel and 128 in the fused kernel.
-No choice changes a row's bits in the correction kernels.
+padding have no counterpart. On the decode route and in the segments
+kernel a row tile (1, 2, 4 or 8) caps the rows one block computes; a
+block computes only real rows, so the tile is the smallest holding the
+whole batch up to 8 rows — the decode fast path of ``ops.py:220-223`` —
+and 8 above (:func:`row_tile`); segments are tiled from their own first
+row. ``delta_spmm`` takes its prefill kernel's 128-row tile above 64 rows
+(:func:`spmm_row_tile`); the fused kernel keeps its caps 8/16/32
+(:func:`fused_row_tile`). Output columns go 128 to a tile on the decode
+route (one cluster of 8 blocks, one per class chain), 32 or 64 in the
+prefill kernel, 128 in the fused kernel and 32 in dequant. No choice
+changes a row's bits in the correction kernels.
 """
 from __future__ import annotations
 
@@ -34,12 +38,13 @@ from repro_torch.kernels import delta_spmm as _k
 
 MAX_HG = 256
 MAX_KEEP = 128
-KERNEL_OB = 32     # output columns per block in the decode and dequant kernels
+KERNEL_OB = 128    # output columns per tile on the decode route and in segments
 FUSED_OB = 128     # output columns per block in the fused kernel
-# delta_spmm takes the prefill kernel's 128-row tile from this many rows:
-# on an H100 it beat or tied 32-row tiles at every full-width site from 65
-# rows on (T = 96, 128, 160, 256) and lost to them at wi at 64 rows
-# (chip_smoke.py's [route] lines, PERF.md)
+DEQUANT_OB = 32    # output columns per block in the dequant kernel
+# delta_spmm takes the prefill kernel's 128-row tile from this many rows
+# (chip_smoke.py's [route] lines, PERF.md): on an H100 the decode route
+# beats it at every full-width site up to 64 rows; above, the 128-row tile
+# wins at MLP wo (h_in 11008) but loses at wq and wi
 PREFILL_MIN_T = 65
 
 
@@ -54,12 +59,21 @@ def kernel_supported(d: PackedDelta) -> bool:
         and (d.k_bits is None or 1 <= d.k_bits <= 8)
 
 
-def row_tile(T: int) -> int:
-    """Kernel row tile for T rows (see module doc)."""
-    for tb in _k.ROW_TILES:
+def _smallest_holding(T: int, tiles: tuple) -> int:
+    for tb in tiles:
         if T <= tb:
             return tb
-    return _k.ROW_TILES[-1]
+    return tiles[-1]
+
+
+def row_tile(T: int) -> int:
+    """Decode-route and segments row tile for T rows (see module doc)."""
+    return _smallest_holding(T, _k.ROW_TILES)
+
+
+def fused_row_tile(T: int) -> int:
+    """The fused kernel's row-tile cap for T rows."""
+    return _smallest_holding(T, _k.FUSED_TILES)
 
 
 def spmm_row_tile(T: int, d: PackedDelta) -> int:
@@ -94,7 +108,7 @@ def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
         y = fallback.correction(x2, d, gather_max_t=gmax)
     else:
         tb = spmm_row_tile(x2.shape[0], d)
-        if tb <= 32:
+        if tb in _k.ROW_TILES:
             _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb, ob=KERNEL_OB)
         else:   # the prefill kernel picks 64 or 32 columns by the SM count
             _note("delta_spmm", formulation="cuda-prefill", codec=d.codec, tb=tb)
@@ -164,7 +178,7 @@ def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.
     if _device_kind(x2) == "cpu":
         y = fallback.fused_base_delta(x2, w, d)
     else:
-        tb = row_tile(x2.shape[0])
+        tb = fused_row_tile(x2.shape[0])
         _note("fused_base_delta", formulation="cuda-3xtf32", codec=d.codec, tb=tb,
               ob=FUSED_OB)
         # f32 activations, as delta_spmm; W is read as stored (bf16 or f32)
@@ -177,7 +191,7 @@ def dequant(d: PackedDelta) -> torch.Tensor:
     """Materialize the dense delta [h_in, h_out] f32 (merge path)."""
     if not kernel_supported(d) or _device_kind(d.idx) == "cpu":
         return fallback.dequant(d)
-    _note("dequant", formulation="cuda", codec=d.codec, ob=KERNEL_OB)
+    _note("dequant", formulation="cuda", codec=d.codec, ob=DEQUANT_OB)
     return _k.dequant_cuda(d)
 
 
@@ -185,23 +199,17 @@ def segment_decode_tiles(seg_offsets, *, n_groups: int, h_out: int,
                          tb: int, ob: int) -> int:
     """Decode-tile work the segments kernel executes for one step.
 
-    Counts (segment, row-block, column-tile, group) points whose segment
-    overlaps the row block — how many [keep, ob] tiles are decoded. A
-    per-row dispatch decodes ``B * n_groups * ceil(h_out / ob)`` tiles
-    regardless of duplication; the segments kernel decodes per *unique*
-    tenant per overlapped row block."""
-    offs = np.asarray(seg_offsets)
-    col_tiles = -(-h_out // ob)
-    total = 0
-    T = int(offs[-1])
-    for s in range(len(offs) - 1):
-        start, end = int(offs[s]), int(offs[s + 1])
-        if end <= start:
-            continue
-        for row0 in range(0, T, tb):
-            if start < row0 + tb and end > row0:
-                total += n_groups * col_tiles
-    return total
+    Counts (segment row tile, column tile, group) points — how many
+    [keep, ob] tiles are decoded. The kernel tiles each nonempty segment
+    from its own first row, ``ceil(len / tb)`` tiles of at most ``tb``
+    rows, and decodes every group's tile once per row tile. A per-row
+    dispatch decodes ``B * n_groups * ceil(h_out / ob)`` tiles regardless
+    of duplication; the segments kernel decodes per *unique* tenant per
+    row tile."""
+    offs = np.asarray(seg_offsets).astype(np.int64)
+    lens = np.maximum(offs[1:] - offs[:-1], 0)
+    row_tiles = int((-(-lens // tb)).sum())
+    return row_tiles * n_groups * (-(-h_out // ob))
 
 
 def per_row_decode_tiles(batch: int, *, n_groups: int, h_out: int,

@@ -51,3 +51,20 @@ def correction_kernel_order(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
                 part = part + x[:, gidx[g, k]] * vals[g, k]
         total = part if c == 0 else total + part
     return total
+
+
+def segments_kernel_order(x: torch.Tensor, d: PackedDelta, seg_rows: torch.Tensor,
+                          seg_offsets: torch.Tensor) -> torch.Tensor:
+    """The segments kernel, bit for bit: row r of tenant-sorted x [T, h_in]
+    in segment s is :func:`correction_kernel_order` of that row with
+    tenant ``seg_rows[s]`` of the stacked delta ``d`` [R, ...]; rows that
+    no segment covers, and rows of a segment whose tenant row is outside
+    the stack, are zero. ``seg_offsets`` [S + 1] non-decreasing."""
+    x = x.to(torch.float32)
+    y = torch.zeros((x.shape[0], d.h_out), dtype=torch.float32, device=x.device)
+    offs = [min(max(int(o), 0), x.shape[0]) for o in seg_offsets.tolist()]
+    for s, t in enumerate(seg_rows.tolist()):
+        if offs[s + 1] > offs[s] and 0 <= t < d.idx.shape[0]:
+            y[offs[s]:offs[s + 1]] = correction_kernel_order(x[offs[s]:offs[s + 1]],
+                                                             d.index(t))
+    return y

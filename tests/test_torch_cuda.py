@@ -77,7 +77,7 @@ def test_delta_spmm_kernel_bf16_input(cuda):
     torch.testing.assert_close(ops.delta_spmm(x, d), fb.correction(x, d), **TOL)
     assert torch.equal(ops.delta_spmm(x, d), ops.delta_spmm(x.float(), d))
     with pytest.raises(TypeError):
-        kern.delta_spmm_cuda(x, d, tb=32)
+        kern.delta_spmm_cuda(x, d, tb=8)
 
 
 @pytest.mark.gpu
@@ -95,17 +95,18 @@ def test_delta_spmm_kernel_rows_bit_stable(cuda):
 @pytest.mark.parametrize("h_in,h_out,h_g,alpha,k", [c[1:] for c in SWEEP])
 def test_delta_spmm_prefill_rows_equal_tb8_rows(cuda, T, h_in, h_out, h_g, alpha, k):
     """delta_spmm above 32 rows, on the prefill route (128-row tile) where
-    ops takes it and on tb=32 elsewhere (T=64; h_g=256, whose 128-row
-    slabs do not fit), gives every row the bits of the tb=8 route and of
-    the kernel-order oracle."""
+    ops takes it and on the decode route elsewhere (T=64; h_g=256, whose
+    128-row slabs do not fit), gives every row the bits of the tb=8 route
+    and of the kernel-order oracle."""
     d = _pack(h_in, h_out, h_g, alpha, k, 0, cuda)
     x = _x(T, h_in, 11, cuda)
     prefill = ops.spmm_row_tile(T, d) in kern.PREFILL_TILES
     assert prefill == (T > 64 and h_g < 256)
-    before = kern.ROUTES["delta_spmm_prefill"]
+    before = dict(kern.ROUTES)
     got = ops.delta_spmm(x, d)
     torch.cuda.synchronize()
-    assert kern.ROUTES["delta_spmm_prefill"] == before + int(prefill)
+    assert kern.ROUTES["delta_spmm_prefill"] == before["delta_spmm_prefill"] + int(prefill)
+    assert kern.ROUTES["delta_spmm_decode"] == before["delta_spmm_decode"] + int(not prefill)
     chunks = torch.cat([kern.delta_spmm_cuda(x[i:i + 8], d, tb=8) for i in range(0, T, 8)])
     assert torch.equal(got.view(torch.int32), chunks.view(torch.int32))
     want = ref.correction_kernel_order(x, d)
@@ -121,7 +122,117 @@ def test_delta_spmm_prefill_multi_block_deterministic(cuda, tb, h_out):
     a = kern.delta_spmm_cuda(x, d, tb=tb)
     b = kern.delta_spmm_cuda(x, d, tb=tb)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    assert torch.equal(a.view(torch.int32), kern.delta_spmm_cuda(x, d, tb=32).view(torch.int32))
+    assert torch.equal(a.view(torch.int32), kern.delta_spmm_cuda(x, d, tb=8).view(torch.int32))
+
+
+DECODE_T = [1, 2, 3, 5, 8, 9, 17, 32, 33, 64]
+DECODE_CASES = [   # the envelope's edges: (h_in, h_out, h_g, alpha, k_bits)
+    (256, 200, 16, 8, 4),       # h_out not a multiple of 16 (plain loads)
+    (512, 130, 256, 2, 8),      # h_g 256, keep 128, h_out not a multiple of 4
+    (384, 128, 32, 4, 3),       # odd k (packed at width 4), G = 12
+    (256, 96, 64, 8, 1),        # 1-bit codes, G = 4: classes 4..7 empty
+    (128, 256, 16, 2, None),    # raw f32 codes
+    (4096, 160, 64, 2, 8),      # a class share over 48 KB: a ring of 4 stages
+    (4096, 96, 256, 2, None),   # f32 codes, 80 KB a group: a ring of 2 stages
+]
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", DECODE_T)
+@pytest.mark.parametrize("h_in,h_out,h_g,alpha,k", DECODE_CASES)
+def test_decode_route_equals_kernel_order(cuda, T, h_in, h_out, h_g, alpha, k):
+    """The decode route (every T up to 64) equals the kernel-order oracle
+    bit for bit at the envelope's edges, counts one decode-route launch,
+    and gives the same bits on a second call."""
+    d = _pack(h_in, h_out, h_g, alpha, k, 21, cuda)
+    x = _x(T, h_in, 22, cuda)
+    assert ops.spmm_row_tile(T, d) in kern.ROW_TILES
+    before = kern.ROUTES["delta_spmm_decode"]
+    got = ops.delta_spmm(x, d)
+    torch.cuda.synchronize()
+    assert kern.ROUTES["delta_spmm_decode"] == before + 1
+    assert _bits_equal(got, ref.correction_kernel_order(x, d))
+    assert _bits_equal(got, ops.delta_spmm(x, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 5, 9, 64])
+def test_decode_route_on_a_layer_slice(cuda, T):
+    """A layer slice of a stacked [L, ...] delta (an offset that is not
+    16-byte aligned takes plain loads) has the bits of its own copy."""
+    layers = [_pack(192, 80, 16, 8, 4, 60 + i, cuda) for i in range(3)]
+    stacked = stack_tenant_deltas([{"w": t} for t in layers])["w"]
+    x = _x(T, 192, 23, cuda)
+    for i in range(3):
+        got = ops.delta_spmm(x, stacked.index(i))
+        assert _bits_equal(got, ref.correction_kernel_order(x, layers[i]))
+        assert _bits_equal(got, ops.delta_spmm(x, layers[i]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tb", kern.ROW_TILES)
+def test_decode_tiles_give_every_row_the_same_bits(cuda, tb):
+    """Each decode tile (a cap on the rows a block computes) gives every
+    row of T = 21 the bits of the oracle."""
+    d = _pack(256, 200, 16, 8, 4, 24, cuda)
+    x = _x(21, 256, 25, cuda)
+    assert _bits_equal(kern.delta_spmm_cuda(x, d, tb=tb), ref.correction_kernel_order(x, d))
+
+
+SEGMENT_CASES = {   # (T, seg_rows, seg_offsets), over a stack of 3 tenants
+    "slots, 8 one-row segments": (8, list(range(3)) * 2 + [0, 1], list(range(9))),
+    "tenant_segments, padded": (8, [0, 1, 2, 0, 0, 0, 0, 0], [0, 2, 5, 8, 8, 8, 8, 8, 8]),
+    "empty segments between": (6, [1, 0, 2, 2], [0, 2, 2, 6, 6]),
+    "out-of-stack tenant row": (7, [2, 3, 0], [0, 3, 5, 7]),
+    "uncovered rows before and after": (12, [1, 0], [2, 5, 9]),
+    "straddling row tiles": (36, [1, 0, 2], [0, 5, 16, 36]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_segments_kernel_bits(cuda, case):
+    """Segment rows equal delta_spmm rows of their tenant and the
+    segments oracle bit for bit; uncovered rows and out-of-stack tenants
+    are zero; two calls give the same bits."""
+    T, seg_rows, seg_offsets = SEGMENT_CASES[case]
+    tenants = [_pack(256, 200, 16, 8, 4, 70 + t, cuda) for t in range(3)]
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    xs = _x(T, 256, 26, cuda)
+    rows = torch.tensor(seg_rows, dtype=torch.int32, device=cuda)
+    offs = torch.tensor(seg_offsets, dtype=torch.int32, device=cuda)
+    before = kern.LAUNCHES["delta_spmm_segments"]
+    got = ops.delta_spmm_segments(xs, stack, rows, offs)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["delta_spmm_segments"] == before + 1
+    assert _bits_equal(got, ref.segments_kernel_order(xs, stack, rows, offs))
+    covered = torch.zeros(T, dtype=torch.bool, device=cuda)
+    for s, t in enumerate(seg_rows):
+        lo, hi = seg_offsets[s], seg_offsets[s + 1]
+        if hi > lo and t < 3:
+            covered[lo:hi] = True
+            assert _bits_equal(got[lo:hi], ops.delta_spmm(xs, stack.index(t))[lo:hi])
+    assert not got[~covered].any()
+    assert _bits_equal(got, ops.delta_spmm_segments(xs, stack, rows, offs))
+
+
+@pytest.mark.gpu
+def test_slots_rows_equal_delta_spmm_rows(cuda):
+    """delta_spmm_slots (one-row segments of a row-gathered stack) gives
+    each row the bits of delta_spmm with that row's delta."""
+    tenants = [_pack(256, 200, 16, 8, 4, 80 + t, cuda) for t in range(2)]
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    pick = torch.tensor([1, 0, 1, 1], device=cuda)
+    g = stack.with_arrays(stack.idx[pick], stack.codes[pick], stack.scale[pick],
+                          stack.zero[pick])
+    x = _x(8, 256, 27, cuda).reshape(4, 2, 256)
+    got = ops.delta_spmm_slots(x, g)
+    for b, t in enumerate(pick.tolist()):
+        assert _bits_equal(got[b], ops.delta_spmm(x[b], tenants[t]))
 
 
 @pytest.mark.gpu
@@ -326,20 +437,25 @@ def test_launch_checks_accept_layer_slices_and_reject_bad_layouts():
 
 def test_prefill_row_tiles_are_delta_spmm_only(monkeypatch):
     """delta_spmm takes the 128-row prefill tile above 64 rows where its
-    shared memory fits; the segments and fused kernels keep 8/16/32 (CPU)."""
+    shared memory fits, else the decode route's tile (1/2/4/8 rows, the
+    smallest holding T up to 8); the segments kernel takes the decode
+    tiles too, the fused kernel keeps its caps 8/16/32 (CPU)."""
     def no_build():
         raise AssertionError("the tile choice asked the library")
     monkeypatch.setattr(kern, "_load", no_build)
     d = _pack(64, 32, 16, 8, 4, 7, "cpu")
     # up to 64 rows the choice never asks whether the prefill tile fits
-    assert [ops.spmm_row_tile(T, d) for T in (1, 8, 9, 32, 33, 64)] == [8, 8, 16, 32, 32, 32]
+    assert [ops.spmm_row_tile(T, d) for T in (1, 2, 3, 5, 8, 9, 32, 33, 64)] \
+        == [1, 2, 4, 8, 8, 8, 8, 8, 8]
     # past 64 rows it does (the library's answer, a card test, stood in for)
     monkeypatch.setattr(kern, "prefill_fits", lambda tb, h_g, keep: h_g < 256)
     assert [ops.spmm_row_tile(T, d) for T in (65, 100, 128, 129, 160, 161, 256, 300)] \
         == [128] * 8
     big = _pack(512, 32, 256, 16, 4, 7, "cpu")             # h_g 256: 128 rows do not fit
-    assert ops.spmm_row_tile(128, big) == 32
-    assert [ops.row_tile(T) for T in (1, 9, 33, 128, 256)] == [8, 16, 32, 32, 32]
+    assert ops.spmm_row_tile(128, big) == 8
+    assert [ops.row_tile(T) for T in (1, 2, 3, 4, 7, 9, 33, 128, 256)] == \
+        [1, 2, 4, 4, 8, 8, 8, 8, 8]
+    assert [ops.fused_row_tile(T) for T in (1, 9, 33, 128, 256)] == [8, 16, 32, 32, 32]
     assert set(kern.PREFILL_TILES).isdisjoint(kern.ROW_TILES)
 
 

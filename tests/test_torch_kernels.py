@@ -227,6 +227,63 @@ def test_segment_correction_zero_fills_uncovered_rows():
     assert torch.equal(got[5:7], tfb.gather_correction(x[5:7], tstk.index(0)))
 
 
+@pytest.mark.parametrize("rows,h_out", [
+    ([2, 0, 2, 1, 0, 2, 1, 0], 256),        # mixed, duplicates, padded segments
+    ([1, 2, 0], 96),                        # all distinct
+    ([0] * 5 + [1] * 11, 130),              # segments straddling 8-row tiles
+])
+def test_segments_kernel_order_matches_plain_and_reference(rows, h_out):
+    """kernels/ref.py's oracle of the segments kernel is the same function
+    as the plain version (within 1e-5: another order) and the reference's
+    interpret-mode kernel (the kernel tolerance), and each covered row has
+    the bits of correction_kernel_order with its tenant."""
+    stk, x, seg, xs = _seg_case(rows, h_out=h_out)
+    tstk = br.packed_to_port(stk)
+    args = (torch.from_numpy(xs), tstk, torch.from_numpy(seg.seg_rows),
+            torch.from_numpy(seg.seg_offsets))
+    got = tref.segments_kernel_order(*args)
+    torch.testing.assert_close(got, tfb.segment_correction(*args), atol=1e-5, rtol=1e-5)
+    want = np.asarray(jops.delta_spmm_segments(
+        jnp.asarray(xs), stk, jnp.asarray(seg.seg_rows),
+        jnp.asarray(seg.seg_offsets), interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    sorted_rows = np.asarray(rows)[np.asarray(seg.order)]
+    for t in set(rows):
+        sel = torch.from_numpy(sorted_rows == t)
+        per = tref.correction_kernel_order(torch.from_numpy(xs), tstk.index(t))
+        assert torch.equal(got[sel], per[sel])
+
+
+def test_segments_kernel_order_zero_fills_like_plain():
+    """Rows that no segment covers and a segment whose tenant row is
+    outside the stack are zero in the oracle, as in the plain version."""
+    tstk = br.packed_to_port(_stacked(2))
+    x = torch.from_numpy(_x(10, 128, 9))
+    seg_rows = torch.tensor([1, 5, 0], dtype=torch.int32)
+    seg_offsets = torch.tensor([1, 3, 5, 7], dtype=torch.int32)
+    got = tref.segments_kernel_order(x, tstk, seg_rows, seg_offsets)
+    plain = tfb.segment_correction(x, tstk, seg_rows, seg_offsets)
+    zero = torch.ones(10, dtype=torch.bool)
+    zero[1:3] = zero[5:7] = False
+    assert not got[zero].any() and not plain[zero].any()
+    assert torch.equal(got[1:3], tref.correction_kernel_order(x[1:3], tstk.index(1)))
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("offsets,tb,want_row_tiles", [
+    ([0, 2, 5, 8, 8, 8, 8, 8, 8], 8, 3),     # tenant_segments' padded layout
+    ([0, 5, 16, 36], 8, 1 + 2 + 3),          # segments tiled from their own start
+    ([0, 5, 16, 36], 2, 3 + 6 + 10),
+    (list(range(9)), 8, 8),                  # delta_spmm_slots: one-row segments
+    ([3, 3, 3], 4, 0),                       # all empty
+])
+def test_segment_decode_tiles_counts_segment_row_tiles(offsets, tb, want_row_tiles):
+    """The segments kernel decodes each group's [keep, ob] tile once per
+    (segment row tile, column tile); ob is the decode route's 128."""
+    kw = dict(n_groups=4, h_out=300, tb=tb, ob=tops.KERNEL_OB)
+    assert tops.segment_decode_tiles(np.asarray(offsets), **kw) == want_row_tiles * 4 * 3
+
+
 def test_tenant_segments_layout_matches_reference():
     for rows in ([2, 0, 2, 1], [0, 0, 0, 0], [1, 2, 3, 0], [3, 3, 1, 1, 0, 2, 2, 2]):
         a = t_segments(np.asarray(rows, np.int32))
