@@ -12,7 +12,10 @@ the serving path (3 tenants compressed at the 128x DeltaDQ spec,
 ``Engine.generate`` for the base and each tenant, then the merge of
 tenant0's delta into the base weights), one mixed-tenant decode batch of
 8 slots through ``lm.decode_step`` with a slot-dispatched delta tree,
-the quickstart (``launch/quickstart.py``: compress, serve separately and
+the continuous-batching engine (``serve.ContinuousEngine``: a mixed
+12-request stream, each tenant's requests alone, ``Engine.generate`` per
+request, and the chunked-prefill engine on the same stream against B=1
+chunked decode), the quickstart (``launch/quickstart.py``: compress, serve separately and
 merged) and the kernels demo (``launch/kernels_demo.py``: the four
 kernels' entry points). It checks the outputs, that each path launched
 its kernels, and prints one JSON line of kernel measurements, then the
@@ -23,6 +26,7 @@ needs CUDA, and the checkout's ``src/`` beside it. Details go to
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -49,7 +53,9 @@ TF32_FLOP_PER_S = 495e12
 SITES = {"wq": (4096, 4096), "wi": (4096, 11008), "mlp_wo": (11008, 4096)}
 H_G, ALPHA = 16, 8.0
 K_CASES = (4, 8, None)
-PARITY_T = (1, 2, 4, 8, 128, 256)
+# 16 and 64: the [engine] phase's prompt chunks (ENGINE_CHUNK) and its
+# bucket-64 prefills, which take delta_spmm's decode route
+PARITY_T = (1, 2, 4, 8, 16, 64, 128, 256)
 FUSED_T = (1, 2, 8, 128, 256)
 PREFILL_T = (128, 256)             # delta_spmm's prefill route (row tile 128)
 DECODE_T = (1, 2, 4, 8, 16, 32, 64)   # delta_spmm's decode route, timed
@@ -69,6 +75,12 @@ KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)      # tests/test_kernels.py:44, f32
 # the logits by ~20% on an H100), and only summation order separates the
 # two paths.
 MERGED_REL_TOL = 1e-2
+# chunked against whole-prompt prefill, first-token logits, with the
+# ring in f32 so the chunk's K/V are not rounded: summation order only.
+# Sound readings on an H100 were 1.8e-6 - 4.6e-5; with the engine's bf16
+# ring the base requests (the least chaotic) read 2.4e-3 - 3.2e-3, so a
+# bf16 rounding fault in the chunk path lands above this bound.
+CHUNK_F32_REL_TOL = 1e-3
 # mixed (B=8) vs per-tenant (B=2) decode: the base GEMMs and attention
 # run at other batch extents (cuBLAS may pick other kernels), and the
 # bf16 KV cache can round a slightly different f32 value the other way;
@@ -79,6 +91,11 @@ MIXED_REL_TOL = 5e-2
 # f32 dense delta stack, is timed where that stack fits in this many
 # bytes: the decode shapes (1.4 GB at wi, T=8), not prefill (46 GB)
 LIBRARY_STACK_MAX_BYTES = 4e9
+# the [engine] phase: ContinuousEngine over {base, tenant0..2} at full
+# width, 12 requests round-robin with prompts of 33..128 tokens (length
+# buckets 64 and 128) from a seeded numpy generator
+ENGINE_SLOTS, ENGINE_MAX_SEQ, ENGINE_REQUESTS, ENGINE_NEW = 8, 256, 12, 16
+ENGINE_GAP, ENGINE_TICK, ENGINE_SEED, ENGINE_CHUNK = 0.002, 1e-3, 15, 16
 DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
 REPLACED_NOTE = ("the kernel this one replaced is gone from this checkout; it is timed "
                  "by the parent commit's chip_smoke.py in the same chip call (PERF.md)")
@@ -206,6 +223,17 @@ def _plain_segments(torch, fb, xs, stack, seg_rows, seg_offsets):
     return y
 
 
+def _chunk_segments(T: int, row: int = 1):
+    """The segment layout of one prompt chunk of T tokens as the chunked
+    engine builds it: ``tenant_segments`` of the chunk row's one tenant
+    row, offsets scaled by the T tokens (``core.apply._segment_dispatch``),
+    so one segment of T rows. -> (seg_rows, seg_offsets) on the card."""
+    import numpy as np
+    from repro_torch.serve.scheduler import tenant_segments
+    seg = tenant_segments(np.array([row], np.int32)).to(DEVICE)
+    return seg.seg_rows, seg.seg_offsets * T
+
+
 def _mixed_rows(T: int, n_tenants: int = 4):
     import numpy as np
     return np.random.default_rng(T).integers(0, n_tenants, T).astype(np.int32)
@@ -255,7 +283,7 @@ def phase_parity(torch, report: dict) -> dict:
     worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0, "fused_base_delta": 0.0,
              "dequant": 0.0}
     rows_out = []
-    n_fused = n_order = 0
+    n_fused = n_order = n_chunk = 0
     for site, (h_in, h_out) in SITES.items():
         w = (torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02).to(
             torch.bfloat16)
@@ -335,6 +363,21 @@ def phase_parity(torch, report: dict) -> dict:
                 sel = sorted_rows == t
                 if not torch.equal(ys[sel], per[sel]):
                     fail(f"segments rows != delta_spmm rows ({site} k={k} tenant {t})")
+            # one prompt chunk of the chunked engine (one segment of
+            # ENGINE_CHUNK rows): within KERNEL_TOL of the plain version and
+            # the bits of delta_spmm on that tenant's delta
+            xc = torch.randn((ENGINE_CHUNK, h_in), generator=gen, device=DEVICE)
+            c_rows, c_offs = _chunk_segments(ENGINE_CHUNK)
+            yc = ops.delta_spmm_segments(xc, stack, c_rows, c_offs)
+            wantc = _plain_segments(torch, fb, xc, stack, c_rows, c_offs)
+            torch.cuda.synchronize()
+            err_c = (yc - wantc).abs().max().item()
+            worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], err_c)
+            if not torch.allclose(yc, wantc, **KERNEL_TOL):
+                fail(f"delta_spmm_segments chunk layout {site} k={k}: max err {err_c:.3e}")
+            if not torch.equal(yc, ops.delta_spmm(xc, stack.index(1))):
+                fail(f"chunk segment rows != delta_spmm rows ({site} k={k})")
+            n_chunk += 1
             # 8 one-row slots (delta_spmm_slots): each row has its delta's bits
             slots = stack_tenant_deltas([{"w": tenants[b % 4]} for b in range(8)])["w"]
             ysl = ops.delta_spmm_slots(x8.reshape(8, 1, h_in), slots)
@@ -355,9 +398,11 @@ def phase_parity(torch, report: dict) -> dict:
         fail(f"the kernel-order checks ran {n_order} times")
     log(f"[parity] {len(rows_out)} cases x 2 kernels within atol/rtol 1e-4 "
         f"(worst |err| spmm {worst['delta_spmm']:.3e}, segments "
-        f"{worst['delta_spmm_segments']:.3e}); T=1 == row of T=8, segment rows and "
-        f"slot rows == delta_spmm rows bit for bit, uncovered and out-of-stack segment "
-        f"rows zero, at all sites and k_bits")
+        f"{worst['delta_spmm_segments']:.3e}); the chunked engine's one-segment "
+        f"{ENGINE_CHUNK}-row chunk layout within atol/rtol 1e-4 in {n_chunk} cases; "
+        f"T=1 == row of T=8, segment rows, chunk rows and slot rows == delta_spmm rows "
+        f"bit for bit, uncovered and out-of-stack segment rows zero, at all sites and "
+        f"k_bits")
     log(f"[parity] delta_spmm at T {list(PREFILL_T)} == the same rows through tb=8, "
         f"bit for bit, and two calls equal, at all sites and k_bits; both routes "
         f"(decode tile, 128 rows) == ref.correction_kernel_order bit for bit at "
@@ -379,7 +424,8 @@ def phase_parity(torch, report: dict) -> dict:
         for T in DECODE_T + PREFILL_T:
             times.append(_time_spmm(torch, ops, fb, ring, dense, gen, site, T,
                                     routes.get(T)))
-        for layout, T in (("mixed", 8), ("slots", 8), ("random", 256)):
+        for layout, T in (("mixed", 8), ("slots", 8), ("chunk", ENGINE_CHUNK),
+                          ("random", 256)):
             times.append(_time_segments(torch, ops, fb, ring, gen, site, layout, T))
         times += _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out)
         del ring, dense
@@ -426,8 +472,10 @@ def _time_spmm(torch, ops, fb, ring, dense, gen, site, T, route, full=True) -> d
 def _time_segments(torch, ops, fb, ring, gen, site, layout, T, full=True) -> dict:
     """delta_spmm_segments on 4-tenant stacks of the ring: ``mixed`` is
     the mixed decode step's layout (4 two-row segments, padded to 8),
-    ``random`` T rows over 4 tenants; ``slots`` is delta_spmm_slots on 8
-    distinct deltas (8 one-row segments of a row-gathered stack)."""
+    ``chunk`` one segment of T rows laid out as the chunked engine lays
+    out a prompt chunk, ``random`` T rows over 4 tenants; ``slots`` is
+    delta_spmm_slots on 8 distinct deltas (8 one-row segments of a
+    row-gathered stack)."""
     import numpy as np
     from repro_torch.core.apply import stack_tenant_deltas
     from repro_torch.serve.scheduler import tenant_segments
@@ -446,22 +494,27 @@ def _time_segments(torch, ops, fb, ring, gen, site, layout, T, full=True) -> dic
             lib = _bmm_library_ms(torch, x, stacks[0], list(range(T)),
                                   ops.delta_spmm_slots(x3, stacks[0])[:, 0])
     else:
-        rows = np.asarray(MIXED_SLOT_ROWS if layout == "mixed" else _mixed_rows(T), np.int32)
+        rows = np.asarray(MIXED_SLOT_ROWS if layout == "mixed" else
+                          np.ones(T) if layout == "chunk" else _mixed_rows(T), np.int32)
         stacks = [stack_tenant_deltas([{"w": ring[(i + j) % 8]} for j in range(4)])["w"]
                   for i in range(8)]
-        seg = tenant_segments(rows).to(DEVICE)
-        xs = x.index_select(0, seg.order)
+        if layout == "chunk":
+            xs, (seg_rows, seg_offsets) = x, _chunk_segments(T)
+        else:
+            seg = tenant_segments(rows).to(DEVICE)
+            xs, seg_rows, seg_offsets = x.index_select(0, seg.order), seg.seg_rows, seg.seg_offsets
+            rows = rows[seg.order.cpu().numpy()]
         n_deltas = len(set(rows.tolist()))
         ms = time_ms(torch, [lambda s=s: ops.delta_spmm_segments(
-            xs, s, seg.seg_rows, seg.seg_offsets) for s in stacks])
+            xs, s, seg_rows, seg_offsets) for s in stacks])
         plain = lib = None
         if full:
             plain = time_ms(torch, [lambda s=s: _plain_segments(
-                torch, fb, xs, s, seg.seg_rows, seg.seg_offsets) for s in stacks],
+                torch, fb, xs, s, seg_rows, seg_offsets) for s in stacks],
                 iters=4, reps=3, eager=True)
-            lib = _bmm_library_ms(torch, xs, stacks[0], rows[seg.order.cpu().numpy()].tolist(),
-                                  ops.delta_spmm_segments(xs, stacks[0], seg.seg_rows,
-                                                          seg.seg_offsets))
+            lib = _bmm_library_ms(torch, xs, stacks[0], rows.tolist(),
+                                  ops.delta_spmm_segments(xs, stacks[0], seg_rows,
+                                                          seg_offsets))
     b_ms, b_by = bound_ms(T * h_in * 4, n_deltas * packed_bytes(ring[0]), T * h_out * 4,
                           2.0 * T * ring[0].nnz)
     t = {"kernel": "delta_spmm_segments", "layout": layout, "site": site, "h_in": h_in,
@@ -799,6 +852,314 @@ def phase_mixed_decode(torch, kern, ctx: dict, report: dict) -> dict:
     return launches
 
 
+def _engine_stream(cfg) -> list:
+    """[(tenant, prompt, arrival)]: round-robin over {base, tenant0..2},
+    prompt lengths 33..128 from a seeded generator (both buckets)."""
+    import numpy as np
+    rng = np.random.default_rng(ENGINE_SEED)
+    lengths = rng.integers(33, 129, ENGINE_REQUESTS)
+    if not (lengths <= 64).any() or not (lengths > 64).any():
+        fail(f"the engine stream misses a length bucket: {lengths.tolist()}")
+    names = (None, "tenant0", "tenant1", "tenant2")
+    return [(names[i % 4], rng.integers(0, cfg.vocab, int(L)).astype(np.int32),
+             ENGINE_GAP * i) for i, L in enumerate(lengths)]
+
+
+def _timed_steps(ce) -> tuple:
+    """Host seconds of each decode step of ``ce`` (each ends in the step's
+    device-to-host copy of the next tokens, so the card has finished),
+    and the function that takes the timer off again (the timer refers to
+    the engine, so it must not outlive the run)."""
+    name = "_combined_step" if ce.chunked else "_decode_all"
+    inner = getattr(ce, name)
+    spent = []
+
+    def timed(now):
+        t0 = time.perf_counter()
+        worked = inner(now)
+        if worked is not False:          # a chunked step with nothing to do
+            spent.append(time.perf_counter() - t0)
+        return worked
+
+    setattr(ce, name, timed)
+    return spent, lambda: delattr(ce, name)
+
+
+def _engine_run(torch, kern, ce, stream, idx, tag: str) -> dict:
+    """Submit ``stream[idx]`` at their arrivals, run the engine once with
+    the launch counts set to 0 just before and read just after; wall
+    seconds CUDA-synchronized around ``run()``."""
+    import numpy as np
+    handles = [ce.submit(stream[i][0], stream[i][1], max_new_tokens=ENGINE_NEW,
+                         arrival=stream[i][2]) for i in idx]
+    spent, untime = _timed_steps(ce)
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rep = ce.run().report()
+        torch.cuda.synchronize()
+    finally:
+        untime()
+    wall = time.perf_counter() - t0
+    launches, routes = dict(kern.LAUNCHES), dict(kern.ROUTES)
+    for r in handles:
+        if not r.done or len(r.tokens) != ENGINE_NEW:
+            fail(f"[engine] {tag}: request {r.rid} finished with {len(r.tokens)} tokens")
+    toks = np.stack([r.output() for r in handles])
+    if toks.min() < 0 or toks.max() >= ce.cfg.vocab:
+        fail(f"[engine] {tag}: tokens outside the vocabulary")
+    step_ms = 1e3 * sum(spent) / max(len(spent), 1)
+    out = {"tokens": {i: r.output() for i, r in zip(idx, handles)}, "report": rep,
+           "launches": launches, "routes": routes, "wall_s": wall,
+           "decode_steps": rep["decode_steps"], "ms_per_step": step_ms,
+           "step_s_total": sum(spent), "tokens_per_s": rep["total_tokens"] / wall}
+    log(f"[engine] {tag}: {len(idx)} requests, {rep['total_tokens']} tokens in "
+        f"{wall:.2f} s wall (CUDA-synchronized) = {out['tokens_per_s']:.1f} tokens/s; "
+        f"{rep['decode_steps']} decode steps, {step_ms:.1f} ms a step "
+        f"({sum(spent):.2f} s in steps, {wall - sum(spent):.2f} s in admission and "
+        f"whole-prompt prefill); launches {launches}, routes {routes}")
+    return out
+
+
+def _first_mismatch(a, b):
+    import numpy as np
+    diff = np.nonzero(np.asarray(a) != np.asarray(b))[0]
+    return None if diff.size == 0 else int(diff[0])
+
+
+def _margin_ok(torch, logits) -> tuple:
+    """(top-1 minus top-2 margin, its bound MIXED_REL_TOL * max|logit|)."""
+    top = torch.topk(logits.float(), 2).values
+    return (top[0] - top[1]).item(), MIXED_REL_TOL * logits.abs().max().item()
+
+
+def _greedy_b1(torch, lm, cfg, base, deltas, prompt, n_new: int, chunk: int,
+               ring_dtype: str = None) -> tuple:
+    """B=1 greedy decode with the prompt prefilled in ``chunk``-token
+    chunks (``lm.prefill_chunk``, the tail right-padded, as the chunked
+    engine does) into a ring of ``ring_dtype`` (default the params'):
+    (tokens, [logits [V] that chose each token])."""
+    import dataclasses
+    ring_cfg = cfg if ring_dtype is None else dataclasses.replace(cfg, param_dtype=ring_dtype)
+    cache = lm.init_cache(ring_cfg, 1, ENGINE_MAX_SEQ, device=DEVICE)
+    L = len(prompt)
+    for start in range(0, L, chunk):
+        n = min(chunk, L - start)
+        tok = torch.zeros((1, chunk), dtype=torch.int64, device=DEVICE)
+        tok[0, :n] = torch.as_tensor(prompt[start:start + n], device=DEVICE)
+        pos = (start + torch.arange(chunk, device=DEVICE))[None]
+        clog, _ = lm.prefill_chunk(cfg, base, {"tokens": tok, "positions": pos,
+                                               "valid": torch.arange(chunk, device=DEVICE)[None] < n},
+                                   cache, deltas=deltas)
+    logits, toks, out = clog[0, n - 1], [], []
+    for t in range(n_new):
+        out.append(logits)
+        toks.append(int(torch.argmax(logits)))
+        if t + 1 < n_new:
+            logits, _ = lm.decode_step(cfg, base, cache,
+                                       torch.tensor([[toks[-1]]], device=DEVICE),
+                                       L + t, deltas=deltas)
+            logits = logits[0]
+    return toks, out
+
+
+def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
+    """The continuous-batching engine at full width, with the launch
+    counts of each run: the mixed stream; each tenant's requests alone
+    (token-exact: equal extents); every request against Engine.generate
+    (tie-aware: other extents); the chunked engine on the same stream
+    against B=1 greedy decode through the same chunked prefill
+    (tie-aware), and its agreement with the whole-prompt engine measured:
+    chunked prefill attends the prompt's own K/V rounded to the ring's
+    bf16, whole-prompt prefill attends them in f32 (the reference does
+    the same), and the first-token logit gap with an f32 ring shows how
+    much of the difference that rounding is."""
+    from repro_torch.models import lm
+    from repro_torch.serve import ContinuousEngine, Engine, VirtualClock
+    from repro_torch.utils import iter_leaves
+
+    cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
+    sites = 7 * cfg.n_layers
+    stream = _engine_stream(cfg)
+    everyone = list(range(len(stream)))
+
+    def engine(**kw):
+        return ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                                store=store, clock=VirtualClock(tick=ENGINE_TICK), **kw)
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ce = engine()
+    buckets = [ce.buckets.bucket(len(p)) for _, p, _ in stream]
+    mixed = _engine_run(torch, kern, ce, stream, everyone, "mixed, whole-prompt prefill")
+    mem = {"before_gb": mem0 / 1e9, "engine_gb": (torch.cuda.memory_allocated() - mem0) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "stacked_gb": sum(d.nbytes() for _, d in iter_leaves(ce._stacked)
+                             if d is not None) / 1e9,
+           "kv_gb": sum(t.numel() * t.element_size() for c in ce.kv.cache
+                        for t in c.values()) / 1e9}
+    log(f"[engine] device memory: {mem['before_gb']:.2f} GB allocated before the engine "
+        f"(base, 3 tenants' packed deltas, earlier phases' leftovers); the engine holds "
+        f"{mem['engine_gb']:.2f} GB ({mem['stacked_gb']:.2f} GB tenant stack with its zero "
+        f"row, {mem['kv_gb']:.2f} GB KV cache); peak {mem['peak_gb']:.2f} GB in the mixed run")
+    rep, launches, routes = mixed["report"], mixed["launches"], mixed["routes"]
+    n_small = sum(b <= 64 for b in buckets)
+    want = {"delta_spmm": sites * len(stream), "delta_spmm_segments":
+            sites * rep["decode_steps"], "fused_base_delta": 0, "dequant": 0}
+    want_routes = {"delta_spmm_decode": sites * n_small,
+                   "delta_spmm_prefill": sites * (len(stream) - n_small)}
+    log(f"[engine] buckets {sorted(set(buckets))} ({n_small} of 64, "
+        f"{len(stream) - n_small} of 128); expected launches {want}, routes {want_routes}")
+    if rep["prefills"] != len(stream) or rep["total_tokens"] != len(stream) * ENGINE_NEW:
+        fail(f"[engine] report: {rep['prefills']} prefills, {rep['total_tokens']} tokens")
+    if launches != want or routes != want_routes:
+        fail(f"[engine] launches {launches} routes {routes}, expected {want} {want_routes}")
+
+    # each tenant's requests, and the base's, alone through the same engine
+    alone_bad, alone_wall = [], {}
+    for name in (None, "tenant0", "tenant1", "tenant2"):
+        ce.reset_metrics()
+        idx = [i for i, (t, _, _) in enumerate(stream) if t == name]
+        run = _engine_run(torch, kern, ce, stream, idx, f"alone {name or 'base'}")
+        alone_wall[str(name)] = run["wall_s"]
+        for i in idx:
+            j = _first_mismatch(run["tokens"][i], mixed["tokens"][i])
+            if j is not None:
+                alone_bad.append({"request": i, "tenant": name, "step": j})
+    log(f"[engine] mixed == alone, token for token: "
+        f"{len(stream) - len(alone_bad)}/{len(stream)} requests"
+        + (f"; differ: {alone_bad}" if alone_bad else ""))
+    if alone_bad:
+        fail(f"[engine] mixed serving differs from serving alone: {alone_bad}")
+    del ce
+    torch.cuda.empty_cache()
+
+    # Engine.generate (B=1) per request: other extents, so tie-aware
+    ref = Engine(cfg, base, max_seq=ENGINE_MAX_SEQ)
+    ref.store = store
+    gen_rows, gen_full, gen_logits = [], 0, []
+    t0 = time.perf_counter()
+    for i, (name, prompt, _) in enumerate(stream):
+        lg = []
+        toks = ref.generate(name, prompt[None], max_new_tokens=ENGINE_NEW,
+                            logits_out=lg)[0]
+        if not all(bool(torch.isfinite(x).all()) for x in lg):
+            fail(f"[engine] non-finite Engine.generate logits, request {i}")
+        gen_logits.append(lg[0][0])
+        j = _first_mismatch(mixed["tokens"][i], toks)
+        row = {"request": i, "tenant": name, "first_mismatch": j}
+        if j is None:
+            gen_full += 1
+        else:
+            row["margin"], row["bound"] = _margin_ok(torch, lg[j][0])
+            if row["margin"] > row["bound"]:
+                fail(f"[engine] request {i} ({name}) leaves Engine.generate at step "
+                     f"{j} with a top-2 margin {row['margin']:.4e} > {row['bound']:.4e}")
+        gen_rows.append(row)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    log(f"[engine] vs Engine.generate (B=1, {gen_wall:.1f} s): {gen_full}/{len(stream)} "
+        f"requests equal in full; the rest leave it at a near tie "
+        f"(margin <= {MIXED_REL_TOL} x max|logit|): "
+        f"{[r for r in gen_rows if r['first_mismatch'] is not None]}")
+
+    # the chunked engine on the same stream
+    seg_rows = []
+    real = kern.delta_spmm_segments_cuda
+
+    def spy(x2, d, rows, offsets, *, tb):
+        seg_rows.append(x2.shape[0])
+        return real(x2, d, rows, offsets, tb=tb)
+
+    kern.delta_spmm_segments_cuda = spy
+    try:
+        cc = engine(chunked_prefill=True, chunk_size=ENGINE_CHUNK)
+        chunked = _engine_run(torch, kern, cc, stream, everyone,
+                              f"mixed, chunked prefill (chunk {ENGINE_CHUNK})")
+    finally:
+        kern.delta_spmm_segments_cuda = real
+    crep = chunked["report"]
+    n_chunks = sum(-(-len(p) // ENGINE_CHUNK) for _, p, _ in stream)
+    want_c = {ENGINE_CHUNK: sites * n_chunks, ENGINE_SLOTS: sites * crep["decode_steps"]}
+    got_c = {T: seg_rows.count(T) for T in sorted(set(seg_rows))}
+    log(f"[engine] chunked: delta_spmm_segments launches by rows {got_c} (expected "
+        f"{want_c}: {n_chunks} chunks, {crep['decode_steps']} steps)")
+    if got_c != want_c or chunked["launches"]["delta_spmm"] != 0 or \
+            chunked["launches"]["delta_spmm_segments"] != len(seg_rows):
+        fail(f"[engine] chunked launches {chunked['launches']}, by rows {got_c}")
+    # the chunked engine against B=1 greedy decode through the same
+    # chunked prefill (other extents: tie-aware, as against generate)
+    chunk_rows, chunk_full, whole_full, rel_bf16, rel_f32 = [], 0, 0, [], []
+    for i, (name, prompt, _) in enumerate(stream):
+        deltas = store.get(name).deltas if name else None
+        toks, lg = _greedy_b1(torch, lm, cfg, base, deltas, prompt, ENGINE_NEW,
+                              ENGINE_CHUNK)
+        j = _first_mismatch(chunked["tokens"][i], toks)
+        row = {"request": i, "tenant": name, "first_mismatch": j,
+               "vs_whole_first_mismatch": _first_mismatch(chunked["tokens"][i],
+                                                          mixed["tokens"][i])}
+        if j is None:
+            chunk_full += 1
+        else:
+            row["margin"], row["bound"] = _margin_ok(torch, lg[j])
+            if row["margin"] > row["bound"]:
+                fail(f"[engine] chunked request {i} ({name}) leaves B=1 chunked decode "
+                     f"at step {j}, margin {row['margin']:.4e} > {row['bound']:.4e}")
+        whole_full += row["vs_whole_first_mismatch"] is None
+        # first-token logits of chunked against whole-prompt prefill, with
+        # the ring in bf16 (the engine's) and in f32 (chunk K/V unrounded,
+        # as whole-prompt prefill attends them)
+        whole = gen_logits[i]
+        f32_first = _greedy_b1(torch, lm, cfg, base, deltas, prompt, 1, ENGINE_CHUNK,
+                               "float32")[1][0]
+        scale = whole.abs().max().item()
+        row["first_logit_rel"] = {"bf16_ring": (lg[0] - whole).abs().max().item() / scale,
+                                  "f32_ring": (f32_first - whole).abs().max().item() / scale}
+        rel_bf16.append(row["first_logit_rel"]["bf16_ring"])
+        rel_f32.append(row["first_logit_rel"]["f32_ring"])
+        chunk_rows.append(row)
+        # with the ring's rounding taken away only summation order is left
+        if row["first_logit_rel"]["f32_ring"] > CHUNK_F32_REL_TOL:
+            fail(f"[engine] request {i}: chunked prefill with an f32 ring is "
+                 f"{row['first_logit_rel']['f32_ring']:.3e} (relative) from "
+                 f"whole-prompt prefill, bound {CHUNK_F32_REL_TOL}")
+    log(f"[engine] chunked vs B=1 chunked decode: {chunk_full}/{len(stream)} requests "
+        f"equal in full; the rest at a near tie: "
+        f"{[r for r in chunk_rows if r['first_mismatch'] is not None]}")
+    log(f"[engine] chunked vs whole-prompt engine: {whole_full}/{len(stream)} requests "
+        f"equal in full, first mismatches "
+        f"{[(r['request'], r['vs_whole_first_mismatch']) for r in chunk_rows if r['vs_whole_first_mismatch'] is not None]}; "
+        f"first-token logits chunked vs whole-prompt prefill, max|diff|/max|logit|: "
+        f"bf16 ring {min(rel_bf16):.3e}-{max(rel_bf16):.3e}, f32 ring "
+        f"{min(rel_f32):.3e}-{max(rel_f32):.3e} (bound {CHUNK_F32_REL_TOL})")
+    del cc, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def summary(run):
+        return {k: run[k] for k in ("wall_s", "decode_steps", "ms_per_step",
+                                    "step_s_total", "tokens_per_s", "launches", "routes")}
+
+    report["engine"] = {
+        "config": {"n_slots": ENGINE_SLOTS, "max_seq": ENGINE_MAX_SEQ,
+                   "requests": ENGINE_REQUESTS, "max_new_tokens": ENGINE_NEW,
+                   "arrival_gap_s": ENGINE_GAP, "clock_tick_s": ENGINE_TICK,
+                   "prompt_lengths": [len(p) for _, p, _ in stream],
+                   "buckets": buckets, "chunk_size": ENGINE_CHUNK},
+        "memory": mem,
+        "mixed": {**summary(mixed), "report": rep},
+        "alone_wall_s": alone_wall, "alone_mismatches": alone_bad,
+        "generate": {"wall_s": gen_wall, "full_match": gen_full, "rows": gen_rows},
+        "chunked": {**summary(chunked), "report": crep, "segment_rows": got_c,
+                    "full_match_b1_chunked": chunk_full, "full_match_whole": whole_full,
+                    "rows": chunk_rows},
+        "tokens": {str(i): t.tolist() for i, t in mixed["tokens"].items()},
+    }
+    return launches
+
+
 def phase_quickstart(torch, kern, report: dict) -> dict:
     """``launch/quickstart.py``'s function at the full width: compress a
     perturbed copy at 128x, serve it separately and merged."""
@@ -875,14 +1236,17 @@ def kernel_times(torch) -> list:
     return out
 
 
-def kernel_entries(report: dict, worst: dict, path_launches: dict) -> list:
-    """The ``kernels`` JSON line: each kernel at the wi site, with its
-    launches from the path that runs it (``path_launches[name]``, the
-    counts read right after that path)."""
+def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list:
+    """The ``kernels`` JSON line: each kernel at the wi site and at a
+    shape its main path gives it, with ``launches`` from that path
+    (``main[name]``, the counts read right after it: the continuous
+    engine's mixed run for the serving kernels) and the launches of
+    every other path that ran it (``by_path``)."""
     by = {(t["kernel"], t["site"], t["T"], t.get("layout")): t for t in report["times"]}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    eng_routes = report["engine"]["mixed"]["routes"]
     entries = []
-    for name, line, T, layout in (("delta_spmm", 122, 2, None),
+    for name, line, T, layout in (("delta_spmm", 122, 128, None),
                                   ("delta_spmm_segments", 240, 8, "mixed"),
                                   ("fused_base_delta", 173, 128, None),
                                   ("dequant", 311, None, None)):
@@ -891,20 +1255,28 @@ def kernel_entries(report: dict, worst: dict, path_launches: dict) -> list:
                                    "apply_linear_ms") if k in t}
         if name in ("delta_spmm", "delta_spmm_segments"):
             extra.update(replaced_ms=None, replaced_note=REPLACED_NOTE)
-        if name == "delta_spmm":   # both routes, at the main path's T
-            p = by[(name, "wi", 128, None)]
+        if name == "delta_spmm":   # both routes, at the engine's prefill buckets
+            d64, d2 = by[(name, "wi", 64, None)], by[(name, "wi", 2, None)]
+            extra["ops_route"] = "prefill (128-row tile)"
             extra["decode_route"] = {
+                "T": 64, "launches": eng_routes["delta_spmm_decode"],
+                **{k: d64[k] for k in keys}, "prefill_route_ms": d64.get("other_route_ms")}
+            extra["prefill_route"] = {"T": 128, "launches": eng_routes["delta_spmm_prefill"]}
+            extra["generate_decode"] = {
                 "T": 2, "launches": report["main"]["decode_route_launches"],
-                **{k: t[k] for k in keys}, "replaced_ms": None,
-                "replaced_note": REPLACED_NOTE}
-            extra["prefill_route"] = {
-                "T": 128, "launches": report["main"]["prefill_route_launches"],
-                **{k: p[k] for k in keys}, "decode_route_ms": p.get("other_route_ms")}
+                **{k: d2[k] for k in keys}}
+        if name == "delta_spmm_segments":   # the chunked engine's prompt chunks
+            c = by[(name, "wi", ENGINE_CHUNK, "chunk")]
+            extra["chunk_layout"] = {
+                "T": ENGINE_CHUNK,
+                "launches": report["engine"]["chunked"]["segment_rows"][ENGINE_CHUNK],
+                **{k: c[k] for k in keys}}
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/delta_spmm.cu",
             "replaces": f"src/repro/kernels/delta_spmm.py:{line}",
-            "launches": path_launches[name][name],
+            "launches": main[name][name],
+            "launches_by_path": {p: l[name] for p, l in by_path.items() if l.get(name)},
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
@@ -961,17 +1333,21 @@ def main(argv: list) -> int:
             worst = phase_parity(torch, report)
             ctx = phase_main_path(torch, kern, report)
             mixed_launches = phase_mixed_decode(torch, kern, ctx, report)
+            engine_launches = phase_engine(torch, kern, ctx, report)
             main_launches, merge_launches = ctx["launches"], ctx["merge_launches"]
             ctx.clear()          # frees the base, the engine and the tenants
             torch.cuda.empty_cache()
-            phase_quickstart(torch, kern, report)
+            quickstart_launches = phase_quickstart(torch, kern, report)
             demo_launches = phase_kernels_demo(torch, kern, report)
     finally:
         _write_report(report, t_start)
 
     entries = kernel_entries(report, worst, {
-        "delta_spmm": main_launches, "delta_spmm_segments": mixed_launches,
-        "fused_base_delta": demo_launches, "dequant": merge_launches})
+        "delta_spmm": engine_launches, "delta_spmm_segments": engine_launches,
+        "fused_base_delta": demo_launches, "dequant": merge_launches}, {
+        "engine": engine_launches, "generate": main_launches,
+        "mixed_step": mixed_launches, "merge": merge_launches,
+        "quickstart": quickstart_launches, "demo": demo_launches})
     report["kernels"] = entries
     _write_report(report, t_start)
     log(f"[done] {report['wall_s']:.1f} s")

@@ -20,11 +20,12 @@ Entry points
     forward(cfg, params, batch, deltas)             -> logits  [B,S,V]
     init_cache(cfg, batch, max_seq, device=)        -> cache
     prefill(cfg, params, batch, cache, deltas)      -> (last logits, cache)
+    prefill_chunk(cfg, params, batch, cache, deltas) -> (logits [B,C,V], cache)
     decode_step(cfg, params, cache, tokens, pos, deltas) -> (logits, cache)
 
 The KV cache is updated **in place** (the reference returns a new cache;
 eager torch would otherwise copy every layer's cache per step) and the
-same cache list is returned. ``prefill_chunk`` is not ported yet.
+same cache list is returned.
 """
 from __future__ import annotations
 
@@ -174,6 +175,50 @@ def _attn_block_prefill(cfg, p, d, x, positions, window, cache):
     return x + out
 
 
+def _attn_block_chunk(cfg, p, d, x, positions, window, cache, valid):
+    """Multi-token ring attention for one chunked-prefill row.
+
+    ``positions`` [B, C] are absolute prompt positions (a resumable
+    cursor offset, NOT starting at 0). Queries attend the pre-write ring
+    concatenated with the chunk's own K/V (position-masked, so a token
+    sees earlier chunks plus its own prefix), THEN every real token's
+    K/V is written into its ring slot. Attending first matters for a
+    windowed ring, which keeps only the last token's window: writing all
+    C tokens first would evict keys the chunk's earlier queries need.
+
+    ``valid`` [B, C] bool (or None) marks real tokens of a right-padded
+    chunk. The reference drops pad writes (``mode="drop"``); here each
+    pad entry writes back the value its slot already holds, so a pad
+    never shadows a live ring key and no host sync is needed. The C
+    slots of one chunk are distinct (C consecutive positions, C <= the
+    ring size, which the engine enforces), so the scatter has no
+    duplicate indices. Pad keys sit at positions past every real query
+    (causally masked); their query outputs are garbage the caller
+    discards.
+    """
+    u = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(u, p, d, cfg, positions)
+    B = x.shape[0]
+    S_c = cache["k"].shape[1]
+    k = k.to(cache["k"].dtype)
+    v = v.to(cache["v"].dtype)
+    pos_c = positions.to(cache["pos"].dtype)
+    k_all = torch.cat([cache["k"], k], dim=1)
+    v_all = torch.cat([cache["v"], v], dim=1)
+    kp_all = torch.cat([cache["pos"], pos_c], dim=1)
+    out = attention(q, k_all, v_all, positions, kp_all, window=window,
+                    causal=True, cap=cfg.attn_softcap)
+    slots = positions % S_c                               # [B, C]
+    bi = torch.arange(B, device=x.device)[:, None]
+    for name, new in (("k", k), ("v", v), ("pos", pos_c)):
+        if valid is not None:
+            m = valid.reshape(valid.shape + (1,) * (new.ndim - 2))
+            new = torch.where(m, new, cache[name][bi, slots])
+        cache[name][bi, slots] = new
+    out = apply_linear(out.reshape(*x.shape[:-1], cfg.q_dim), p["wo"], dget(d, "wo"))
+    return x + out
+
+
 def _attn_block_decode(cfg, p, d, x, pos, window, cache):
     """Single-token attention over the (ring-buffer) cache.
 
@@ -214,13 +259,17 @@ def _slice(tree: dict, i: int) -> dict:
 
 
 def _walk(cfg: ArchConfig, params, x, positions, deltas=None, caches=None,
-          decode_pos=None):
-    """Python loop over the layers (train, prefill and decode paths)."""
+          decode_pos=None, chunk=False, chunk_valid=None):
+    """Python loop over the layers (train, prefill, chunk and decode
+    paths)."""
     for li, (kind, j, window) in enumerate(layer_plan(cfg)):
         p_a = _slice(params["attn"], j)
         d_a = dindex(dget(deltas, "attn"), j)
         if decode_pos is not None:
             x = _attn_block_decode(cfg, p_a, d_a, x, decode_pos, window, caches[li])
+        elif caches is not None and chunk:
+            x = _attn_block_chunk(cfg, p_a, d_a, x, positions, window, caches[li],
+                                  chunk_valid)
         elif caches is not None:
             x = _attn_block_prefill(cfg, p_a, d_a, x, positions, window, caches[li])
         else:
@@ -291,6 +340,29 @@ def prefill(cfg: ArchConfig, params, batch: dict, cache, deltas=None):
     h = _walk(cfg, params, x, positions, deltas=deltas, caches=cache)
     logits = unembed(cfg, params, h[:, -1:], deltas)
     return logits[:, 0], cache
+
+
+def prefill_chunk(cfg: ArchConfig, params, batch: dict, cache, deltas=None):
+    """Consume one position-offset prompt chunk against an existing cache.
+
+    The resumable middle of chunked prefill: ``batch["tokens"]`` [B, C]
+    is a slice of the prompt, ``batch["positions"]`` [B, C] its absolute
+    positions (cursor offset, NOT restarting at 0), and ``cache`` the
+    row's cache as earlier chunks left it (updated in place). An
+    optional ``batch["valid"]`` [B, C] bool marks real tokens when the
+    engine right-pads the tail chunk to a fixed width; pad K/V never
+    reach the ring.
+
+    Returns (logits [B, C, V] for EVERY chunk position, cache): the
+    caller picks the last real position's logits of the final chunk for
+    the first generated token.
+    """
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
+    h = _walk(cfg, params, x, batch["positions"], deltas=deltas, caches=cache,
+              chunk=True, chunk_valid=batch.get("valid"))
+    return unembed(cfg, params, h, deltas), cache
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,

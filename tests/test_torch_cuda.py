@@ -482,3 +482,108 @@ def test_prefill_tiles_rejected_by_segments_and_fused_before_building(monkeypatc
     for tb in (12, 64):
         with pytest.raises(ValueError, match=f"tb={tb}"):
             kern.delta_spmm_cuda(_x(4, 64, 0, "cpu"), d, tb=tb)
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching engine on the card (smoke config)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def engine_fleet(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
+    from repro_torch.models import lm
+    cfg = get_smoke_config("wizard-llama2-7b")
+    base = lm.init_params(cfg, 0, device=cuda)
+    return cfg, base, synth_tenants(cfg, base, 3, RATIO_SPECS[128], seed=0)
+
+
+def _cuda_engine(fleet, **kw):
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+    cfg, base, tenants = fleet
+    eng = ContinuousEngine(cfg, base, n_slots=4, max_seq=32,
+                           clock=VirtualClock(tick=1e-3), **kw)
+    for name, d, rep in tenants:
+        eng.register_tenant(name, d, rep)
+    return eng
+
+
+def _cuda_stream(vocab, lengths=(5, 9, 7, 12, 5, 9, 3, 7, 11, 4)):
+    rng = np.random.default_rng(9)
+    return [(f"tenant{i % 3}" if i % 4 else None, rng.integers(0, vocab, L))
+            for i, L in enumerate(lengths)]
+
+
+def _submit_all(eng, stream, idx=None, max_new=6):
+    idx = range(len(stream)) if idx is None else idx
+    return [eng.submit(stream[i][0], stream[i][1], max_new_tokens=max_new,
+                       arrival=0.002 * i) for i in idx]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunked", [False, True])
+def test_engine_mixed_equals_alone_on_card(engine_fleet, chunked):
+    """Mixed-tenant serving == each tenant's requests alone, token for
+    token, at equal n_slots: the base GEMMs and attention run at the same
+    extents and the delta kernels' rows do not depend on the layout."""
+    eng = _cuda_engine(engine_fleet, **(dict(chunked_prefill=True, chunk_size=4)
+                                        if chunked else {}))
+    stream = _cuda_stream(engine_fleet[0].vocab)
+    mixed = _submit_all(eng, stream)
+    eng.run()
+    for tenant in (None, "tenant0", "tenant1", "tenant2"):
+        eng.reset_metrics()
+        idx = [i for i, (t, _) in enumerate(stream) if t == tenant]
+        alone = _submit_all(eng, stream, idx)
+        eng.run()
+        for i, r in zip(idx, alone):
+            np.testing.assert_array_equal(r.output(), mixed[i].output())
+
+
+@pytest.mark.gpu
+def test_engine_launch_counts_on_card(engine_fleet):
+    """Every prefill launches delta_spmm once per linear site (base
+    requests on the zero tree), every decode step delta_spmm_segments
+    once per site; the buckets decide delta_spmm's route."""
+    cfg = engine_fleet[0]
+    sites = 7 * cfg.n_layers
+    eng = _cuda_engine(engine_fleet)
+    stream = _cuda_stream(cfg.vocab)
+    _submit_all(eng, stream)
+    kern.reset_launches()
+    rep = eng.run().report()
+    torch.cuda.synchronize()
+    assert rep["prefills"] == len(stream) and rep["total_tokens"] == 6 * len(stream)
+    assert kern.LAUNCHES["delta_spmm"] == sites * len(stream)
+    assert kern.ROUTES["delta_spmm_decode"] == sites * len(stream)    # buckets 8, 16
+    assert kern.LAUNCHES["delta_spmm_segments"] == sites * rep["decode_steps"]
+    assert kern.LAUNCHES["fused_base_delta"] == kern.LAUNCHES["dequant"] == 0
+    assert rep["decode_paths"] == {"segments-cuda+packed": rep["decode_steps"]}
+
+
+@pytest.mark.gpu
+def test_engine_chunks_launch_segments_at_chunk_size(engine_fleet, monkeypatch):
+    """Chunked prefill threads every chunk through the segments kernel
+    (a one-row segment of chunk_size = 3 tokens) and every step's decode
+    through it at T = n_slots = 4; no whole-prompt delta_spmm runs."""
+    cfg = engine_fleet[0]
+    rows = []
+    real = kern.delta_spmm_segments_cuda
+
+    def spy(x2, d, seg_rows, seg_offsets, *, tb):
+        rows.append(x2.shape[0])
+        return real(x2, d, seg_rows, seg_offsets, tb=tb)
+
+    monkeypatch.setattr(kern, "delta_spmm_segments_cuda", spy)
+    eng = _cuda_engine(engine_fleet, chunked_prefill=True, chunk_size=3)
+    stream = _cuda_stream(cfg.vocab)
+    _submit_all(eng, stream)
+    kern.reset_launches()
+    rep = eng.run().report()
+    torch.cuda.synchronize()
+    sites = 7 * cfg.n_layers
+    n_chunks = sum(-(-len(p) // 3) for _, p in stream)
+    assert kern.LAUNCHES["delta_spmm"] == 0
+    assert rows.count(3) == sites * n_chunks
+    assert rows.count(4) == sites * rep["decode_steps"]
+    assert set(rows) == {3, 4}
+    assert kern.LAUNCHES["delta_spmm_segments"] == len(rows)

@@ -34,6 +34,10 @@ import torch_bridge as br  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
+# the serving slice's modules, which the boundary test must reach
+SERVING_MODULES = ("repro_torch.serve.kv", "repro_torch.serve.metrics",
+                   "repro_torch.serve.telemetry", "repro_torch.serve.engine",
+                   "repro_torch.launch.serve")
 
 
 def _fleet(dtype, n=2):
@@ -131,8 +135,12 @@ def test_port_imports_no_jax_and_no_reference():
     code = (
         "import sys, pkgutil, importlib\n"
         "import repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "walked = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                                                'repro_torch.')]\n"
+        "for name in walked:\n"
+        "    importlib.import_module(name)\n"
+        f"missing = set({SERVING_MODULES!r}) - set(walked)\n"
+        "assert not missing, missing\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -144,3 +152,16 @@ def test_port_imports_no_jax_and_no_reference():
                          env=env, cwd=REPO, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES + ("chip_smoke",))
+def test_serving_sources_import_no_jax_and_no_reference(module):
+    """No import of jax or ``repro`` anywhere in the source, function-level
+    imports included (the subprocess check sees module-level ones)."""
+    rel = module.replace(".", os.sep) + ".py"
+    path = os.path.join(REPO, rel if module == "chip_smoke" else os.path.join("src", rel))
+    with open(path) as f:
+        lines = [ln.strip() for ln in f]
+    bad = [ln for ln in lines if ln.startswith(("import ", "from "))
+           and ln.split()[1].split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
