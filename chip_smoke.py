@@ -15,9 +15,17 @@ tenant0's delta into the base weights), one mixed-tenant decode batch of
 the continuous-batching engine (``serve.ContinuousEngine``: a mixed
 12-request stream, each tenant's requests alone, ``Engine.generate`` per
 request, and the chunked-prefill engine on the same stream against B=1
-chunked decode), the quickstart (``launch/quickstart.py``: compress, serve separately and
+chunked decode), the codec family (``[codecs]``: a DeltaDQ/BitDelta
+fleet in one engine, two codec groups, against each tenant alone; on a
+depth-cut copy a LowRank tenant and ``compress(codec="auto")``), the
+tenant lifecycle (``[lifecycle]``: a tenant table and a
+``DeltaRegistry`` registering, rolling out, retiring, evicting and
+promoting tenants mid-traffic, against engines built up front), the
+quickstart (``launch/quickstart.py``: compress, serve separately and
 merged) and the kernels demo (``launch/kernels_demo.py``: the four
-kernels' entry points). It checks the outputs, that each path launched
+kernels' entry points). The correction kernels are also held to their
+plain versions on the codec packings (BitDelta and LowRank lowerings,
+keep = h_g = 128). It checks the outputs, that each path launched
 its kernels, and prints one JSON line of kernel measurements, then the
 card's name and power limit, then a final JSON status line. Any failed
 check raises: the script exits non-zero and prints no status line. It
@@ -26,6 +34,7 @@ needs CUDA, and the checkout's ``src/`` beside it. Details go to
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -96,6 +105,20 @@ LIBRARY_STACK_MAX_BYTES = 4e9
 # buckets 64 and 128) from a seeded numpy generator
 ENGINE_SLOTS, ENGINE_MAX_SEQ, ENGINE_REQUESTS, ENGINE_NEW = 8, 256, 12, 16
 ENGINE_GAP, ENGINE_TICK, ENGINE_SEED, ENGINE_CHUNK = 0.002, 1e-3, 15, 16
+# the codec slice: BitDelta (2-bit codes) and LowRank (f32 values)
+# lowerings, keep = h_g = 128, held to the plain versions at these T and
+# timed at these sites and T
+CODEC_T = (1, 8, 16, 64, 128)
+CODEC_TIME_SITES = ("wi", "mlp_wo")
+CODEC_TIME_T = (8, 128)
+# the LowRank tenant and compress(codec="auto") run on a copy of the model
+# cut to 1 layer at full width: LowRank's f32 runtime values are 32.4 GB a
+# tenant at full depth, beyond one card beside the base, and its factors
+# come from numpy's SVD on the host, which took 116.7 s for one layer's 7
+# matrices (H100 80GB HBM3 host, 700.00 W card; PERF.md) — more than the
+# script can spend on a second layer. [codecs] logs each leaf's host time
+LOWRANK_LAYERS = 1
+LIFECYCLE_CAPACITY = 4
 DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
 REPLACED_NOTE = ("the kernel this one replaced is gone from this checkout; it is timed "
                  "by the parent commit's chip_smoke.py in the same chip call (PERF.md)")
@@ -208,18 +231,19 @@ def _rand_packed(torch, dropout, h_in, h_out, k_bits, gen):
         generator=gen)
 
 
-def _plain_segments(torch, fb, xs, stack, seg_rows, seg_offsets):
+def _plain_segments(torch, fb, xs, stack, seg_rows, seg_offsets, gather_max_t=None):
     """The segments kernel's plain version; per-segment gather/dense
     formulation past decode sizes, where the per-row gather would need
-    tens of GB."""
+    tens of GB (``gather_max_t`` as in ``fb.correction``)."""
     if xs.shape[0] <= 8:
         return fb.segment_correction(xs, stack, seg_rows, seg_offsets)
     y = torch.zeros((xs.shape[0], stack.h_out), device=xs.device)
     offs = seg_offsets.tolist()
     for s, t in enumerate(seg_rows.tolist()):
         if offs[s + 1] > offs[s]:
-            y[offs[s]:offs[s + 1]] = fb.correction(xs[offs[s]:offs[s + 1]],
-                                                   stack.index(t))
+            y[offs[s]:offs[s + 1]] = fb.correction(
+                xs[offs[s]:offs[s + 1]], stack.index(t),
+                **({} if gather_max_t is None else {"gather_max_t": gather_max_t}))
     return y
 
 
@@ -363,6 +387,14 @@ def phase_parity(torch, report: dict) -> dict:
                 sel = sorted_rows == t
                 if not torch.equal(ys[sel], per[sel]):
                     fail(f"segments rows != delta_spmm rows ({site} k={k} tenant {t})")
+            # the engine's layout leaves row 0's segment out: those rows
+            # come back zero-filled, the others with the same bits
+            seg0 = tenant_segments(rows, skip_zero_row=True).to(DEVICE)
+            y0 = ops.delta_spmm_segments(xs, stack, seg0.seg_rows, seg0.seg_offsets)
+            z = sorted_rows == 0
+            if not z.any() or not torch.equal(y0[~z], ys[~z]) or \
+                    not torch.equal(y0[z], torch.zeros_like(y0[z])):
+                fail(f"segments without row 0's segment ({site} k={k}): rows differ")
             # one prompt chunk of the chunked engine (one segment of
             # ENGINE_CHUNK rows): within KERNEL_TOL of the plain version and
             # the bits of delta_spmm on that tenant's delta
@@ -438,7 +470,8 @@ def _ms(v) -> str:
 
 
 def _log_time(t: dict, extra: str = "", tag: str = "time") -> None:
-    log(f"[{tag}] {t['kernel']:20s} {t['site']:6s} T={t['T']:3d}"
+    codec = "" if t.get("codec", "deltadq") == "deltadq" else f" [{t['codec']}]"
+    log(f"[{tag}] {t['kernel']:20s} {t['site']:6s} T={t['T']:3d}{codec}"
         f"{'' if 'layout' not in t else ' ' + t['layout']}: kernel {t['ms']:.4f} ms, "
         f"plain {_ms(t['plain_ms'])} ms, library {_ms(t['library_ms'])} ms, "
         f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){extra}")
@@ -457,8 +490,12 @@ def _time_spmm(torch, ops, fb, ring, dense, gen, site, T, route, full=True) -> d
         lib = time_ms(torch, [lambda w=w: torch.matmul(x, w) for w in dense])
     b_ms, b_by = bound_ms(T * h_in * 4, packed_bytes(ring[0]), T * h_out * 4,
                           2.0 * T * ring[0].nnz)
+    from repro_torch.kernels import delta_spmm as kern
+    route_tb = ops.spmm_row_tile(T, ring[0])
     t = {"kernel": "delta_spmm", "site": site, "h_in": h_in, "h_out": h_out, "T": T,
-         "route": "prefill" if T in PREFILL_T else "decode", "ms": ms, "plain_ms": plain,
+         "codec": ring[0].codec, "tb": route_tb,
+         "route": "decode" if route_tb in kern.ROW_TILES else "prefill", "ms": ms,
+         "plain_ms": plain,
          "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
     extra = ""
     if route is not None:    # the other route, from the [route] rounds
@@ -518,7 +555,7 @@ def _time_segments(torch, ops, fb, ring, gen, site, layout, T, full=True) -> dic
     b_ms, b_by = bound_ms(T * h_in * 4, n_deltas * packed_bytes(ring[0]), T * h_out * 4,
                           2.0 * T * ring[0].nnz)
     t = {"kernel": "delta_spmm_segments", "layout": layout, "site": site, "h_in": h_in,
-         "h_out": h_out, "T": T, "ms": ms, "plain_ms": plain, "library_ms": lib,
+         "h_out": h_out, "T": T, "codec": ring[0].codec, "ms": ms, "plain_ms": plain, "library_ms": lib,
          "bound_ms": b_ms, "bound_by": b_by}
     _log_time(t, tag="time" if full else "kernel-times")
     return t
@@ -977,7 +1014,6 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
     much of the difference that rounding is."""
     from repro_torch.models import lm
     from repro_torch.serve import ContinuousEngine, Engine, VirtualClock
-    from repro_torch.utils import iter_leaves
 
     cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
     sites = 7 * cfg.n_layers
@@ -996,8 +1032,7 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
     mixed = _engine_run(torch, kern, ce, stream, everyone, "mixed, whole-prompt prefill")
     mem = {"before_gb": mem0 / 1e9, "engine_gb": (torch.cuda.memory_allocated() - mem0) / 1e9,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "stacked_gb": sum(d.nbytes() for _, d in iter_leaves(ce._stacked)
-                             if d is not None) / 1e9,
+           "stacked_gb": _groups_gb(ce)[0],
            "kv_gb": sum(t.numel() * t.element_size() for c in ce.kv.cache
                         for t in c.values()) / 1e9}
     log(f"[engine] device memory: {mem['before_gb']:.2f} GB allocated before the engine "
@@ -1160,6 +1195,475 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the codec slice
+# ---------------------------------------------------------------------------
+def _groups_gb(ce) -> list:
+    """GB of each codec group's tenant stack (zero row included)."""
+    from repro_torch.utils import iter_leaves
+    return [sum(d.nbytes() for _, d in iter_leaves(g.stacked) if d is not None) / 1e9
+            for g in ce._groups]
+
+
+def _codec_packing(torch, codec: str, h_in: int, h_out: int, gen):
+    """The runtime lowering of one [h_in, h_out] codec leaf (keep = h_g =
+    128 at every full-width site): BitDelta compressed from a random
+    delta on the card; LowRank lowered from a leaf of random 4-bit core
+    codes and rank-8 factors (its compression's host SVD runs in
+    ``[codecs]``; the kernels see the lowering only)."""
+    from repro_torch.core import codecs, quant
+    c = codecs.get_codec(codec)
+    if codec == "bitdelta":
+        delta = torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02
+        return c.runtime_packed(c.compress_leaf(torch.zeros_like(delta), delta,
+                                                codecs.BitDeltaSpec()))
+    q = torch.randint(0, 16, (h_in, h_out), generator=gen, device=DEVICE)
+    leaf = codecs.LowRankLeaf(
+        codes=quant.pack_bits(q, 4, axis=0),
+        scale=torch.tensor(0.004, device=DEVICE),
+        zero=torch.tensor(8, dtype=torch.int32, device=DEVICE),
+        u=torch.randn((h_in, 8), generator=gen, device=DEVICE) * 0.01,
+        v=torch.randn((8, h_out), generator=gen, device=DEVICE) * 0.01,
+        h_in=h_in, h_out=h_out, k_bits=4, rank=8)
+    return c.runtime_packed(leaf)
+
+
+def phase_codec_parity(torch, report: dict) -> dict:
+    """Both correction kernels on the codec packings at every full-width
+    site: delta_spmm and a two-group segments layout (rows of the other
+    group mapped to this group's zero row) against their plain versions
+    at KERNEL_TOL; a row's bits equal under every decode tile and in its
+    segment; the zero row exactly 0.0; the 128-row prefill tile does not
+    fit keep = 128, so every T takes the decode route; no call reaches
+    the out-of-envelope branch."""
+    import numpy as np
+    from repro_torch.core.apply import stack_tenant_deltas, zero_delta_like
+    from repro_torch.kernels import delta_spmm as kern
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import tenant_segments
+    from repro_torch.serve.trace import attribution
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4321)
+    pre = kern.PREFILL_TILES[0]
+    if kern.prefill_fits(pre, 128, 128):
+        fail(f"prefill_fits({pre}, 128, 128) is true; the codec rows expect the decode route")
+    worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0}
+    rows_out = []
+    with attribution() as notes:
+        for site, (h_in, h_out) in SITES.items():
+            for codec in ("bitdelta", "lowrank"):
+                d = _codec_packing(torch, codec, h_in, h_out, gen)
+                if ops.envelope_miss(d) is not None or (d.h_g, d.keep, d.alpha, d.m) != \
+                        (128, 128, 1.0, 1):
+                    fail(f"{codec} {site}: packing h_g={d.h_g} keep={d.keep} outside "
+                         f"the kernels' envelope ({ops.envelope_miss(d)})")
+                stack = stack_tenant_deltas([zero_delta_like({"w": d}), {"w": d}])["w"]
+                for T in CODEC_T:
+                    where = f"{codec} {site} T={T}"
+                    if ops.spmm_row_tile(T, d) not in kern.ROW_TILES:
+                        fail(f"{where}: delta_spmm would take the prefill tile")
+                    x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+                    y = ops.delta_spmm(x, d)
+                    # keep = h_g: the gather formulation above 8 rows would
+                    # hold T x h_in x h_out floats; the dense one is exact f32
+                    want = fb.correction(x, d, gather_max_t=8)
+                    torch.cuda.synchronize()
+                    err = (y - want).abs().max().item()
+                    worst["delta_spmm"] = max(worst["delta_spmm"], err)
+                    if not torch.allclose(y, want, **KERNEL_TOL):
+                        fail(f"delta_spmm {where}: max err {err:.3e}")
+                    for tb in kern.ROW_TILES:
+                        if not torch.equal(kern.delta_spmm_cuda(x, d, tb=tb), y):
+                            fail(f"delta_spmm {where}: rows differ at tb={tb}")
+                    rows = (np.arange(T) % 3 == 1).astype(np.int32)
+                    seg = tenant_segments(rows).to(DEVICE)
+                    xs = x.index_select(0, seg.order)
+                    ys = ops.delta_spmm_segments(xs, stack, seg.seg_rows, seg.seg_offsets)
+                    wants = _plain_segments(torch, fb, xs, stack, seg.seg_rows,
+                                            seg.seg_offsets, gather_max_t=8)
+                    torch.cuda.synchronize()
+                    err_s = (ys - wants).abs().max().item()
+                    worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], err_s)
+                    if not torch.allclose(ys, wants, **KERNEL_TOL):
+                        fail(f"delta_spmm_segments {where}: max err {err_s:.3e}")
+                    own = torch.as_tensor(rows, device=DEVICE)[seg.order] == 1
+                    if not torch.equal(ys[own], y.index_select(0, seg.order)[own]):
+                        fail(f"segments {where}: rows != delta_spmm rows")
+                    if not torch.equal(ys[~own], torch.zeros_like(ys[~own])):
+                        fail(f"segments {where}: the zero row is not exactly 0.0")
+                    rows_out.append({"codec": codec, "site": site, "T": T,
+                                     "spmm_err": err, "segments_err": err_s})
+                del d, stack
+    edge = [n for n in notes if n.get("formulation") == "plain-out-of-envelope"]
+    if edge:
+        fail(f"codec shapes reached the out-of-envelope branch: {edge}")
+    log(f"[parity] codec packings (BitDelta k=2, LowRank f32; h_g = keep = 128): "
+        f"{len(rows_out)} cases x 2 kernels within atol/rtol 1e-4 (worst |err| spmm "
+        f"{worst['delta_spmm']:.3e}, segments {worst['delta_spmm_segments']:.3e}) at "
+        f"T {list(CODEC_T)}, all sites; rows equal under tiles {list(kern.ROW_TILES)} "
+        f"and in their segment, zero row exactly 0.0; prefill_fits({pre}, 128, 128) "
+        f"false; no out-of-envelope note")
+    report["codec_parity"] = rows_out
+    return worst
+
+
+def _time_codecs(torch, report: dict) -> list:
+    """delta_spmm (decode route: the 128-row tile does not fit keep 128)
+    and the segments kernel's mixed decode layout on the codec packings,
+    on rings of 8 distinct deltas, with bounds and library times."""
+    from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(99)
+    times = []
+    for site in CODEC_TIME_SITES:
+        h_in, h_out = SITES[site]
+        for codec in ("bitdelta", "lowrank"):
+            ring = [_codec_packing(torch, codec, h_in, h_out, gen) for _ in range(8)]
+            dense = [reconstruct_dense(d) for d in ring]
+            for T in CODEC_TIME_T:
+                t = _time_spmm(torch, ops, fb, ring, dense, gen, site, T, None)
+                times.append(t)
+                if T >= PREFILL_T[0]:
+                    log(f"[route] delta_spmm {site:6s} T={T:3d} [{codec}]: decode tb="
+                        f"{t['tb']} {t['ms']:.4f} ms; the 128-row prefill tile does not "
+                        f"fit h_g = keep = 128")
+            del dense
+            times.append(_time_segments(torch, ops, fb, ring, gen, site, "mixed", 8))
+            del ring
+            torch.cuda.empty_cache()
+    report["codec_times"] = times
+    return times
+
+
+def _alone_tokens(torch, kern, cfg, base, stream, name, deltas, chunked, tag) -> dict:
+    """The requests of ``name`` served by an engine holding only that
+    tenant (none for the base), at their arrivals."""
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+    ce = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                          clock=VirtualClock(tick=ENGINE_TICK), chunked_prefill=chunked,
+                          chunk_size=ENGINE_CHUNK)
+    if name is not None:
+        ce.register_tenant(name, deltas)
+    idx = [i for i, (t, _, _) in enumerate(stream) if t == name]
+    run = _engine_run(torch, kern, ce, stream, idx, tag)
+    del ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, tag: str) -> dict:
+    """The fleet in one engine (whole-prompt, then chunked) against each
+    tenant alone, token for token; launch counts of the mixed runs."""
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+    sites = 7 * cfg.n_layers
+    n_chunks = sum(-(-len(p) // ENGINE_CHUNK) for _, p, _ in stream)
+    out = {}
+    for chunked in (False, True):
+        mode = "chunked" if chunked else "whole"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        ce = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                              clock=VirtualClock(tick=ENGINE_TICK), chunked_prefill=chunked,
+                              chunk_size=ENGINE_CHUNK)
+        for name, d in fleet:
+            ce.register_tenant(name, d)
+        groups = [{"codecs": g.codecs, "tenants": g.names, "gb": gb}
+                  for g, gb in zip(ce._groups, _groups_gb(ce))]
+        run = _engine_run(torch, kern, ce, stream, list(range(len(stream))),
+                          f"{tag} mixed, {mode}")
+        G = len(ce._groups)
+        run["memory"] = {"before_gb": mem0 / 1e9,
+                         "engine_gb": (torch.cuda.memory_allocated() - mem0) / 1e9,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "groups": groups}
+        steps = run["decode_steps"]
+        want = {"delta_spmm": 0 if chunked else sites * len(stream),
+                "delta_spmm_segments": sites * G * (steps + (n_chunks if chunked else 0)),
+                "fused_base_delta": 0, "dequant": 0}
+        log(f"[codecs] {tag} {mode}: {G} codec groups "
+            f"{[(g['codecs'], g['tenants'], round(g['gb'], 3)) for g in groups]} GB; "
+            f"engine {run['memory']['engine_gb']:.2f} GB allocated, peak "
+            f"{run['memory']['peak_gb']:.2f} GB; launches {run['launches']} (expected "
+            f"{want}: segments {sites} sites x {G} groups x "
+            f"{steps} steps{f' + {n_chunks} chunks' if chunked else ''})")
+        if run["launches"] != want:
+            fail(f"[codecs] {tag} {mode}: launches {run['launches']}, expected {want}")
+        edge = [p for p in run["report"]["decode_paths"] or {} if "out-of-envelope" in p]
+        if edge:
+            fail(f"[codecs] {tag} {mode}: steps took the out-of-envelope branch: {edge}")
+        out[mode] = run
+        del ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mode in ("whole", "chunked"):
+        bad = []
+        for name, d in [(None, None)] + list(fleet):
+            alone = _alone_tokens(torch, kern, cfg, base, stream, name, d, mode == "chunked",
+                                  f"{tag} alone {name or 'base'}, {mode}")
+            for i, toks in alone["tokens"].items():
+                j = _first_mismatch(toks, out[mode]["tokens"][i])
+                if j is not None:
+                    bad.append({"request": i, "tenant": name, "step": j})
+        log(f"[codecs] {tag} {mode}: mixed == alone, token for token: "
+            f"{len(stream) - len(bad)}/{len(stream)} requests"
+            + (f"; differ: {bad}" if bad else ""))
+        if bad:
+            fail(f"[codecs] {tag} {mode}: mixed-codec serving differs from alone: {bad}")
+        out[mode]["alone_mismatches"] = bad
+    return out
+
+
+def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
+    """The reference's ``--codec mixed`` fleet at full width and depth
+    (tenant0 and tenant2 DeltaDQ 128x, tenant1 BitDelta; the [engine]
+    stream), then a LowRank tenant beside a DeltaDQ one and
+    ``compress(codec="auto", budget_bits=2.0)`` on a copy cut to
+    LOWRANK_LAYERS layers."""
+    from repro_torch.core.codecs import BitDeltaSpec, LowRankSpec, runtime_delta_tree
+    from repro_torch.core.compress import compress
+    from repro_torch.launch.serve import RATIO_SPECS, synth_ft, synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_bytes
+
+    cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
+    stream = _engine_stream(cfg)
+    t0 = time.perf_counter()
+    _, bd, bd_rep = synth_tenants(cfg, base, 1, [BitDeltaSpec()], seed=1)[0]   # noise 8
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bd_rt = runtime_delta_tree(bd)
+    torch.cuda.synchronize()
+    lower_s = time.perf_counter() - t0
+    log(f"[codecs] tenant1 (BitDelta): compressed in {compress_s:.1f} s, "
+        f"{tree_bytes(bd) / 1e9:.3f} GB packed; lowered in {lower_s:.1f} s to "
+        f"{tree_bytes(bd_rt) / 1e9:.3f} GB of runtime arrays (h_g = keep = 128, "
+        f"2-bit codes); {bd_rep.summary()}")
+    fleet = [("tenant0", store.get("tenant0").deltas), ("tenant1", bd_rt),
+             ("tenant2", store.get("tenant2").deltas)]
+    full = _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, "full depth")
+    del fleet, bd, bd_rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the depth cut that memory and the host SVD force
+    depth = LOWRANK_LAYERS
+    ccfg = dataclasses.replace(cfg, n_layers=depth, layer_kinds=cfg.layer_kinds[:depth],
+                               layer_windows=cfg.layer_windows[:depth])
+    cbase = lm.init_params(ccfg, 0, device=DEVICE)
+    leaf_s, t_leaf = {}, [time.perf_counter()]
+
+    def leaf_done(path, codec):
+        now = time.perf_counter()
+        if codec is not None:
+            leaf_s[path] = round(now - t_leaf[0], 2)
+        t_leaf[0] = now
+
+    lr_ft = synth_ft(cbase, 7)
+    torch.cuda.synchronize()
+    t0 = t_leaf[0] = time.perf_counter()
+    lr, lr_rep = compress(cbase, lr_ft, LowRankSpec(), progress=leaf_done)
+    lr_s = time.perf_counter() - t0
+    _, dq, _ = synth_tenants(ccfg, cbase, 1, [RATIO_SPECS[128]], seed=1)[0]        # noise 8
+    lr_rt = runtime_delta_tree(lr)
+    log(f"[codecs] LowRank host time a leaf (one numpy SVD each, nothing else timed "
+        f"meanwhile): {leaf_s}")
+    log(f"[codecs] LowRank tenant ({depth} layers): compressed in {lr_s:.1f} s, "
+        f"{tree_bytes(lr) / 1e9:.3f} GB packed, {tree_bytes(lr_rt) / 1e9:.3f} GB runtime "
+        f"(f32 values; {tree_bytes(lr_rt) / 1e9 * cfg.n_layers / depth:.1f} GB at "
+        f"{cfg.n_layers} layers); {lr_rep.summary()}")
+    cstream = [(t if t != "tenant2" else None, p, a_) for t, p, a_ in stream]
+    cut = _mixed_vs_alone(torch, kern, ccfg, cbase, [("tenant0", lr_rt), ("tenant1", dq)],
+                          cstream, f"{depth}-layer")
+    del lr, lr_rt, lr_ft, dq
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft = synth_ft(cbase, 9)
+    t0 = time.perf_counter()
+    _, auto = compress(cbase, ft, codec="auto", budget_bits=2.0)
+    auto_s = time.perf_counter() - t0
+    picks = {p: (c["codec"], round(c["bits_per_element"], 4), round(c["rel_error"], 4))
+             for p, c in auto.auto_choices.items()}
+    log(f"[codecs] compress(codec='auto', budget_bits=2.0), {depth} layers: {auto_s:.1f} s, "
+        f"budget met {auto.budget_met}; per leaf (codec, bits/element, rel. error): {picks}")
+    if not auto.budget_met or auto.n_compressed != 7:
+        fail(f"[codecs] auto: budget met {auto.budget_met}, {auto.n_compressed} leaves")
+    del ft, cbase
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def summary(run):
+        return {k: run[k] for k in ("wall_s", "decode_steps", "ms_per_step", "step_s_total",
+                                    "tokens_per_s", "launches", "memory", "alone_mismatches")}
+
+    report["codecs"] = {
+        "bitdelta_compress_s": compress_s, "bitdelta_lower_s": lower_s,
+        "full_depth": {m: summary(r) for m, r in full.items()},
+        "lowrank_depth": depth, "lowrank_compress_s": lr_s, "lowrank_leaf_s": leaf_s,
+        "lowrank_cut": {m: summary(r) for m, r in cut.items()},
+        "auto": {"wall_s": auto_s, "budget_met": auto.budget_met, "picks": picks}}
+    return full["whole"]["launches"]
+
+
+def phase_lifecycle(torch, kern, ctx: dict, report: dict) -> dict:
+    """The online lifecycle at full width and depth: a tenant table of
+    LIFECYCLE_CAPACITY rows and a DeltaRegistry. tenant0 serves; tenant1
+    arrives as a fine-tuned model (compressed on the card) and tenant2 as
+    deltas, both registered by ``pump`` between steps; tenant0 rolls out
+    to v2 while v1 requests are in flight; tenant1 retires; tenant2 is
+    evicted to the warm tier and promoted back by a request. Every
+    request must equal an engine built up front with the tenant version
+    that served it; no re-stack and no decode-step jit_trace after
+    warm-up. Then ms per row write against one dynamic re-stack."""
+    from repro_torch.core.compress import compress
+    from repro_torch.launch.serve import RATIO_SPECS, synth_ft
+    from repro_torch.serve import ContinuousEngine, DeltaRegistry, VirtualClock
+
+    cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
+    spec = RATIO_SPECS[128]
+    stream = _engine_stream(cfg)
+    by = {n: [i for i, (t, _, _) in enumerate(stream) if t == n]
+          for n in (None, "tenant0", "tenant1", "tenant2")}
+    served = []                                 # (stream index, version name, handle)
+
+    def submit(reg, name, i, version):
+        served.append((i, version, reg.submit(name, stream[i][1],
+                                              max_new_tokens=ENGINE_NEW)))
+
+    t_v2 = time.perf_counter()
+    v2 = compress(base, synth_ft(base, 777), spec)[0]       # tenant0's next version
+    t_v2 = time.perf_counter() - t_v2
+    gc.collect()
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                           tenant_capacity=LIFECYCLE_CAPACITY,
+                           clock=VirtualClock(tick=ENGINE_TICK))
+    reg = DeltaRegistry(eng, base, spec=spec, codec=None)
+    reg.ingest("tenant0", deltas=store.get("tenant0").deltas)
+    reg.pump()
+    for i in by["tenant0"][:2] + by[None][:1]:
+        submit(reg, "tenant0" if i in by["tenant0"] else None, i,
+               "tenant0" if i in by["tenant0"] else None)
+    for _ in range(2):
+        eng.step(eng._now())                    # warm-up: decode in flight
+    traces0, restacks0 = eng.decode_traces, eng.restacks
+    ft1 = synth_ft(base, 8)                     # tenant1 as a fine-tuned model
+    rec1 = reg.ingest("tenant1", ft1)
+    del ft1
+    reg.pump()
+    for i in by["tenant1"]:
+        submit(reg, "tenant1", i, "tenant1")
+    eng.step(eng._now())
+    reg.ingest("tenant2", deltas=store.get("tenant2").deltas)
+    reg.pump()
+    for i in by["tenant2"][:2]:
+        submit(reg, "tenant2", i, "tenant2")
+    eng.step(eng._now())
+    # rollout while tenant0 v1 still decodes
+    if not eng._tenant_in_flight("tenant0"):
+        fail("[lifecycle] tenant0 v1 is not in flight at the rollout")
+    reg.ingest("tenant0", deltas=v2)
+    reg.pump()
+    retiring = sorted(eng._retiring)
+    for i in by["tenant0"][2:] + by[None][1:]:
+        submit(reg, "tenant0" if i in by["tenant0"] else None, i,
+               "tenant0v2" if i in by["tenant0"] else None)
+    eng.run()
+    eng.unregister_tenant("tenant1")
+    reg.evict("tenant2")
+    evicted = reg._records["tenant2"].state
+    submit(reg, "tenant2", by["tenant2"][2], "tenant2")     # promotes it back
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    retraces, restacks = eng.decode_traces - traces0, eng.restacks - restacks0
+    rep = eng.metrics.report()
+    log(f"[lifecycle] {len(served)} requests, {rep['total_tokens']} tokens in {wall:.2f} s "
+        f"wall; tenant1 ingested as a model, compressed on the card in "
+        f"{rec1.compress_s:.1f} s; ms per registration "
+        f"{ {n: round(1e3 * r.register_s, 2) for n, r in reg._records.items()} }; rollout "
+        f"left rows {retiring} draining; tenant2 evicted to {evicted} and promoted; "
+        f"events {rep['tenant_lifecycle']}; launches {launches}")
+    log(f"[lifecycle] after warm-up: {retraces} decode-step jit_trace events, {restacks} "
+        f"re-stacks; table rows free {eng._table.n_free}/{LIFECYCLE_CAPACITY}")
+    if retraces or restacks:
+        fail(f"[lifecycle] {retraces} jit_trace events and {restacks} re-stacks after warm-up")
+    if any(r.state == "failed" for r in reg._records.values()):
+        fail(f"[lifecycle] a registry record failed: {reg.stats()}")
+    if rep["tenant_lifecycle"] != {"tenant_evict": 1, "tenant_promote": 1,
+                                   "tenant_ready": 4, "tenant_register": 4,
+                                   "tenant_retire": 2, "tenant_rollout": 1}:
+        fail(f"[lifecycle] events {rep['tenant_lifecycle']}")
+    undone = [h.rid for _, _, h in served if not h.done or len(h.tokens) != ENGINE_NEW]
+    if undone:
+        fail(f"[lifecycle] requests {undone} unfinished")
+    tokens = {(i, v): h.output() for i, v, h in served}
+    register_ms = {n: 1e3 * r.register_s for n, r in reg._records.items()}
+    t1_host = reg._records["tenant1"].host      # the version tenant1 served with
+
+    # row write against one dynamic re-stack of the same fleet
+    fleet = {n: eng.store.get(n).deltas for n in eng.store.names()}
+    row = eng._table.alloc()
+    write_ms = time_ms(torch, [lambda: eng._table.write(row, fleet["tenant0"])],
+                       iters=5, reps=3, eager=True)
+    eng._table.free(row)
+    reg.close()
+    del eng, reg
+    gc.collect()
+    torch.cuda.empty_cache()
+    dyn = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ)
+    for n, d in fleet.items():
+        dyn.store.register(n, d)
+
+    def restack():
+        dyn.store.version += 1
+        dyn._refresh_stacked()
+
+    restack_ms = time_ms(torch, [restack], iters=3, reps=3, eager=True)
+    del dyn
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lifecycle] one table row write (a tenant: 7 layer-stacked leaves; {len(fleet)}-tenant fleet): "
+        f"{write_ms:.2f} ms; one dynamic re-stack of the same fleet: {restack_ms:.2f} ms")
+
+    # engines built up front with the versions that served each request
+    up = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                          tenant_capacity=LIFECYCLE_CAPACITY, clock=VirtualClock(tick=ENGINE_TICK))
+    for n, d in (("tenant0", store.get("tenant0").deltas), ("tenant0v2", v2),
+                 ("tenant1", t1_host), ("tenant2", store.get("tenant2").deltas)):
+        up.register_tenant(n, d)
+    ref = [((i, v), up.submit(v, stream[i][1], max_new_tokens=ENGINE_NEW)) for i, v, _ in served]
+    up.run()
+    bad = [k for k, h in ref if _first_mismatch(h.output(), tokens[k]) is not None]
+    log(f"[lifecycle] == engines built up front with the serving versions: "
+        f"{len(ref) - len(bad)}/{len(ref)} requests" + (f"; differ: {bad}" if bad else ""))
+    if bad:
+        fail(f"[lifecycle] hot lifecycle changed tokens: {bad}")
+    del up, v2, t1_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["lifecycle"] = {"wall_s": wall, "requests": len(served),
+                           "tokens": rep["total_tokens"], "events": rep["tenant_lifecycle"],
+                           "launches": launches, "decode_traces_after_warmup": retraces,
+                           "restacks_after_warmup": restacks,
+                           "tenant1_compress_s": rec1.compress_s, "v2_compress_s": t_v2,
+                           "register_ms": register_ms,
+                           "row_write_ms": write_ms, "restack_ms": restack_ms,
+                           "identity": [len(ref) - len(bad), len(ref)]}
+    return launches
+
+
 def phase_quickstart(torch, kern, report: dict) -> dict:
     """``launch/quickstart.py``'s function at the full width: compress a
     perturbed copy at 128x, serve it separately and merged."""
@@ -1265,6 +1769,10 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
             extra["generate_decode"] = {
                 "T": 2, "launches": report["main"]["decode_route_launches"],
                 **{k: d2[k] for k in keys}}
+        if name in ("delta_spmm", "delta_spmm_segments"):   # the codec packings
+            extra["codec_shapes"] = [
+                {k: c[k] for k in ("codec", "site", "T", "layout", "tb", *keys) if k in c}
+                for c in report["codec_times"] if c["kernel"] == name]
         if name == "delta_spmm_segments":   # the chunked engine's prompt chunks
             c = by[(name, "wi", ENGINE_CHUNK, "chunk")]
             extra["chunk_layout"] = {
@@ -1324,28 +1832,51 @@ def main(argv: list) -> int:
         return 0
 
     t_start = time.perf_counter()
-    report: dict = {}
+    report: dict = {"phase_s": {}}
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        report["phase_s"][name] = now - t_phase[0]
+        log(f"[phase] {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     try:
         with torch.inference_mode():
             smi = phase_device(torch)
             report["device"] = {"nvidia_smi": smi, "name": torch.cuda.get_device_name(0)}
             report["build_s"] = phase_build(kern)
+            phase_done("device and build")
             worst = phase_parity(torch, report)
+            phase_done("parity and times")
+            codec_worst = phase_codec_parity(torch, report)
+            _time_codecs(torch, report)
+            phase_done("codec parity and times")
             ctx = phase_main_path(torch, kern, report)
             mixed_launches = phase_mixed_decode(torch, kern, ctx, report)
+            phase_done("main path and mixed step")
             engine_launches = phase_engine(torch, kern, ctx, report)
+            phase_done("engine")
+            codecs_launches = phase_codecs(torch, kern, ctx, report)
+            phase_done("codecs")
+            lifecycle_launches = phase_lifecycle(torch, kern, ctx, report)
+            phase_done("lifecycle")
             main_launches, merge_launches = ctx["launches"], ctx["merge_launches"]
             ctx.clear()          # frees the base, the engine and the tenants
             torch.cuda.empty_cache()
             quickstart_launches = phase_quickstart(torch, kern, report)
             demo_launches = phase_kernels_demo(torch, kern, report)
+            phase_done("quickstart and demo")
     finally:
         _write_report(report, t_start)
 
+    for k, v in codec_worst.items():
+        worst[k] = max(worst[k], v)
     entries = kernel_entries(report, worst, {
         "delta_spmm": engine_launches, "delta_spmm_segments": engine_launches,
         "fused_base_delta": demo_launches, "dequant": merge_launches}, {
-        "engine": engine_launches, "generate": main_launches,
+        "engine": engine_launches, "codecs": codecs_launches,
+        "lifecycle": lifecycle_launches, "generate": main_launches,
         "mixed_step": mixed_launches, "merge": merge_launches,
         "quickstart": quickstart_launches, "demo": demo_launches})
     report["kernels"] = entries

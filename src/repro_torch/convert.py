@@ -1,6 +1,7 @@
-"""Carry weights and packed deltas across from numpy.
+"""Carry weights and codec leaves across from numpy.
 
-The JAX package's parameters and ``PackedDelta`` leaves reach the port as
+The JAX package's parameters and codec leaves (``PackedDelta``,
+``BitDeltaLeaf``, ``LowRankLeaf``) reach the port as
 numpy arrays (the conversion *from* JAX arrays lives with the tests: the
 port never imports jax). bf16 arrives as its raw uint16 bits, the way
 ``repro/checkpoint/ckpt.py:48-52`` stores it, with the dtype named in a
@@ -13,6 +14,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.codecs import BitDeltaLeaf, LowRankLeaf
 from repro_torch.core.pack import PackedDelta
 from repro_torch.utils import map_with_paths, resolve_device
 
@@ -55,3 +57,28 @@ def packed_delta_from_numpy(arrays: Mapping[str, np.ndarray], meta: Mapping[str,
         keep=int(meta["keep"]), alpha=float(meta["alpha"]),
         k_bits=None if meta["k_bits"] is None else int(meta["k_bits"]),
         m=int(meta["m"]), codec=str(meta.get("codec", "deltadq")))
+
+
+def bitdelta_leaf_from_numpy(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
+                             device=None) -> BitDeltaLeaf:
+    """One BitDeltaLeaf from its arrays (sign, scale) and meta (h_in, h_out)."""
+    dev = resolve_device(device)
+    return BitDeltaLeaf(
+        sign=tensor_from_numpy(arrays["sign"], device=dev),
+        scale=tensor_from_numpy(np.asarray(arrays["scale"], np.float32), device=dev),
+        h_in=int(meta["h_in"]), h_out=int(meta["h_out"]))
+
+
+def lowrank_leaf_from_numpy(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
+                            device=None) -> LowRankLeaf:
+    """One LowRankLeaf from its arrays (codes, scale, zero, u, v) and meta
+    (h_in, h_out, k_bits, rank)."""
+    dev = resolve_device(device)
+    return LowRankLeaf(
+        codes=tensor_from_numpy(arrays["codes"], device=dev),
+        scale=tensor_from_numpy(np.asarray(arrays["scale"], np.float32), device=dev),
+        zero=tensor_from_numpy(np.asarray(arrays["zero"], np.int32), device=dev),
+        u=tensor_from_numpy(np.asarray(arrays["u"], np.float32), device=dev),
+        v=tensor_from_numpy(np.asarray(arrays["v"], np.float32), device=dev),
+        h_in=int(meta["h_in"]), h_out=int(meta["h_out"]),
+        k_bits=int(meta["k_bits"]), rank=int(meta["rank"]))

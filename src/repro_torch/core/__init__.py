@@ -1,8 +1,10 @@
 """DeltaDQ core: the paper's contribution as PyTorch functions."""
 from repro_torch.core.apply import (
+    MultiSlotDelta,
     SlotDelta,
     TenantSegments,
     apply_linear,
+    combine_slot_deltas,
     delta_matmul,
     dget,
     dindex,
@@ -12,7 +14,26 @@ from repro_torch.core.apply import (
     wrap_slot_deltas,
     zero_delta_like,
 )
-from repro_torch.core.codecs import DeltaDQCodec, DeltaDQSpec, runtime_delta_tree
+from repro_torch.core.codecs import (
+    BitDeltaCodec,
+    BitDeltaLeaf,
+    BitDeltaSpec,
+    DeltaCodec,
+    DeltaDQCodec,
+    DeltaDQSpec,
+    LowRankCodec,
+    LowRankLeaf,
+    LowRankSpec,
+    codec_for_spec,
+    codec_names,
+    codec_of_leaf,
+    get_codec,
+    is_codec_leaf,
+    reconstruct_dense_any,
+    register_codec,
+    runtime_delta_tree,
+    runtime_packed_leaf,
+)
 from repro_torch.core.compress import (
     CompressionReport,
     compress,

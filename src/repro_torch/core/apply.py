@@ -15,7 +15,9 @@ Multi-tenant slot dispatch: a decode step whose batch rows belong to
 leading axis (:func:`stack_tenant_deltas`) and wraps each leaf in a
 :class:`SlotDelta` carrying the per-row tenant index and, for the default
 "segments" dispatch, the tenant-sorted :class:`TenantSegments` layout.
-``MultiSlotDelta`` (mixed codecs) is not ported yet.
+Tenants whose packings differ (codec, group size, quantization width)
+are stacked per compatible group, and :class:`MultiSlotDelta` sums the
+groups' corrections.
 """
 from __future__ import annotations
 
@@ -109,6 +111,40 @@ class SlotDelta:
                              d.zero.to(torch.int32)[s])
 
 
+@dataclass
+class MultiSlotDelta:
+    """Mixed-codec decode: one :class:`SlotDelta` part per codec group.
+
+    The engine cannot stack tenants whose runtime packings differ, so it
+    stacks each compatible *group* separately and routes every group's
+    rows through that group's own segment layout. Rows a group does not
+    own map to its row 0 — the zero delta — so the per-leaf correction is
+    the SUM of the parts' corrections: exactly one part contributes the
+    row's real correction and every other part an exact 0.0, keeping
+    mixed-codec decode token-identical to serving each tenant alone.
+    """
+    parts: tuple
+
+    def index(self, i) -> "MultiSlotDelta":
+        return MultiSlotDelta(tuple(p.index(i) for p in self.parts))
+
+
+def combine_slot_deltas(wrapped: list) -> Any:
+    """Merge per-group slot-wrapped trees (see ``wrap_slot_deltas``) into
+    one tree of :class:`MultiSlotDelta` leaves (identity for one group)."""
+    if len(wrapped) == 1:
+        return wrapped[0]
+
+    def merge(*nodes):
+        if isinstance(nodes[0], dict):
+            return {k: merge(*[n[k] for n in nodes]) for k in nodes[0]}
+        if nodes[0] is None:
+            return None
+        return MultiSlotDelta(tuple(nodes))
+
+    return merge(*wrapped)
+
+
 def _segment_dispatch(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
     """Unique-tenant correction: sort rows by tenant, decode each unique
     delta once, apply per segment, unsort. x [B, ..., h_in]."""
@@ -143,6 +179,14 @@ def slot_delta_matmul(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
 
 def delta_matmul(x: torch.Tensor, d) -> torch.Tensor:
     """x [..., h_in] @ dequant(delta) [h_in, h_out] -> [..., h_out]."""
+    if isinstance(d, MultiSlotDelta):
+        # mixed-codec groups: the per-group corrections summed in f32, in
+        # group order. Each row is owned by exactly one group; the others
+        # map it to their zero-delta row and contribute an exact 0.0
+        y = slot_delta_matmul(x, d.parts[0]).to(torch.float32)
+        for p in d.parts[1:]:
+            y = y + slot_delta_matmul(x, p).to(torch.float32)
+        return y.to(x.dtype)
     if isinstance(d, SlotDelta):
         return slot_delta_matmul(x, d)
     from repro_torch.kernels import ops
@@ -180,7 +224,7 @@ def dindex(deltas: Any, i) -> Any:
     """Slice every PackedDelta in a deltas subtree at stacked-layer index i."""
     if deltas is None:
         return None
-    if isinstance(deltas, (SlotDelta, PackedDelta)):
+    if isinstance(deltas, (SlotDelta, MultiSlotDelta, PackedDelta)):
         return deltas.index(i)
     if isinstance(deltas, dict):
         return {k: dindex(v, i) for k, v in deltas.items()}
@@ -265,8 +309,10 @@ def merge_delta(params: Any, deltas: Any) -> Any:
     """Materialize fine-tuned params = base + dense(delta). (Eval/reference.)
 
     Each matrix's dense delta comes from ``kernels.ops.dequant`` (the
-    dequant kernel on the card); a stacked leaf is merged one slice of
-    its leading axis at a time, so no stacked dense delta is ever held."""
+    dequant kernel on the card) for a PackedDelta, from its codec's
+    ``reconstruct_dense`` for the other codecs' leaves; a stacked leaf is
+    merged one slice of its leading axis at a time, so no stacked dense
+    delta is ever held."""
     if isinstance(params, dict):
         return {k: merge_delta(v, deltas.get(k) if isinstance(deltas, dict) else None)
                 for k, v in params.items()}
@@ -277,5 +323,10 @@ def merge_delta(params: Any, deltas: Any) -> Any:
         for i in range(params.shape[0]):
             out[i] = merge_delta(params[i], deltas.index(i))
         return out
-    from repro_torch.kernels import ops
-    return (params.to(torch.float32) + ops.dequant(deltas)).to(params.dtype)
+    if isinstance(deltas, PackedDelta):
+        from repro_torch.kernels import ops
+        dense = ops.dequant(deltas)
+    else:
+        from repro_torch.core.codecs import reconstruct_dense_any
+        dense = reconstruct_dense_any(deltas)
+    return (params.to(torch.float32) + dense).to(params.dtype)

@@ -1,26 +1,59 @@
-"""Delta codecs (port of ``repro/core/codecs.py``, DeltaDQ only so far).
+"""Pluggable delta codecs: one compression interface, many formats
+(port of ``repro/core/codecs.py``).
 
-A codec packages one delta-compression format: compress a (base, ft)
-weight pair into a leaf, account its storage bits, and lower the leaf to
-the :class:`~repro_torch.core.pack.PackedDelta` runtime layout every
-decode path consumes. DeltaDQ's leaf *is* the runtime layout, so its
-lowering is the identity. BitDelta and LowRank come with the
-mixed-codec serving slice.
+A :class:`DeltaCodec` packages what the rest of the port needs to know
+about one delta-compression format:
+
+* ``compress_leaf``     — (base, ft) weight pair -> codec leaf
+* ``reconstruct_dense`` — codec leaf -> f32 [..., h_in, h_out] delta
+* ``decode_values``     — per-row kept values of the *runtime* form
+* ``storage_bits``      — paper/honest storage accounting per leaf
+* ``runtime_packed``    — codec leaf -> :class:`PackedDelta`
+
+The last method is the serving contract: every codec lowers its leaf to
+the structured :class:`~repro_torch.core.pack.PackedDelta` runtime
+layout (dense-as-structured when the codec has no sparsity), tagged with
+the codec's name, so every decode path — the CUDA kernels included —
+serves any codec unchanged. The lowering is *bit-faithful*:
+``pack.reconstruct_dense(runtime_packed(leaf))`` equals
+``codec.reconstruct_dense(leaf)`` exactly, which is what extends the
+token-identity contract to mixed-codec serving.
+
+Registered codecs:
+
+* ``deltadq``  — the paper's group-wise dropout + separate quantization
+  (the registry default; :class:`DeltaDQSpec`).
+* ``bitdelta`` — 1-bit sign bitmap + per-tensor scale = mean |delta|
+  (arXiv 2402.10193; :class:`BitDeltaSpec`).
+* ``lowrank``  — int-quantized dense core + rank-r f32 residual factors
+  (:class:`LowRankSpec`); the factors come from numpy's SVD on the host,
+  as the reference's do, so both packages get the same factors.
+
+A leaf with leading stack dims (layers) is lowered and compressed one
+matrix at a time: the per-tensor scales are per matrix either way, and a
+full-width ``[32, 4096, 11008]`` leaf never needs its int32 temporaries
+at once. The storage layout (``to/from_storage_parts``) and the dry-run
+twins (``leaf_spec``/``leaf_axes``) are not ported.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Any, Optional
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
 from repro_torch.core.dropout import groupwise_dropout_pack
 from repro_torch.core.pack import PackedDelta
+from repro_torch.core import pack as pack_lib
 from repro_torch.utils import tree_map
 
 
+# ---------------------------------------------------------------------------
+# Specs (small frozen hyperparameter records; one per codec)
+# ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class DeltaDQSpec:
     """DeltaDQ hyperparameters (group-wise dropout + separate quant)."""
@@ -32,6 +65,24 @@ class DeltaDQSpec:
 
     def ratio(self) -> float:
         return quant.compression_ratio(self.alpha, self.k_bits, self.m)
+
+
+@dataclass(frozen=True)
+class BitDeltaSpec:
+    """BitDelta: sign bitmap + per-tensor scale = mean |delta|."""
+    seed: int = 0
+
+    def ratio(self) -> float:
+        return 16.0               # 1 bit per element vs bf16
+
+
+@dataclass(frozen=True)
+class LowRankSpec:
+    """Quantized dense core + rank-r f32 residual factors. (No ``ratio``:
+    the factors' share of the bits depends on the matrix's shape.)"""
+    rank: int = 8
+    k_bits: int = 4
+    seed: int = 0
 
 
 def _pick_hg(h_in: int, spec: DeltaDQSpec) -> int:
@@ -56,10 +107,183 @@ def _pick_hg(h_in: int, spec: DeltaDQSpec) -> int:
     return int(hg)
 
 
-class DeltaDQCodec:
+def _runtime_hg(h_in: int) -> int:
+    """Group size for dense-as-structured runtime lowering: the largest
+    divisor of h_in within the kernel envelope (h_g <= MAX_HG and, since
+    these lowerings keep every element, keep = h_g <= MAX_KEEP = 128)."""
+    for hg in range(min(h_in, 128), 0, -1):
+        if h_in % hg == 0:
+            return hg
+    return 1
+
+
+def _lead_scalar(lead: tuple, value, dtype, device) -> torch.Tensor:
+    """Per-tensor scalar in PackedDelta convention: a 0-d tensor without
+    leading stack dims, a [lead]-shaped one with them."""
+    return torch.full(lead, value, dtype=dtype, device=device)
+
+
+def _dense_as_structured(codes: torch.Tensor, scale: torch.Tensor,
+                         zero: torch.Tensor, h_in: int, h_out: int, hg: int,
+                         k_bits: Optional[int], codec: str) -> PackedDelta:
+    """Wrap per-group codes [..., G, hg|kp, O] as a keep-everything
+    PackedDelta (idx = arange within each group). ``idx`` is materialized
+    contiguous, not a stride-0 broadcast: the kernels take contiguous
+    tiles only."""
+    lead_g = codes.shape[:-2]
+    idx = torch.arange(hg, dtype=torch.uint8, device=codes.device)[:, None]
+    idx = idx.expand(*lead_g, hg, h_out).contiguous()
+    return PackedDelta(idx=idx, codes=codes, scale=scale, zero=zero,
+                       h_in=h_in, h_out=h_out, h_g=hg, keep=hg,
+                       alpha=1.0, k_bits=k_bits, m=1, codec=codec)
+
+
+def _per_matrix(leaf, fn: Callable[[Any], torch.Tensor]) -> torch.Tensor:
+    """``fn`` of every matrix of a possibly stacked leaf, written into one
+    tensor with the leaf's stack dims (one matrix's temporaries at a
+    time)."""
+    lead = leaf.stack_shape()
+    if not lead:
+        return fn(leaf)
+    flat = leaf.flat()
+    first = fn(flat.index(0))
+    out = torch.empty((flat.stack_shape()[0], *first.shape), dtype=first.dtype,
+                      device=first.device)
+    out[0] = first
+    for i in range(1, out.shape[0]):
+        out[i] = fn(flat.index(i))
+    return out.reshape(*lead, *first.shape)
+
+
+# ---------------------------------------------------------------------------
+# Codec leaves for the non-DeltaDQ formats
+# ---------------------------------------------------------------------------
+@dataclass
+class BitDeltaLeaf:
+    """BitDelta-compressed delta for one [h_in, h_out] weight.
+
+    ``sign`` is the bit-packed (along h_in) sign bitmap, uint8
+    [..., ceil(h_in/8), h_out] with bit 1 = positive; ``scale`` is the
+    per-tensor mean |delta| (f32, shape = the stack dims).
+    """
+    sign: torch.Tensor
+    scale: torch.Tensor
+    h_in: int
+    h_out: int
+
+    def stack_shape(self) -> tuple[int, ...]:
+        return tuple(self.sign.shape[:-2])
+
+    def index(self, i) -> "BitDeltaLeaf":
+        return replace(self, sign=self.sign[i], scale=self.scale[i])
+
+    def flat(self) -> "BitDeltaLeaf":
+        """The stack dims merged into one."""
+        return replace(self, sign=self.sign.reshape(-1, *self.sign.shape[-2:]),
+                       scale=self.scale.reshape(-1))
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.sign, self.scale))
+
+
+@dataclass
+class LowRankLeaf:
+    """Quantized core + rank-r residual for one [h_in, h_out] weight.
+
+    ``codes`` are bit-packed (along h_in) k-bit core codes, uint8
+    [..., packed_len(h_in, k), h_out]; ``scale``/``zero`` the per-tensor
+    quant params; ``u`` [..., h_in, r] / ``v`` [..., r, h_out] the f32
+    residual factors of delta - dequant(core) (u absorbs the singular
+    values). Reconstruction: dequant(core) + u @ v.
+    """
+    codes: torch.Tensor
+    scale: torch.Tensor
+    zero: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    h_in: int
+    h_out: int
+    k_bits: int
+    rank: int
+
+    def stack_shape(self) -> tuple[int, ...]:
+        return tuple(self.codes.shape[:-2])
+
+    def index(self, i) -> "LowRankLeaf":
+        return replace(self, **{k: getattr(self, k)[i]
+                                for k in ("codes", "scale", "zero", "u", "v")})
+
+    def flat(self) -> "LowRankLeaf":
+        """The stack dims merged into one."""
+        return replace(self, codes=self.codes.reshape(-1, *self.codes.shape[-2:]),
+                       scale=self.scale.reshape(-1), zero=self.zero.reshape(-1),
+                       u=self.u.reshape(-1, *self.u.shape[-2:]),
+                       v=self.v.reshape(-1, *self.v.shape[-2:]))
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.codes, self.scale, self.zero, self.u, self.v))
+
+
+# ---------------------------------------------------------------------------
+# The codec interface
+# ---------------------------------------------------------------------------
+class DeltaCodec:
+    """One delta-compression format behind the common interface.
+
+    Subclasses set ``name``, ``spec_cls`` and ``leaf_cls`` and implement
+    the methods below. ``compress_leaf`` takes one [h_in, h_out] matrix
+    pair (stacked leaves are compressed a matrix at a time by
+    ``core.compress``); ``generator`` feeds codecs that draw (DeltaDQ's
+    dropout keys). ``storage_bits`` returns ``value_bits`` (the paper's
+    values-only convention) and ``total_bits`` (honest: + indices,
+    factors, metadata) for the whole possibly-stacked leaf.
+    """
+
+    name: str = "?"
+    spec_cls: type = object
+    leaf_cls: type = object
+
+    def default_spec(self):
+        return self.spec_cls()
+
+    def compress_leaf(self, base_leaf: torch.Tensor, ft_leaf: torch.Tensor, spec,
+                      *, generator: Optional[torch.Generator] = None):
+        raise NotImplementedError
+
+    def reconstruct_dense(self, leaf) -> torch.Tensor:
+        raise NotImplementedError
+
+    def runtime_packed(self, leaf) -> PackedDelta:
+        raise NotImplementedError
+
+    def decode_values(self, leaf) -> torch.Tensor:
+        """Kept values [..., G, K, O] of the runtime form."""
+        return pack_lib.decode_values(self.runtime_packed(leaf))
+
+    def storage_bits(self, leaf) -> dict:
+        raise NotImplementedError
+
+    def planned_total_bits(self, shape: tuple, spec) -> Optional[float]:
+        """``storage_bits(...)["total_bits"]`` of the leaf that compressing
+        a weight of ``shape`` with ``spec`` would give, where the shapes
+        alone fix it without compressing; None otherwise."""
+        return None
+
+
+# ---------------------------------------------------------------------------
+# DeltaDQ (the first registered codec; leaf IS the runtime layout)
+# ---------------------------------------------------------------------------
+class DeltaDQCodec(DeltaCodec):
     """The paper's codec: group-wise dropout + separate quantization."""
 
     name = "deltadq"
+    spec_cls = DeltaDQSpec
+    leaf_cls = PackedDelta
+
+    def default_spec(self):
+        # the launcher's 128x deployment point (alpha 8, k4, m8)
+        return DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
 
     def compress_leaf(self, base_leaf: torch.Tensor, ft_leaf: torch.Tensor,
                       spec: DeltaDQSpec, *, u: Optional[torch.Tensor] = None,
@@ -71,19 +295,201 @@ class DeltaDQCodec:
                                       k_bits=spec.k_bits, m=spec.m, u=u,
                                       generator=generator)
 
+    def reconstruct_dense(self, leaf: PackedDelta) -> torch.Tensor:
+        return pack_lib.reconstruct_dense(leaf)
+
+    def runtime_packed(self, leaf: PackedDelta) -> PackedDelta:
+        return leaf
+
     def storage_bits(self, leaf: PackedDelta) -> dict:
         stack = math.prod(leaf.stack_shape())
         vb = leaf.value_bits() * stack
         return {"value_bits": vb, "total_bits": vb + leaf.index_bits() * stack}
 
 
-_DELTADQ = DeltaDQCodec()
+# ---------------------------------------------------------------------------
+# BitDelta: sign bitmap + per-tensor scale (arXiv 2402.10193)
+# ---------------------------------------------------------------------------
+class BitDeltaCodec(DeltaCodec):
+    name = "bitdelta"
+    spec_cls = BitDeltaSpec
+    leaf_cls = BitDeltaLeaf
+
+    def compress_leaf(self, base_leaf, ft_leaf, spec: BitDeltaSpec, *,
+                      generator=None) -> BitDeltaLeaf:
+        delta = ft_leaf.to(torch.float32) - base_leaf.to(torch.float32)
+        h_in, h_out = delta.shape[-2:]
+        scale = torch.mean(torch.abs(delta), dim=(-2, -1))
+        sign = (delta >= 0).to(torch.uint8)       # 1 = +scale, 0 = -scale
+        packed = quant.pack_bits(sign, 1, axis=sign.ndim - 2)
+        return BitDeltaLeaf(sign=packed, scale=scale.to(torch.float32),
+                            h_in=h_in, h_out=h_out)
+
+    @staticmethod
+    def _sign_codes(leaf: BitDeltaLeaf) -> torch.Tensor:
+        """Unpacked {0, 1} sign codes [..., h_in, h_out] int32."""
+        return quant.unpack_bits(leaf.sign, 1, leaf.h_in, axis=leaf.sign.ndim - 2)
+
+    def reconstruct_dense(self, leaf: BitDeltaLeaf) -> torch.Tensor:
+        # EXACTLY the runtime decode math ((q - zero) * scale with
+        # q = 2*sign, zero = 1) so the lowering is bit-faithful
+        q = 2 * self._sign_codes(leaf)
+        s = leaf.scale.to(torch.float32)
+        if s.ndim:
+            s = s.reshape(s.shape + (1, 1))
+        return (q.to(torch.float32) - 1.0) * s
+
+    def runtime_packed(self, leaf: BitDeltaLeaf) -> PackedDelta:
+        lead = leaf.stack_shape()
+        hg = _runtime_hg(leaf.h_in)
+        G = leaf.h_in // hg
+
+        def codes_of(one: BitDeltaLeaf) -> torch.Tensor:
+            q = 2 * self._sign_codes(one)         # {0, 2}: (q - 1)*s = +/-s
+            return quant.pack_bits(q.reshape(G, hg, leaf.h_out), 2, axis=1)
+
+        return _dense_as_structured(
+            _per_matrix(leaf, codes_of), leaf.scale.to(torch.float32),
+            _lead_scalar(lead, 1, torch.int32, leaf.sign.device),
+            leaf.h_in, leaf.h_out, hg, k_bits=2, codec=self.name)
+
+    def storage_bits(self, leaf: BitDeltaLeaf) -> dict:
+        stack = math.prod(leaf.stack_shape())
+        vb = 1.0 * leaf.h_in * leaf.h_out * stack
+        return {"value_bits": vb, "total_bits": vb + 32.0 * stack}
 
 
-def codec_for_spec(spec: Any) -> DeltaDQCodec:
-    if isinstance(spec, DeltaDQSpec):
-        return _DELTADQ
-    raise TypeError(f"no codec of the port accepts spec {type(spec).__name__}")
+# ---------------------------------------------------------------------------
+# Low-rank residual: quantized dense core + rank-r f32 factors
+# ---------------------------------------------------------------------------
+class LowRankCodec(DeltaCodec):
+    name = "lowrank"
+    spec_cls = LowRankSpec
+    leaf_cls = LowRankLeaf
+
+    def compress_leaf(self, base_leaf, ft_leaf, spec: LowRankSpec, *,
+                      generator=None) -> LowRankLeaf:
+        delta = ft_leaf.to(torch.float32) - base_leaf.to(torch.float32)
+        h_in, h_out = delta.shape[-2:]
+        q, qp = quant.quantize(delta, spec.k_bits)
+        core = (q.to(torch.float32) - qp.zero.to(torch.float32)) * qp.scale
+        # residual factors via numpy's SVD on the host, as the reference
+        # computes them: compression is offline, and the same numpy call
+        # on the same f32 residual gives the same factors
+        resid = (delta - core).cpu().numpy()
+        U, S, Vt = np.linalg.svd(resid, full_matrices=False)
+        r = spec.rank
+        k = min(r, S.shape[0])
+        us = np.zeros((h_in, r), np.float32)
+        vs = np.zeros((r, h_out), np.float32)
+        us[:, :k] = U[:, :k] * S[:k]               # u absorbs singular values
+        vs[:k, :] = Vt[:k]
+        codes = quant.pack_bits(q, quant.pack_width(spec.k_bits), axis=0)
+        dev = delta.device
+        return LowRankLeaf(
+            codes=codes, scale=qp.scale, zero=qp.zero,
+            u=torch.from_numpy(us).to(dev), v=torch.from_numpy(vs).to(dev),
+            h_in=h_in, h_out=h_out, k_bits=spec.k_bits, rank=r)
+
+    def reconstruct_dense(self, leaf: LowRankLeaf) -> torch.Tensor:
+        q = quant.unpack_bits(leaf.codes, quant.pack_width(leaf.k_bits), leaf.h_in,
+                              axis=leaf.codes.ndim - 2)
+        s = leaf.scale.to(torch.float32)
+        z = leaf.zero.to(torch.float32)
+        if s.ndim:
+            s = s.reshape(s.shape + (1, 1))
+            z = z.reshape(z.shape + (1, 1))
+        core = (q.to(torch.float32) - z) * s
+        return core + leaf.u @ leaf.v
+
+    def runtime_packed(self, leaf: LowRankLeaf) -> PackedDelta:
+        # dense-as-structured f32 values (k_bits=None: decode is the
+        # identity), computed ONCE at lowering time by the exact
+        # reconstruction the reference path uses — bit-faithful
+        lead = leaf.stack_shape()
+        hg = _runtime_hg(leaf.h_in)
+        G = leaf.h_in // hg
+        vals = _per_matrix(leaf, lambda one: self.reconstruct_dense(one).reshape(
+            G, hg, leaf.h_out))
+        dev = leaf.codes.device
+        return _dense_as_structured(
+            vals.contiguous(), _lead_scalar(lead, 1.0, torch.float32, dev),
+            _lead_scalar(lead, 0, torch.int32, dev),
+            leaf.h_in, leaf.h_out, hg, k_bits=None, codec=self.name)
+
+    @staticmethod
+    def _bits(h_in: int, h_out: int, k_bits: int, rank: int, stack: int) -> dict:
+        vb = (k_bits * h_in * h_out + 32.0 * rank * (h_in + h_out)) * stack
+        return {"value_bits": vb, "total_bits": vb + 64.0 * stack}
+
+    def storage_bits(self, leaf: LowRankLeaf) -> dict:
+        return self._bits(leaf.h_in, leaf.h_out, leaf.k_bits, leaf.rank,
+                          math.prod(leaf.stack_shape()))
+
+    def planned_total_bits(self, shape: tuple, spec: LowRankSpec) -> float:
+        return self._bits(shape[-2], shape[-1], spec.k_bits, spec.rank,
+                          math.prod(shape[:-2]))["total_bits"]
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+_CODECS: dict[str, DeltaCodec] = {}
+DEFAULT_CODEC = "deltadq"
+
+
+def register_codec(codec: DeltaCodec) -> DeltaCodec:
+    """Register a codec instance under ``codec.name`` (idempotent for the
+    same instance; raises on a name collision with a different one)."""
+    prev = _CODECS.get(codec.name)
+    if prev is not None and prev is not codec:
+        raise ValueError(f"codec {codec.name!r} is already registered")
+    _CODECS[codec.name] = codec
+    return codec
+
+
+def get_codec(name: str) -> DeltaCodec:
+    try:
+        return _CODECS[name]
+    except KeyError:
+        raise KeyError(f"unknown codec {name!r}; registered: "
+                       f"{sorted(_CODECS)}") from None
+
+
+def codec_names() -> list[str]:
+    """Registered codec names in registration order."""
+    return list(_CODECS)
+
+
+def codec_for_spec(spec) -> DeltaCodec:
+    """The codec owning a spec instance (by spec class)."""
+    for c in _CODECS.values():
+        if isinstance(spec, c.spec_cls):
+            return c
+    raise TypeError(f"no registered codec accepts spec {type(spec).__name__}")
+
+
+def codec_of_leaf(leaf) -> DeltaCodec:
+    """The codec owning a compressed leaf (PackedDelta carries its codec
+    tag; other leaf types resolve by class)."""
+    if isinstance(leaf, PackedDelta):
+        return get_codec(leaf.codec)
+    for c in _CODECS.values():
+        if type(leaf) is c.leaf_cls:
+            return c
+    raise TypeError(f"no registered codec owns leaf {type(leaf).__name__}")
+
+
+def is_codec_leaf(x) -> bool:
+    return isinstance(x, tuple(c.leaf_cls for c in _CODECS.values()))
+
+
+def reconstruct_dense_any(leaf) -> torch.Tensor:
+    """Dense f32 delta for any registered codec's leaf (incl. runtime
+    PackedDelta forms)."""
+    if isinstance(leaf, PackedDelta):
+        return pack_lib.reconstruct_dense(leaf)
+    return codec_of_leaf(leaf).reconstruct_dense(leaf)
 
 
 def runtime_packed_leaf(leaf: Any) -> Any:
@@ -91,10 +497,16 @@ def runtime_packed_leaf(leaf: Any) -> Any:
     PackedDelta and on None)."""
     if leaf is None or isinstance(leaf, PackedDelta):
         return leaf
-    raise TypeError(f"no codec of the port owns leaf {type(leaf).__name__}")
+    return codec_of_leaf(leaf).runtime_packed(leaf)
 
 
 def runtime_delta_tree(tree: Any) -> Any:
-    """Lower every codec leaf of a deltas tree to PackedDelta (identity for
-    DeltaDQ trees). Engines call this at tenant registration."""
+    """Lower every codec leaf of a deltas tree to its runtime PackedDelta
+    form (idempotent). The serving engines call this at tenant
+    registration, so model and kernel code only ever see PackedDelta."""
     return tree_map(runtime_packed_leaf, tree)
+
+
+register_codec(DeltaDQCodec())
+register_codec(BitDeltaCodec())
+register_codec(LowRankCodec())

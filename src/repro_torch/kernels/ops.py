@@ -1,13 +1,14 @@
 """Public wrappers around the delta kernels (port of ``repro/kernels/ops.py``,
 without ``shard_map``).
 
-Device rule: a CUDA tensor inside the kernel envelope launches the CUDA
-kernel (``kernels/delta_spmm.py``) and raises if it cannot; a CPU tensor
-takes the kernel's plain torch version (``kernels/fallback.py``). Outside
-the envelope (h_g > 256, keep > 128, a stacked delta) every device takes
-the plain gather/dense formulation, as the reference's ``ops.delta_spmm``
-does (``ops.py:129-131``) — that is the envelope rule, not a fallback on
-failure.
+Device rule: a CUDA tensor launches the CUDA kernel
+(``kernels/delta_spmm.py``) and raises if it cannot; a CPU tensor takes
+the kernel's plain torch version (``kernels/fallback.py``). Outside the
+envelope (h_g > 256, keep > 128, k_bits outside 1-8, a stacked delta) a
+CPU tensor takes the plain gather/dense formulation, as the reference's
+``ops.delta_spmm`` does (``ops.py:129-131``), and leaves a
+``plain-out-of-envelope`` trace note naming the dimension; a CUDA tensor
+there raises ``ValueError``: no plain version runs on the card.
 
 ``fused_base_delta`` and ``dequant`` (``ops.py:390-431`` of the
 reference) follow the same rule; ``dequant`` is the merge path's
@@ -54,9 +55,35 @@ def _note(site: str, **attrs) -> None:
     note_path(site, **attrs)
 
 
+def envelope_miss(d: PackedDelta) -> str | None:
+    """The first dimension of ``d`` outside the kernels' envelope, or None."""
+    if d.stack_shape():
+        return "stack"
+    if d.h_g > MAX_HG:
+        return "h_g"
+    if d.keep > MAX_KEEP:
+        return "keep"
+    if d.k_bits is not None and not 1 <= d.k_bits <= 8:
+        return "k_bits"
+    return None
+
+
 def kernel_supported(d: PackedDelta) -> bool:
-    return (not d.stack_shape()) and d.h_g <= MAX_HG and d.keep <= MAX_KEEP \
-        and (d.k_bits is None or 1 <= d.k_bits <= 8)
+    return envelope_miss(d) is None
+
+
+def _out_of_envelope(site: str, d: PackedDelta, x: torch.Tensor) -> bool:
+    """True when ``d`` is outside the envelope and ``x`` lies on the CPU,
+    after the trace note; raises on any other device."""
+    miss = envelope_miss(d)
+    if miss is None:
+        return False
+    if _device_kind(x) != "cpu":
+        raise ValueError(f"{site}: packing h_g={d.h_g} keep={d.keep} k_bits={d.k_bits} "
+                         f"is outside the CUDA kernels' envelope ({miss}); the "
+                         "plain formulation runs on the CPU only")
+    _note(site, formulation="plain-out-of-envelope", codec=d.codec, dim=miss)
+    return True
 
 
 def _smallest_holding(T: int, tiles: tuple) -> int:
@@ -100,7 +127,7 @@ def _device_kind(x: torch.Tensor) -> str:
 def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     """y = x @ dequant(d). x [..., h_in] -> [..., h_out] (f32)."""
     gmax = _gather_max_t(d)
-    if not kernel_supported(d):
+    if _out_of_envelope("delta_spmm", d, x):
         return fallback.correction_nd(x, d, gather_max_t=gmax)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, d.h_in)
@@ -127,8 +154,8 @@ def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
     -> tenant row; seg_offsets [S+1] int32 bounds each segment (empty
     segments allowed). Each unique delta is decoded once per segment.
     """
-    probe = d.index(0)
-    if not kernel_supported(probe) or _device_kind(x_sorted) == "cpu":
+    if _out_of_envelope("delta_spmm_segments", d.index(0), x_sorted) or \
+            _device_kind(x_sorted) == "cpu":
         return fallback.segment_correction(x_sorted, d, seg_rows, seg_offsets)
     T = x_sorted.shape[0]
     tb = row_tile(T)
@@ -145,15 +172,15 @@ def delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
 
     Row b computes ``x[b] @ dequant(d[b])``. On the card the rows are
     served as one-row segments of the segments kernel (the reference
-    vmaps its per-matrix kernel over rows); on the CPU, and outside the
-    envelope, by the per-row gather formulation.
+    vmaps its per-matrix kernel over rows); on the CPU by the per-row
+    gather formulation.
     """
     B = x.shape[0]
     if d.stack_shape() != (B,):
         raise ValueError(
             f"stacked delta stack_shape={d.stack_shape()} must equal "
             f"({B},) — one delta row per slot row of x {tuple(x.shape)}")
-    if _device_kind(x) == "cpu" or not kernel_supported(d.index(0)):
+    if _out_of_envelope("delta_spmm_slots", d.index(0), x) or _device_kind(x) == "cpu":
         _note("delta_spmm_slots", formulation="per-row-gather",
               codec=d.codec, B=int(B))
         return fallback.gather_correction_rows(x, d)
@@ -170,7 +197,7 @@ def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.
     """y = x @ (w + dequant(d)); reads x once (separate computation, fused).
     x [..., h_in], w [h_in, h_out] -> [..., h_out] f32 (inside the
     envelope)."""
-    if not kernel_supported(d):
+    if _out_of_envelope("fused_base_delta", d, x):
         dt = torch.promote_types(x.dtype, w.dtype)
         return (x.to(dt) @ w.to(dt)) + delta_spmm(x, d).to(w.dtype)
     lead = x.shape[:-1]
@@ -189,7 +216,7 @@ def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.
 
 def dequant(d: PackedDelta) -> torch.Tensor:
     """Materialize the dense delta [h_in, h_out] f32 (merge path)."""
-    if not kernel_supported(d) or _device_kind(d.idx) == "cpu":
+    if _out_of_envelope("dequant", d, d.idx) or _device_kind(d.idx) == "cpu":
         return fallback.dequant(d)
     _note("dequant", formulation="cuda", codec=d.codec, ob=DEQUANT_OB)
     return _k.dequant_cuda(d)

@@ -1,21 +1,30 @@
-"""Serving launcher: base model + N DeltaDQ tenants (port of
+"""Serving launcher: base model + N tenants of any codec (port of
 ``repro/launch/serve.py``).
 
 Synthesizes fine-tuned variants of a random base model, compresses their
-deltas at the requested ratio, and drives a mixed, staggered request
-stream through the continuous-batching engine — the deployment of paper
-Fig. 2 as a runnable process, with per-tenant metrics.
+deltas, and drives a mixed, staggered request stream through the
+continuous-batching engine — the deployment of paper Fig. 2 as a runnable
+process, with per-tenant metrics.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # smoke config
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch wizard-llama2-7b --tenants 3 --requests 12 --slots 8 --max-seq 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --tenants 3 --codec mixed --check-identity
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --tenants 3 --lifecycle --check-identity
 
 The request stream is the reference's: request i goes to tenant
 ``i % tenants`` with a prompt of ``4 + (i % 3) * 4`` tokens, arriving
 ``i * arrival_gap`` seconds in; the prompt tokens are drawn from a numpy
-generator seeded with ``100 + i``. Other codecs, the lifecycle drill,
-meshes, residency and the identity check against a mesh engine are not
-ported yet.
+generator seeded with ``100 + i``. ``--codec`` picks each tenant's codec
+(``mixed`` alternates DeltaDQ and BitDelta: one engine, two codec
+groups); ``--check-identity`` serves the stream again on the default
+path (whole-prompt prefill) when ``--chunked``, and each tenant alone
+when ``--codec mixed``, and fails unless every request's tokens match;
+``--lifecycle`` runs the online-lifecycle drill (:func:`run_lifecycle`).
+Meshes and residency are not ported yet, and ``--strict-compile`` has no
+counterpart until the port counts CUDA-graph captures.
 
 :data:`RATIO_SPECS` maps a target compression ratio to its DeltaDQ spec,
 and :func:`synth_tenants` makes fine-tuned variants of a base model and
@@ -29,12 +38,12 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.core.codecs import DeltaDQSpec, codec_for_spec
+from repro_torch.core.codecs import BitDeltaSpec, DeltaDQSpec, codec_for_spec, get_codec
 from repro_torch.core.compress import (
     CompressionReport,
-    compress_leaf_layerwise,
+    auto_candidates,
+    compress_leaf_any,
     is_compressible,
-    leaf_generator,
 )
 from repro_torch.utils import map_with_paths, tree_bytes
 
@@ -47,45 +56,90 @@ RATIO_SPECS = {
 }
 
 
-def synth_tenants(cfg, base: dict, n: int, spec: DeltaDQSpec, seed: int = 0,
-                  *, noise: float = 0.02) -> list:
+def _perturbed(b: torch.Tensor, gen: torch.Generator, noise: float):
+    """ft_slice(i) of ``w + noise * N(0, 1)`` for layer slice i of ``b``
+    (the noise cast to the weight's dtype first, as the reference does)."""
+    flat = b.reshape(-1, *b.shape[-2:])
+
+    def ft_slice(i: int) -> torch.Tensor:
+        z = torch.randn(flat.shape[1:], generator=gen, device=b.device,
+                        dtype=torch.float32)
+        return flat[i] + (noise * z).to(b.dtype)
+
+    return ft_slice
+
+
+def synth_tenants(cfg, base: dict, n: int, spec, seed: int = 0, *,
+                  noise: float = 0.02, budget_bits: float | None = None) -> list:
     """Synthesize n fine-tuned variants and compress their deltas.
 
-    Tenant t's weight matrix is ``w + noise * N(0, 1)`` (the noise cast to
-    the weight's dtype first, as the reference does), drawn from a
-    generator seeded with ``seed + 7 + t``. The fine-tuned weights are
-    made one matrix at a time on the base's device and compressed at
-    once, so no second full-size model is ever held. Leaves that stay
-    dense (embeddings, norms) are not perturbed: their deltas would be
-    dropped anyway. Returns ``[(name, deltas, report)]``.
+    ``spec`` is one codec spec (every tenant), a list of n per-tenant
+    specs (mixed-codec fleets), or a codec name (``"deltadq"``,
+    ``"bitdelta"``, ``"lowrank"`` at their default specs, or ``"auto"``,
+    which takes ``budget_bits``). Tenant t's weight matrix is
+    ``w + noise * N(0, 1)``, drawn from a generator seeded with
+    ``seed + 7 + t``, so a tenant's fine-tuned weights do not depend on
+    its codec. They are made one matrix at a time on the base's device
+    and compressed at once (a whole leaf at a time for ``"auto"``, whose
+    candidates each read it), so no second full-size model is ever held.
+    Leaves that stay dense (embeddings, norms) are not perturbed: their
+    deltas would be dropped anyway. Returns ``[(name, deltas, report)]``.
     """
-    codec = codec_for_spec(spec)
+    specs = spec if isinstance(spec, list) else [spec] * n
+    if len(specs) != n:
+        raise ValueError(f"{len(specs)} codec specs for {n} tenants")
     out = []
     for t in range(n):
-        report = CompressionReport(spec=spec)
+        sp, codec, candidates = specs[t], None, None
+        if sp == "auto":
+            if budget_bits is None:
+                raise ValueError("codec 'auto' requires budget_bits")
+            sp, candidates = None, auto_candidates()
+            report = CompressionReport(spec=None, budget_bits=budget_bits)
+        else:
+            if isinstance(sp, str):
+                sp = get_codec(sp).default_spec()
+            codec = codec_for_spec(sp)
+            report = CompressionReport(spec=sp)
 
         def fn(path: str, b: torch.Tensor, gen=None):
             if not is_compressible(path, b):
                 report.skip(path)
                 return None
-            flat = b.reshape(-1, *b.shape[-2:])
-
-            def ft_slice(i: int) -> torch.Tensor:
-                z = torch.randn(flat.shape[1:], generator=gen, device=b.device,
-                                dtype=torch.float32)
-                return flat[i] + (noise * z).to(b.dtype)
-
-            d = compress_leaf_layerwise(
-                codec, spec, b, ft_slice,
-                generator=leaf_generator(spec.seed, path, b.device))
-            report.add_leaf(path, codec, d)
-            return d
+            ft_slice = _perturbed(b, gen, noise)
+            if candidates is not None:
+                f = [ft_slice(i) for i in range(b.reshape(-1, *b.shape[-2:]).shape[0])]
+                ft_slice = f.__getitem__
+            res = compress_leaf_any(path, b, ft_slice, spec=sp, codec=codec,
+                                    seed=getattr(sp, "seed", 0), candidates=candidates,
+                                    budget_bits=budget_bits)
+            report.account(path, res)
+            return res[0]
 
         noise_gen = torch.Generator(device=base["embed"]["tok"].device)
         noise_gen.manual_seed(seed + 7 + t)
         deltas = map_with_paths(lambda p, b: fn(p, b, noise_gen), base)
         out.append((f"tenant{t}", deltas, report))
     return out
+
+
+def synth_ft(base: dict, seed: int, *, noise: float = 0.02) -> dict:
+    """One fine-tuned variant as a whole params tree: every compressible
+    matrix ``w + noise * N(0, 1)`` from a generator seeded with ``seed``
+    (drawn in the order :func:`synth_tenants` draws, so
+    ``synth_ft(base, s + 7 + t)`` is tenant t's model), the other leaves
+    shared with ``base``."""
+    gen = torch.Generator(device=base["embed"]["tok"].device)
+    gen.manual_seed(seed)
+
+    def fn(path: str, b: torch.Tensor):
+        if not is_compressible(path, b):
+            return b
+        ft_slice = _perturbed(b, gen, noise)
+        n = b.reshape(-1, *b.shape[-2:]).shape[0]
+        return torch.stack([ft_slice(i) for i in range(n)]).reshape(b.shape)
+
+    return map_with_paths(fn, base)
 
 
 def request_stream(cfg, n_requests: int, n_tenants: int) -> list:
@@ -96,6 +150,148 @@ def request_stream(cfg, n_requests: int, n_tenants: int) -> list:
         prompt = np.random.default_rng(100 + i).integers(0, cfg.vocab, L)
         out.append((f"tenant{i % n_tenants}", prompt.astype(np.int32)))
     return out
+
+
+def tenant_specs(codec: str, n: int, ratio: int = 128) -> list:
+    """Per-tenant spec list for ``--codec``: ``deltadq`` keeps the ratio
+    spec table, ``mixed`` alternates DeltaDQ (even tenants) and BitDelta
+    (odd), the other names go to every tenant as they are."""
+    if codec == "deltadq":
+        return [RATIO_SPECS[ratio]] * n
+    if codec == "mixed":
+        return [RATIO_SPECS[ratio] if t % 2 == 0 else BitDeltaSpec() for t in range(n)]
+    return [codec] * n
+
+
+def _engine_kw(args) -> dict:
+    return dict(n_slots=args.slots, max_seq=args.max_seq, admission=args.admission,
+                chunked_prefill=args.chunked, chunk_size=args.chunk_size,
+                chunk_share=args.chunk_share)
+
+
+def _serve_stream(cfg, base, tenants, stream, args, *, default_path=False, **kw):
+    """One engine over ``tenants`` serving ``stream`` at its arrivals; the
+    default path is whole-prompt prefill. -> (engine, requests)."""
+    from repro_torch.serve import ContinuousEngine
+    ekw = _engine_kw(args)
+    if default_path:
+        ekw.update(chunked_prefill=False)
+    eng = ContinuousEngine(cfg, base, **ekw, **kw)
+    for name, deltas, report in tenants:
+        eng.register_tenant(name, deltas, report)
+    reqs = [eng.submit(tenant, prompt, max_new_tokens=args.max_new,
+                       arrival=i * args.arrival_gap)
+            for i, (tenant, prompt) in enumerate(stream)]
+    eng.run()
+    undone = [r.rid for r in reqs if not r.done]
+    if undone:
+        raise RuntimeError(f"engine run() left requests {undone} unfinished")
+    return eng, reqs
+
+
+def run_lifecycle(args, cfg, base) -> dict:
+    """Online-lifecycle drill: the fleet registers INTO a running engine.
+
+    tenant0 is compressed and registered up front and starts serving;
+    tenants 1..N-1 then arrive as raw fine-tuned models mid-traffic and
+    are compressed and hot-registered by the :class:`DeltaRegistry` while
+    tenant0's sequences keep decoding. Afterwards tenant0 rolls out a v2
+    (new requests only) and tenant1 is retired. The drill fails on any
+    re-stack or decode-step ``jit_trace`` after warm-up (the port's
+    counterpart of the reference's zero decode recompiles). With ``--check-identity`` every
+    request is also held token-identical to engines built with the same
+    tenant versions up front. Returns the metrics report."""
+    from repro_torch.serve import ContinuousEngine, DeltaRegistry, VirtualClock
+
+    spec = RATIO_SPECS[args.ratio]
+    n = args.tenants
+    stream = request_stream(cfg, args.requests, n)
+
+    # +1 row so the rollout lands without evicting anyone
+    eng = ContinuousEngine(cfg, base, n_slots=args.slots, max_seq=args.max_seq,
+                           tenant_capacity=n + 1, clock=VirtualClock(tick=1e-3))
+    reg = DeltaRegistry(eng, base, spec=spec, codec=None)
+    # each fine-tuned model is made when it arrives (one at a time: a
+    # full-width model is as large as the base)
+    reg.ingest("tenant0", synth_ft(base, 7))
+    reg.pump()
+    phase_a = [(i, reg.submit(t, p, max_new_tokens=args.max_new))
+               for i, (t, p) in enumerate(stream) if t == "tenant0"]
+    for _ in range(2):
+        eng.step(eng._now())            # tenant0 genuinely in flight
+    traces0, restacks0 = eng.decode_traces, eng.restacks
+    for t in range(1, n):
+        name = f"tenant{t}"
+        reg.ingest(name, synth_ft(base, 7 + t))
+        reg.pump()
+        rec = reg._records[name]
+        print(f"hot-registered {name}: compress {rec.compress_s:.2f}s, "
+              f"register {1e3 * rec.register_s:.1f}ms", flush=True)
+        phase_a += [(i, reg.submit(tn, p, max_new_tokens=args.max_new))
+                    for i, (tn, p) in enumerate(stream) if tn == name]
+        eng.step(eng._now())
+    eng.run()
+    undone = [r.rid for _, r in phase_a if not r.done]
+    if undone:
+        raise RuntimeError(f"lifecycle phase A left requests {undone} unfinished")
+
+    # rollout: tenant0 v2 serves NEW requests only; then retire tenant1
+    reg.ingest("tenant0", synth_ft(base, 777))     # tenant0's v2
+    reg.pump()
+    phase_b = [(i, eng.submit("tenant0", p, max_new_tokens=args.max_new))
+               for i, (t, p) in enumerate(stream) if t == "tenant0"][:2]
+    eng.run()
+    undone = [r.rid for _, r in phase_b if not r.done]
+    if undone:
+        raise RuntimeError(f"lifecycle phase B left requests {undone} unfinished")
+    if n > 1:
+        eng.unregister_tenant("tenant1")
+
+    retraces = eng.decode_traces - traces0
+    restacks = eng.restacks - restacks0
+    rep = eng.metrics.report()
+    print(f"lifecycle events: {rep['tenant_lifecycle']}")
+    print(f"decode-step jit_trace events across register/rollout/retire: {retraces}; "
+          f"re-stacks: {restacks}")
+    if retraces or restacks:
+        raise SystemExit("the hot lifecycle changed a decode signature "
+                         f"({retraces} jit_trace, {restacks} re-stacks)")
+
+    if args.check_identity:
+        # registration time must not change tokens: engines holding the
+        # SAME tenant versions (the registry's copies) up front serve the
+        # same prompts
+        recs = reg._records
+        v1 = {f"tenant{t}": recs[f"tenant{t}"].host for t in range(1, n)}
+        v1["tenant0"] = recs["tenant0"].prev
+
+        def ref_engine(deltas_by_name):
+            e = ContinuousEngine(cfg, base, n_slots=args.slots, max_seq=args.max_seq,
+                                 tenant_capacity=n + 1, clock=VirtualClock(tick=1e-3))
+            for name, d in deltas_by_name.items():
+                e.register_tenant(name, d)
+            return e
+
+        ref = ref_engine(v1)
+        ref_a = [ref.submit(stream[i][0], stream[i][1], max_new_tokens=args.max_new)
+                 for i, _ in phase_a]
+        ref.run()
+        ref2 = ref_engine({"tenant0": recs["tenant0"].host})
+        ref_b = [ref2.submit("tenant0", stream[i][1], max_new_tokens=args.max_new)
+                 for i, _ in phase_b]
+        ref2.run()
+        bad = [r.rid for (_, r), s in zip(phase_a + phase_b, ref_a + ref_b)
+               if not np.array_equal(r.output(), s.output())]
+        if bad:
+            raise SystemExit(f"lifecycle token identity FAILED for requests {bad}")
+        print(f"token identity vs up-front engines: OK "
+              f"({len(phase_a)} + {len(phase_b)} requests)", flush=True)
+    if args.json:
+        print(json.dumps(rep, indent=2))
+    else:
+        print(f"served {len(phase_a) + len(phase_b)} requests / "
+              f"{rep['total_tokens']} tokens across the lifecycle drill")
+    return rep
 
 
 def main(argv=None) -> int:
@@ -110,6 +306,27 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--tenants", type=int, default=2)
     ap.add_argument("--ratio", type=int, default=128, choices=sorted(RATIO_SPECS))
+    ap.add_argument("--codec", default="deltadq",
+                    choices=("deltadq", "bitdelta", "lowrank", "auto", "mixed"),
+                    help="delta codec for every tenant: 'deltadq' keeps the --ratio "
+                         "spec table; 'bitdelta'/'lowrank' use those codecs' defaults; "
+                         "'auto' per-leaf picks the cheapest codec meeting "
+                         "--budget-bits; 'mixed' alternates DeltaDQ/BitDelta across "
+                         "tenants (one engine, two codec groups)")
+    ap.add_argument("--budget-bits", type=float, default=None,
+                    help="per-element bit budget for --codec auto")
+    ap.add_argument("--lifecycle", action="store_true",
+                    help="online-lifecycle drill: tenant0 serves while the rest of "
+                         "the fleet is compressed and hot-registered mid-traffic, "
+                         "then a tenant0 version rollout and a tenant1 retirement; "
+                         "fails on any re-stack or decode-step jit_trace after "
+                         "warm-up")
+    ap.add_argument("--check-identity", action="store_true",
+                    help="with --chunked, serve the stream again with whole-prompt "
+                         "prefill; with --codec mixed, serve each tenant's requests "
+                         "on an engine holding only that tenant; with --lifecycle, "
+                         "against engines holding the tenant versions up front; "
+                         "fail unless every request's tokens match")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
@@ -145,8 +362,22 @@ def main(argv=None) -> int:
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     base = lm.init_params(cfg, 0, device=args.device)
-    tenants = synth_tenants(cfg, base, args.tenants, RATIO_SPECS[args.ratio], seed=0)
+    if args.lifecycle:
+        run_lifecycle(args, cfg, base)
+        return 0
+    if args.codec == "auto" and args.budget_bits is None:
+        raise SystemExit("--codec auto needs --budget-bits")
+    if args.check_identity and not (args.chunked or args.codec == "mixed"):
+        raise SystemExit("--check-identity requires --chunked or --codec mixed "
+                         "(nothing to compare against otherwise)")
+    tenants = synth_tenants(cfg, base, args.tenants,
+                            tenant_specs(args.codec, args.tenants, args.ratio),
+                            seed=0, budget_bits=args.budget_bits)
     stream = request_stream(cfg, args.requests, args.tenants)
+
+    ref_reqs = None
+    if args.check_identity and args.chunked:
+        _, ref_reqs = _serve_stream(cfg, base, tenants, stream, args, default_path=True)
 
     kw = {}
     if args.trace_out:
@@ -159,19 +390,35 @@ def main(argv=None) -> int:
                                                   args.telemetry_snapshot_secs)
     for name, _, report in tenants:
         print(f"registered {name}: {report.summary()}", flush=True)
-    eng = ContinuousEngine(cfg, base, n_slots=args.slots, max_seq=args.max_seq,
-                           admission=args.admission,
-                           chunked_prefill=args.chunked, chunk_size=args.chunk_size,
-                           chunk_share=args.chunk_share, **kw)
-    for name, deltas, report in tenants:
-        eng.register_tenant(name, deltas, report)
-    reqs = [eng.submit(tenant, prompt, max_new_tokens=args.max_new,
-                       arrival=i * args.arrival_gap)
-            for i, (tenant, prompt) in enumerate(stream)]
-    rep = eng.run().report()
-    undone = [r.rid for r in reqs if not r.done]
-    if undone:
-        raise RuntimeError(f"engine run() left requests {undone} unfinished")
+    eng, reqs = _serve_stream(cfg, base, tenants, stream, args, **kw)
+    rep = eng.metrics.report()
+
+    if ref_reqs is not None:
+        bad = [r.rid for r, s in zip(reqs, ref_reqs)
+               if not np.array_equal(r.output(), s.output())]
+        if bad:
+            raise SystemExit(f"token identity FAILED for requests {bad}")
+        print(f"token identity vs whole-prompt prefill: OK ({len(reqs)} requests)",
+              flush=True)
+    if args.check_identity and args.codec == "mixed":
+        # mixed-codec contract: each request's tokens match an engine
+        # serving ONLY that tenant (same prompts, same arrivals per tenant)
+        # — the other codec group's zero row contributes exactly 0.0
+        bad = []
+        for name, deltas, report in tenants:
+            mine = [(i, r) for i, r in enumerate(reqs) if r.tenant == name]
+            eng_a = ContinuousEngine(cfg, base, **_engine_kw(args))
+            eng_a.register_tenant(name, deltas, report)
+            alone = [eng_a.submit(name, stream[i][1], max_new_tokens=args.max_new,
+                                  arrival=k * args.arrival_gap)
+                     for k, (i, _) in enumerate(mine)]
+            eng_a.run()
+            bad += [r.rid for (_, r), s in zip(mine, alone)
+                    if not np.array_equal(r.output(), s.output())]
+        if bad:
+            raise SystemExit(f"mixed-codec identity FAILED for requests {bad}")
+        print(f"token identity vs per-tenant-alone engines: OK "
+              f"({len(reqs)} requests, {len(eng._groups)} codec groups)", flush=True)
 
     if args.print_tokens:
         for r in reqs:

@@ -3,12 +3,14 @@ from repro_torch.serve.engine import (
     DeltaStore,
     Engine,
     Tenant,
+    TenantTable,
     mask_after_stop,
 )
 from repro_torch.serve.kv import SlotKVCache
 from repro_torch.serve.metrics import Metrics, TenantStats
+from repro_torch.serve.registry import DeltaRegistry, TenantRecord
 from repro_torch.serve.scheduler import VirtualClock, tenant_segments
 
-__all__ = ["ContinuousEngine", "DeltaStore", "Engine", "Metrics", "SlotKVCache",
-           "Tenant", "TenantStats", "VirtualClock", "mask_after_stop",
-           "tenant_segments"]
+__all__ = ["ContinuousEngine", "DeltaRegistry", "DeltaStore", "Engine", "Metrics",
+           "SlotKVCache", "Tenant", "TenantRecord", "TenantStats", "TenantTable",
+           "VirtualClock", "mask_after_stop", "tenant_segments"]

@@ -1,17 +1,21 @@
 """Multi-tenant serving engines — the paper's deployment scheme (Fig. 2/3).
 
-Port of ``repro/serve/engine.py`` for one card and the port's one codec.
-One **base model** is resident; each *tenant* registers only its
-DeltaDQ-compressed delta. Two engines share that model:
+Port of ``repro/serve/engine.py`` for one card. One **base model** is
+resident; each *tenant* registers only its compressed delta (any codec,
+lowered to the PackedDelta runtime layout at registration). Two engines
+share that model:
 
 * :class:`ContinuousEngine` — the production path. A continuous-batching
   scheduler packs requests from *mixed tenants* into fixed decode slots
   (``serve.scheduler``), a slot KV cache admits and evicts sequences
   mid-flight (``serve.kv``), and every decode step serves all slots at
   once through the tenant-stacked packed deltas (``core.apply.SlotDelta``)
-  — on the card, the ``delta_spmm_segments`` kernel. Prompt lengths are
+  — on the card, the ``delta_spmm_segments`` kernel. Tenants whose
+  packings differ form codec groups, one stack each. Prompt lengths are
   bucketed and left-padded; ``chunked_prefill=`` streams prompts in
-  fixed-size chunks inside the decode step instead.
+  fixed-size chunks inside the decode step instead. ``tenant_capacity=``
+  pre-allocates a :class:`TenantTable` so tenants register, roll out and
+  retire as in-place row writes.
 
 * :class:`Engine` — the static per-tenant-batch engine, kept as the
   reference path (``generate``) and as a thin shim: ``serve_batch``
@@ -19,10 +23,9 @@ DeltaDQ-compressed delta. Two engines share that model:
   grouping only where slot dispatch cannot apply.
 
 The reference jits each step; the port runs eagerly and updates the KV
-cache in place. What waits for later slices raises: ``mesh=``,
-``data > 1``, ``residency_budget_bytes=``, ``tenant_capacity=`` (the
-tenant table), tenants whose packings differ (mixed codec groups) and
-non-dense families.
+cache and the tenant table in place. What waits for later slices raises:
+``mesh=``, ``data > 1``, ``residency_budget_bytes=`` and non-dense
+families.
 """
 from __future__ import annotations
 
@@ -35,9 +38,9 @@ import torch
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.core.apply import (
-    stack_tenant_deltas,
+    _map_packed,
+    combine_slot_deltas,
     wrap_slot_deltas,
-    zero_delta_like,
 )
 from repro_torch.core.codecs import runtime_delta_tree
 from repro_torch.core.compress import CompressionReport
@@ -83,6 +86,10 @@ class Tenant:
 
     def bytes(self) -> int:
         return tree_bytes(self.deltas)
+
+    def codecs(self) -> tuple:
+        """Codec names appearing in this tenant's (runtime) delta tree."""
+        return tuple(sorted({l.codec for l in _packed_leaves(self.deltas)}))
 
 
 class DeltaStore:
@@ -160,6 +167,140 @@ def _stack_signature(deltas: Any) -> tuple:
         for l in _packed_leaves(deltas))
 
 
+def _alloc_rows(template: Any, n: int) -> Any:
+    """A tenant stack of ``n`` all-zero rows shaped after ``template``'s
+    leaves (scale f32, zero int32). A zero row decodes to exactly 0."""
+    def alloc(d: PackedDelta) -> PackedDelta:
+        return d.with_arrays(
+            torch.zeros((n, *d.idx.shape), dtype=d.idx.dtype, device=d.device),
+            torch.zeros((n, *d.codes.shape), dtype=d.codes.dtype, device=d.device),
+            torch.zeros((n, *d.scale.shape), dtype=torch.float32, device=d.device),
+            torch.zeros((n, *d.zero.shape), dtype=torch.int32, device=d.device))
+    return _map_packed(alloc, template)
+
+
+def _write_row(stacked: Any, row: int, tree: Optional[Any]) -> None:
+    """Row ``row`` of a tenant stack := ``tree`` (None: the zero delta),
+    in place, leaf by leaf."""
+    def write(t: PackedDelta, d: Optional[PackedDelta]) -> None:
+        if d is None:
+            for a in (t.idx, t.codes, t.scale, t.zero):
+                a[row].zero_()
+            return
+        t.idx[row].copy_(d.idx)
+        t.codes[row].copy_(d.codes)
+        t.scale[row].copy_(d.scale.to(torch.float32))
+        t.zero[row].copy_(d.zero.to(torch.int32))
+
+    if tree is None:
+        _map_packed(lambda t: write(t, None), stacked)
+    else:
+        _map_packed(write, stacked, tree)
+
+
+def _row_view(stacked: Any, row: int) -> Any:
+    """Row ``row`` of a tenant stack as an unstacked tree (views)."""
+    return _map_packed(lambda t: t.index(row), stacked)
+
+
+@dataclasses.dataclass
+class _CodecGroup:
+    """One stack-compatible tenant group of a mixed-codec engine.
+
+    ``stacked`` is the group's tenant-stacked runtime tree with the zero
+    delta at its row 0; ``lut`` maps a GLOBAL tenant row (the engine's
+    ``_rows`` / scheduler numbering) to this group's local stack row —
+    rows the group does not own map to 0, the zero delta, so applying
+    every group to every batch row and summing is exact (see
+    ``core.apply.MultiSlotDelta``). ``shapes`` is the stack's packing
+    signature, leading dimension included: the argument shapes a
+    reference jit would retrace on.
+    """
+    stacked: Any
+    lut: np.ndarray                   # int32 [n_global_rows]
+    names: List[str]
+    codecs: tuple
+    shapes: tuple = ()
+
+
+# ---------------------------------------------------------------------------
+# Static tenant table: pre-allocated stack rows for hot registration
+# ---------------------------------------------------------------------------
+class TenantTable:
+    """Pre-allocated tenant-stacked envelope with free rows.
+
+    The dynamic path re-stacks the whole tenant dimension on every
+    register/unregister (the stack's leading dimension changes). The
+    table allocates ``capacity + 1`` rows up front (row 0 = the zero
+    delta, as in every stack) shaped after the FIRST tenant's runtime
+    tree, and lifecycle events become in-place row writes:
+
+    * **register** fills a free row (per-leaf ``copy_``): values change,
+      shapes never do;
+    * **retire** tombstones the row (zeroes it, so a stale dispatch of
+      that row decodes to an exact 0.0) and returns it to the free list —
+      other tenants' rows never shift;
+    * **rollout** writes the new version into a *new* row and the engine
+      flips the name→row mapping, so in-flight sequences keep decoding
+      against the old row until they drain.
+
+    Every tenant must match the template's tree structure AND stack
+    signature (:meth:`check_compatible`); heterogeneous-codec fleets need
+    the dynamic multi-group path.
+    """
+
+    def __init__(self, template: Any, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"tenant_capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self.signature = _stack_signature(template)
+        self.structure = _tree_structure(template)
+        self.stacked = _alloc_rows(template, self.capacity + 1)
+        self._free: List[int] = list(range(1, self.capacity + 1))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def check_compatible(self, tree: Any) -> None:
+        """Raise ValueError unless ``tree`` can fill a row (called BEFORE
+        any engine state mutates, so a rejected tenant is a no-op)."""
+        if _tree_structure(tree) != self.structure:
+            raise ValueError(
+                "tenant delta tree structure does not match the tenant "
+                "table template; cannot hot-register")
+        got_sig = _stack_signature(tree)
+        if got_sig != self.signature:
+            raise ValueError(
+                f"tenant packing meta signature {got_sig!r} does not "
+                f"match the tenant table template {self.signature!r}; "
+                "heterogeneous-codec fleets need the dynamic "
+                "(tenant_capacity=None) engine")
+
+    def alloc(self) -> int:
+        """Claim the lowest free row; ValueError when the table is full."""
+        if not self._free:
+            raise ValueError(
+                f"tenant table full ({self.capacity} rows); retire a "
+                "tenant or raise tenant_capacity")
+        return self._free.pop(0)
+
+    def free(self, row: int) -> None:
+        if row in self._free or not 1 <= row <= self.capacity:
+            raise ValueError(f"bad tenant-table row free: {row}")
+        self._free.append(row)
+        self._free.sort()
+
+    def write(self, row: int, tree: Any) -> None:
+        """Fill ``row`` from a runtime delta tree on the table's device,
+        in place (scale cast to f32, zero to int32)."""
+        _write_row(self.stacked, row, tree)
+
+    def clear(self, row: int) -> None:
+        """Tombstone ``row``: the zero delta, written in place."""
+        _write_row(self.stacked, row, None)
+
+
 # ---------------------------------------------------------------------------
 # Continuous-batching engine
 # ---------------------------------------------------------------------------
@@ -194,6 +335,22 @@ class ContinuousEngine:
     their ring entry back afterwards (``SlotKVCache.restore_entries``),
     bit for bit.
 
+    Tenants of any codec register: each tree is lowered to the
+    PackedDelta runtime layout once, at registration. Tenants whose
+    packings differ (codec, group size, quantization width) land in
+    separate codec groups (:class:`_CodecGroup`), one stack each; every
+    step runs one correction per group and site and sums them
+    (``core.apply.MultiSlotDelta``), exact because a row's other groups
+    map it to their zero row.
+
+    ``tenant_capacity=`` switches the lifecycle to TABLE mode: a
+    :class:`TenantTable` of ``capacity + 1`` rows (built from the first
+    tenant's tree, or seeded from a pre-populated ``store``) whose rows
+    are written and tombstoned in place, so register, rollout and retire
+    never re-stack (``restacks`` counts the dynamic path's re-stacks).
+    A rollout lands in a new row; in-flight sequences drain on the old
+    one, which is then cleared and freed.
+
     ``trace=`` (a :class:`~repro_torch.serve.trace.Tracer`), ``slo=`` (a
     :class:`~repro_torch.serve.telemetry.SLOCounters`) and ``telemetry=``
     (a :class:`~repro_torch.serve.telemetry.TelemetrySnapshotWriter`)
@@ -227,10 +384,6 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "residency_budget_bytes=: the pre-decoded delta residency "
                 "tier is not ported yet")
-        if tenant_capacity is not None:
-            raise NotImplementedError(
-                "tenant_capacity=: the tenant table (hot registration) is "
-                "not ported yet; the port re-stacks tenants on registration")
         if slot_dispatch not in ("segments", "per_row"):
             raise ValueError(f"slot_dispatch={slot_dispatch!r} not in "
                              "('segments', 'per_row')")
@@ -241,6 +394,19 @@ class ContinuousEngine:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.store = store if store is not None else DeltaStore()
+        if tenant_capacity is not None:
+            if int(tenant_capacity) < 1:
+                raise ValueError(
+                    f"tenant_capacity must be >= 1, got {tenant_capacity}")
+            if len(self.store.names()) > int(tenant_capacity):
+                raise ValueError(
+                    f"store already holds {len(self.store.names())} tenants "
+                    f"> tenant_capacity={tenant_capacity}")
+        self.tenant_capacity = (None if tenant_capacity is None
+                                else int(tenant_capacity))
+        self._table: Optional[TenantTable] = None
+        self._retiring: set = set()      # rolled-out rows awaiting drain
+        self.restacks = 0                # dynamic re-stacks of the tenant rows
         # dense attention only: left-padding is safe, so lengths bucket
         self.buckets = LengthBuckets(min_bucket=min_bucket,
                                      max_bucket=max_seq, exact=False)
@@ -270,42 +436,81 @@ class ContinuousEngine:
         self.telemetry = telemetry
         self.bus = EventBus([self.metrics, trace, slo])
         # path-attribution notes per call signature. The reference's
-        # dispatch notes fire only while jax traces a signature; here they
-        # fire on every call, so the first call of a signature emits the
-        # jit_trace event and later calls replay its notes
+        # dispatch notes fire only while jax traces; here they fire on
+        # every call, so a call whose argument shapes the engine has not
+        # seen (what would retrace a jit there: _traced) emits the
+        # jit_trace event and later calls replay the signature's notes
         self._path_notes: dict = {}
+        self._traced: set = set()
+        # jit_trace events of the step's signatures (decode, decode_masked,
+        # combined): the reference's decode recompiles
+        self.decode_traces = 0
 
         # host mirrors of per-slot decode state (row 0 = zero delta / base)
         self._tok = np.zeros(n_slots, np.int64)
         self._pos = np.zeros(n_slots, np.int64)
         self._row = np.zeros(n_slots, np.int32)
 
-        # tenant-stacked deltas tree: the zero delta at row 0, tenants in
-        # registration order (None with no tenants)
-        self._stacked = None
-        self._zero_tree = None        # unstacked all-zero tree (base prefill)
+        # one tenant stack per codec group, the zero delta at each row 0
+        self._groups: List[_CodecGroup] = []
+        # unstacked all-zero tree (base prefill): a view of group 0's row 0
+        self._zero_tree = None
         self._rows: dict[str, int] = {}
         self._store_version = -1
         self._t0: Optional[float] = None
         self.prefill_shapes: set = set()
 
-    # -- tenants ------------------------------------------------------------
-    def register_tenant(self, name: str, deltas: Any, report=None) -> Tenant:
-        """Register (or replace) a tenant and re-stack the tenant rows.
+        # table mode over a pre-populated store: seed the table with the
+        # existing tenants (registration order), exactly as if each had
+        # been hot-registered
+        if self.tenant_capacity is not None and self.store.names():
+            for t in self.store.ordered():
+                self._table_admit(t.name,
+                                  self._on_device(runtime_delta_tree(t.deltas)))
+            self._store_version = self.store.version
 
-        ``deltas`` is lowered to the PackedDelta runtime layout here,
-        once. A tenant whose tree cannot join the engine fails here, not
-        mid-run inside a prefill, and a rejected registration leaves the
-        engine untouched. A same-name re-register is refused while the
-        tenant has in-flight sequences (they would switch deltas
-        mid-sequence).
+    # -- tenants ------------------------------------------------------------
+    def _on_device(self, tree: Any) -> Any:
+        """A runtime delta tree on the engine's device (no copy where it
+        already is)."""
+        return _map_packed(lambda d: d.to(self.device), tree)
+
+    def register_tenant(self, name: str, deltas: Any, report=None) -> Tenant:
+        """Register (or roll out a new version of) a tenant.
+
+        ``deltas`` may be any codec's compressed tree, on any device; it is
+        lowered to the PackedDelta runtime layout and moved to the
+        engine's device here, once. A tenant whose tree cannot join the
+        engine fails here, not mid-run inside a prefill, and a rejected
+        registration leaves the engine untouched.
+
+        Table mode: the tenant fills a free table row in place; re-register
+        of an existing name is the rollout path — the new version lands in
+        a fresh row and only NEW requests see it. Dynamic mode re-stacks
+        its codec group and refuses a same-name re-register while the
+        tenant has in-flight sequences.
         """
-        rt = runtime_delta_tree(deltas)
+        rt = self._on_device(runtime_delta_tree(deltas))
+        if self.tenant_capacity is not None:
+            rollout = name in self._rows
+            old = self._rows.get(name)
+            row, _ = self._table_admit(name, rt)     # raises pre-mutation
+            t = self.store.register(name, rt, report, replace=rollout)
+            self._store_version = self.store.version
+            if rollout:
+                self.bus.emit("tenant_rollout", self._now(), tenant=name,
+                              row=row, old_row=old,
+                              retiring=len(self._retiring))
+            else:
+                self.bus.emit("tenant_register", self._now(), tenant=name,
+                              row=row, free_rows=self._table.n_free)
+            return t
         replace = name in self.store.names()
         if replace and self._tenant_in_flight(name):
             raise RuntimeError(
                 f"tenant {name!r} has in-flight sequences; re-registering "
-                "would switch their deltas mid-sequence — drain first")
+                "would switch their deltas mid-sequence — drain first, or "
+                "serve with tenant_capacity= for hot version rollout")
         snap = self.store.snapshot()
         t = self.store.register(name, rt, report, replace=replace)
         try:
@@ -319,9 +524,13 @@ class ContinuousEngine:
         return t
 
     def unregister_tenant(self, name: str) -> None:
-        """Retire a tenant and re-stack the rest. Refuses while the tenant
-        has in-flight sequences or queued requests; a refused retire
-        leaves the engine untouched."""
+        """Retire a tenant.
+
+        Table mode tombstones its row in place (zeroed and returned to the
+        free list — no other tenant's row shifts). Dynamic mode re-stacks
+        the remaining tenants. Both refuse while the tenant has in-flight
+        sequences or queued requests, and a refused retire leaves the
+        engine untouched."""
         self.store.get(name)             # KeyError early for unknown names
         if self._tenant_in_flight(name):
             raise RuntimeError(
@@ -331,6 +540,16 @@ class ContinuousEngine:
             raise RuntimeError(
                 f"tenant {name!r} has queued requests; drain before "
                 "retiring")
+        if self.tenant_capacity is not None:
+            row = self._rows.pop(name)
+            self.store.unregister(name)
+            self._store_version = self.store.version
+            self._table.clear(row)
+            self._table.free(row)
+            self._sync_table_group()
+            self.bus.emit("tenant_retire", self._now(), tenant=name,
+                          row=row, free_rows=self._table.n_free)
+            return
         snap = self.store.snapshot()
         self.store.unregister(name)
         try:
@@ -344,29 +563,98 @@ class ContinuousEngine:
         return any(self.sched.slots[s].request.tenant == name
                    for s in self.sched.active_slots())
 
+    # -- tenant table (hot lifecycle) ---------------------------------------
+    def _table_admit(self, name: str, rt: Any) -> tuple:
+        """Fill a tenant-table row for ``name`` (no store writes, no
+        events — seeding and hot registration both route here). Returns
+        ``(row, old_row)``. Everything fallible happens before the first
+        mutation, so a rejected tenant leaves the engine untouched."""
+        if self._table is None:
+            # the first tenant fixes the template: the envelope is built
+            # once, here, as ONE group with an identity LUT for the
+            # table's whole life
+            table = TenantTable(rt, self.tenant_capacity)
+            self._table = table
+            self._zero_tree = _row_view(table.stacked, 0)
+            lut = np.arange(self.tenant_capacity + 1, dtype=np.int32)
+            codecs = tuple(sorted({sig[6] for sig in table.signature}))
+            self._groups = [_CodecGroup(
+                stacked=table.stacked, lut=lut, names=[], codecs=codecs,
+                shapes=_stack_signature(table.stacked))]
+        else:
+            self._table.check_compatible(rt)
+        self._reclaim_retired()
+        row = self._table.alloc()        # ValueError when full, pre-mutation
+        old = self._rows.get(name)
+        self._table.write(row, rt)
+        self._rows[name] = row
+        if old is not None:
+            # rollout: in-flight sequences keep decoding the old row
+            # until they drain; tombstone it now if nothing references it
+            live = {int(self.sched.slots[s].tenant_row)
+                    for s in self.sched.active_slots()}
+            if old in live:
+                self._retiring.add(old)
+            else:
+                self._table.clear(old)
+                self._table.free(old)
+        self._sync_table_group()
+        return row, old
+
+    def _sync_table_group(self) -> None:
+        """Bookkeeping after a row write: the group's tenant names (the
+        table is written in place, so dispatch needs nothing else)."""
+        self._groups[0].names = [
+            n for n, _ in sorted(self._rows.items(), key=lambda kv: kv[1])]
+
+    def _reclaim_retired(self) -> None:
+        """Tombstone rolled-out rows once their last in-flight sequence
+        drains (lazy: checked at request finish and before row alloc)."""
+        if not self._retiring:
+            return
+        live = {int(self.sched.slots[s].tenant_row)
+                for s in self.sched.active_slots()}
+        done = sorted(self._retiring - live)
+        if not done:
+            return
+        for row in done:
+            self._table.clear(row)
+            self._table.free(row)
+            self._retiring.discard(row)
+        self._sync_table_group()
+
     def _refresh_stacked(self) -> None:
-        """Re-stack the tenant rows after a store change: zero delta at
-        row 0, tenants in registration order. Runs once per store
-        version, never per step. Every check (tree structure, packing,
-        rows shifted under in-flight requests) comes before any change,
-        so a rejected register/unregister leaves the engine as it was."""
+        """Re-stack the tenant rows after a store change (dynamic mode):
+        tenants partitioned into codec groups by packing signature
+        (first-fit in registration order), each group's stack with the
+        zero delta at row 0. Runs once per store version, never per step.
+        Every check (tree structure, rows shifted under in-flight
+        requests) comes before any change, so a rejected register or
+        unregister leaves the engine as it was."""
+        if self.tenant_capacity is not None:
+            return   # table mode: dispatch state is maintained per row write
         if self._store_version == self.store.version:
             return
         tenants = self.store.ordered()
         new_rows = {t.name: i + 1 for i, t in enumerate(tenants)}
+        buckets: List[tuple] = []        # (signature, [(global_row, Tenant)])
         if tenants:
             ref_struct = _tree_structure(tenants[0].deltas)
-            ref_sig = _stack_signature(tenants[0].deltas)
-            for t in tenants:
+            for i, t in enumerate(tenants):
                 if _tree_structure(t.deltas) != ref_struct:
+                    # codec groups relax the *packing* meta, not the tree
+                    # shape: combining per-group corrections needs every
+                    # group's tree to mirror the same param sites
                     raise ValueError(
                         "tenant delta trees differ in structure; "
                         "cannot stack for slot dispatch")
-                if _stack_signature(t.deltas) != ref_sig:
-                    raise NotImplementedError(
-                        f"tenant {t.name!r} is packed differently from "
-                        f"{tenants[0].name!r}: mixed codec groups "
-                        "(MultiSlotDelta) are not ported yet")
+                sig = _stack_signature(t.deltas)
+                for bsig, members in buckets:
+                    if bsig == sig:
+                        members.append((i + 1, t))
+                        break
+                else:
+                    buckets.append((sig, [(i + 1, t)]))
         # registration is append-only so rows never shift — but a live
         # unregister would remap rows under in-flight sequences, silently
         # decoding them with another tenant's delta. Refuse instead.
@@ -379,18 +667,26 @@ class ContinuousEngine:
                     f"tenant stack rows shifted under in-flight request "
                     f"{state.request.rid} (tenant {state.request.tenant!r}); "
                     "drain the engine before unregistering tenants")
-        # drop the old stack before building the new one: one stacked
+        # drop the old stacks before building the new ones: one stacked
         # copy at a time (a failed build leaves the engine stale, so the
         # next refresh builds again)
-        self._stacked = None
+        self._groups, self._zero_tree = [], None
         self._store_version = -1
-        new_zero = new_stacked = None
-        if tenants:
-            new_zero = zero_delta_like(tenants[0].deltas)
-            new_stacked = stack_tenant_deltas(
-                [new_zero] + [t.deltas for t in tenants])
-        self._stacked = new_stacked
-        self._zero_tree = new_zero
+        groups = []
+        n_global = len(tenants) + 1
+        for _, members in buckets:
+            stacked = _alloc_rows(members[0][1].deltas, len(members) + 1)
+            lut = np.zeros(n_global, np.int32)
+            for local, (grow, t) in enumerate(members, start=1):
+                _write_row(stacked, local, t.deltas)
+                lut[grow] = local
+            groups.append(_CodecGroup(
+                stacked=stacked, lut=lut, names=[t.name for _, t in members],
+                codecs=tuple(sorted({c for _, t in members for c in t.codecs()})),
+                shapes=_stack_signature(stacked)))
+        self.restacks += 1
+        self._groups = groups
+        self._zero_tree = _row_view(groups[0].stacked, 0) if groups else None
         self._rows = new_rows
         self._store_version = self.store.version
 
@@ -427,17 +723,23 @@ class ContinuousEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
-    def _record_path(self, sig: tuple, site: str, notes: list,
+    def _record_path(self, sig: tuple, shapes: tuple, site: str, notes: list,
                      now: float) -> tuple:
-        """Emit ``jit_trace`` the first time ``sig`` is called with notes
-        (the reference's trace of that signature) and return (the
+        """Emit ``jit_trace`` when this call's argument shapes are new
+        (``sig`` plus ``shapes``: what would retrace a jit in the
+        reference, e.g. a re-stack's new leading dimension), with
+        ``first`` unless ``sig`` was seen before, as
+        ``src/repro/serve/engine.py:1425-1429`` does; return (the
         signature's memoised notes, whether this call emitted)."""
-        first = bool(notes) and sig not in self._path_notes
-        if first:
+        key = (sig, shapes)
+        traced = bool(notes) and key not in self._traced
+        if traced:
+            self._traced.add(key)
+            self.decode_traces += site != "prefill"
             self.bus.emit("jit_trace", now, signature=sig, site=site,
-                          first=True, notes=list(notes))
+                          first=sig not in self._path_notes, notes=list(notes))
             self._path_notes[sig] = list(notes)
-        return self._path_notes.get(sig, []), first
+        return self._path_notes.get(sig, []), traced
 
     def _prefill_into(self, slot: int, req: Request, now: float) -> None:
         self._refresh_stacked()
@@ -459,7 +761,9 @@ class ContinuousEngine:
                 self.cfg, self.base,
                 {"tokens": batch[0:1], "positions": batch[1:2]},
                 row_cache, deltas=deltas)
-        self._record_path(("prefill", bucket), "prefill", notes, now)
+        self._record_path(("prefill", bucket),
+                          _stack_signature(deltas) if deltas is not None else None,
+                          "prefill", notes, now)
         self.kv.insert(slot, row_cache)
 
         first = int(torch.argmax(logits[0]))
@@ -499,6 +803,9 @@ class ContinuousEngine:
         # park the freed slot on tenant row 0 so stale rows don't inflate
         # the unique-tenant segment count of subsequent decode steps
         self._row[slot] = 0
+        if self._retiring:
+            # a rollout's old row may just have lost its last reference
+            self._reclaim_retired()
 
     # -- chunked prefill ----------------------------------------------------
     def _admit_chunked(self, slot: int, req: Request, now: float) -> None:
@@ -581,12 +888,13 @@ class ContinuousEngine:
                      "valid": chunk[2:3].bool()}, row, deltas=cd)
                 cn = torch.argmax(clog[0], dim=-1)
         if task is None:
-            sig = ("decode_masked", self._n_groups(), False)
+            sig = ("decode_masked", len(self._groups), False)
             site = "decode_masked"
         else:
-            sig = ("combined", self.chunk_size, self._n_groups(), False)
+            sig = ("combined", self.chunk_size, len(self._groups), False)
             site = "combined"
-        path_notes, recompiled = self._record_path(sig, site, notes, now)
+        path_notes, recompiled = self._record_path(sig, self._group_shapes(), site,
+                                                   notes, now)
         nxt = nxt.cpu().numpy()
         t = self._now()
         self.bus.emit(
@@ -642,24 +950,32 @@ class ContinuousEngine:
 
     def _slot_delta(self, rows: np.ndarray):
         """Per-slot delta dispatch tree for one step (None with no
-        tenants): the tenant stack with per-row tenant rows and, for the
-        segments dispatch, the tenant-sorted layout (built on the host,
-        copied to the device once). ``rows`` is the [n_slots] tenant-row
-        vector a decode step serves (the chunked path masks parked slots
-        to row 0), or the one row of a prompt chunk, which threads the
-        SAME segment dispatch as decode (on the card the segments kernel
-        at T = ``chunk_size``)."""
-        if self._stacked is None:
+        tenants). ``rows`` is the [n_slots] GLOBAL tenant-row vector a
+        decode step serves (the chunked path masks parked slots to row
+        0), or the one row of a prompt chunk, which threads the SAME
+        segment dispatch as decode (on the card the segments kernel at
+        T = ``chunk_size``). Each codec group gets its group-local rows —
+        slots owned by another group's tenants (and base slots) map to
+        this group's zero row and contribute an exact 0.0 — and, for the
+        segments dispatch, their tenant-sorted layout (built on the host,
+        copied to the device once), which leaves the zero row's segment
+        out so those rows are zero-filled, not decoded; the groups' trees
+        are combined into MultiSlotDelta leaves."""
+        if not self._groups:
             return None
-        seg = None
-        if self.slot_dispatch == "segments":
-            seg = tenant_segments(rows).to(self.device)
-        return wrap_slot_deltas(self._stacked,
-                                self._to_device(rows.astype(np.int64)), segments=seg)
+        parts = []
+        for g in self._groups:
+            rows_g = g.lut[rows]
+            seg = None
+            if self.slot_dispatch == "segments":
+                seg = tenant_segments(rows_g, skip_zero_row=True).to(self.device)
+            parts.append(wrap_slot_deltas(
+                g.stacked, self._to_device(rows_g.astype(np.int64)), segments=seg))
+        return combine_slot_deltas(parts)
 
-    def _n_groups(self) -> int:
-        """Stack groups in the reference's signatures (one at most here)."""
-        return int(self._stacked is not None)
+    def _group_shapes(self) -> tuple:
+        """The codec groups' stack shapes (a reference jit's retrace key)."""
+        return tuple(g.shapes for g in self._groups)
 
     def _decode_all(self, now: float) -> None:
         active = self.sched.active_slots()
@@ -672,8 +988,9 @@ class ContinuousEngine:
             logits, _ = lm.decode_step(self.cfg, self.base, self.kv.cache,
                                        dev[0][:, None], dev[1], deltas=sd)
             nxt = torch.argmax(logits, dim=-1)
-        sig = ("decode", self._n_groups(), False)
-        path_notes, recompiled = self._record_path(sig, "decode", notes, now)
+        sig = ("decode", len(self._groups), False)
+        path_notes, recompiled = self._record_path(sig, self._group_shapes(), "decode",
+                                                   notes, now)
         nxt = nxt.cpu().numpy()
         t = self._now()
         self.bus.emit(
@@ -837,13 +1154,12 @@ class Engine:
 
         Thin shim over :class:`ContinuousEngine`; falls back to the
         per-tenant static grouping where slot dispatch cannot apply to
-        the registered tenants (trees of different structure, packings
-        that need mixed codec groups).
+        the registered tenants (trees of different structure).
         """
         try:
             eng = self._continuous()
             eng._refresh_stacked()   # raises for non-stackable tenant sets
-        except (ValueError, NotImplementedError):
+        except ValueError:
             return self._serve_batch_grouped(requests, max_new_tokens)
         for tenant, prompt in requests:
             # capacity errors must NOT fall back: the grouped path would

@@ -202,7 +202,7 @@ class LengthBuckets:
 # ---------------------------------------------------------------------------
 # Tenant-segment layout (unique-tenant decode dispatch)
 # ---------------------------------------------------------------------------
-def tenant_segments(rows: np.ndarray):
+def tenant_segments(rows: np.ndarray, *, skip_zero_row: bool = False):
     """Build the static-shape tenant-segment layout for one decode step.
 
     ``rows`` int [B] is the per-slot tenant row (0 = base/zero delta).
@@ -212,6 +212,11 @@ def tenant_segments(rows: np.ndarray):
     (empty segments carry ``seg_offsets[s] == seg_offsets[s+1]`` and
     tenant row 0) so every decode step shares ONE jit shape regardless
     of how many distinct tenants happen to share the batch.
+
+    ``skip_zero_row`` leaves row 0's segment out: its rows (sorted first)
+    are then covered by no segment, and the segments kernel and its plain
+    version zero-fill them — the same exact 0.0 the zero delta decodes
+    to, without reading it.
     """
     from repro_torch.core.apply import TenantSegments
     rows = np.asarray(rows, np.int32)
@@ -219,6 +224,8 @@ def tenant_segments(rows: np.ndarray):
     order = np.argsort(rows, kind="stable").astype(np.int32)
     inv_order = np.argsort(order, kind="stable").astype(np.int32)
     uniq, starts = np.unique(rows[order], return_index=True)
+    if skip_zero_row and len(uniq) and uniq[0] == 0:
+        uniq, starts = uniq[1:], starts[1:]
     seg_rows = np.zeros(B, np.int32)
     seg_rows[:len(uniq)] = uniq
     seg_offsets = np.full(B + 1, B, np.int32)

@@ -587,3 +587,133 @@ def test_engine_chunks_launch_segments_at_chunk_size(engine_fleet, monkeypatch):
     assert rows.count(4) == sites * rep["decode_steps"]
     assert set(rows) == {3, 4}
     assert kern.LAUNCHES["delta_spmm_segments"] == len(rows)
+
+
+# ---------------------------------------------------------------------------
+# The codec packings: BitDelta and LowRank lowerings (keep = h_g = 128)
+# ---------------------------------------------------------------------------
+def _codec_packed(codec, h_in, h_out, seed, device):
+    from repro_torch.core import codecs
+    g = torch.Generator().manual_seed(seed)
+    c = codecs.get_codec(codec)
+    base = torch.randn((h_in, h_out), generator=g) * 0.02
+    ft = base + torch.randn((h_in, h_out), generator=g) * 0.02
+    spec = codecs.BitDeltaSpec() if codec == "bitdelta" else codecs.LowRankSpec(rank=4)
+    return c.runtime_packed(c.compress_leaf(base, ft, spec)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 8, 16, 64, 128])
+@pytest.mark.parametrize("codec", ["bitdelta", "lowrank"])
+def test_codec_packings_through_both_kernels(cuda, codec, T):
+    """Both correction kernels against their plain versions on a codec's
+    lowering, a row's bits equal in its segment, and the group's zero
+    row exactly 0.0 (the mixed-codec identity rests on it)."""
+    from repro_torch.core.apply import zero_delta_like
+    d = _codec_packed(codec, 384, 200, 50, cuda)
+    assert (d.h_g, d.keep) == (128, 128) and ops.envelope_miss(d) is None
+    x = _x(T, 384, 51, cuda)
+    before = dict(kern.LAUNCHES)
+    y = ops.delta_spmm(x, d)
+    torch.testing.assert_close(y, fb.correction(x, d, gather_max_t=8), **TOL)
+    stack = stack_tenant_deltas([zero_delta_like({"w": d}), {"w": d}])["w"]
+    rows = (np.arange(T) % 2).astype(np.int32)
+    seg = tenant_segments(rows).to(cuda)
+    xs = x.index_select(0, seg.order)
+    ys = ops.delta_spmm_segments(xs, stack, seg.seg_rows, seg.seg_offsets)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["delta_spmm"] == before["delta_spmm"] + 1
+    assert kern.LAUNCHES["delta_spmm_segments"] == before["delta_spmm_segments"] + 1
+    own = torch.as_tensor(rows, device=cuda)[seg.order] == 1
+    assert torch.equal(ys[own], y.index_select(0, seg.order)[own])
+    assert torch.equal(ys[~own], torch.zeros_like(ys[~own]))
+
+
+@pytest.mark.gpu
+def test_prefill_tile_refuses_keep_128_and_decode_route_takes_it(cuda):
+    d = _codec_packed("bitdelta", 256, 96, 52, cuda)
+    assert not kern.prefill_fits(128, 128, 128)
+    assert ops.spmm_row_tile(128, d) == 8
+    x = _x(128, 256, 53, cuda)
+    before = dict(kern.ROUTES)
+    y = ops.delta_spmm(x, d)
+    torch.cuda.synchronize()
+    assert kern.ROUTES["delta_spmm_decode"] == before["delta_spmm_decode"] + 1
+    assert kern.ROUTES["delta_spmm_prefill"] == before["delta_spmm_prefill"]
+    assert _bits_equal(y[5:6], ops.delta_spmm(x[5:6], d))
+    with pytest.raises(ValueError, match="does not fit"):
+        kern.delta_spmm_cuda(x, d, tb=128)
+
+
+@pytest.mark.gpu
+def test_table_row_write_leaves_other_rows_unchanged(cuda):
+    """TenantTable.write/clear on the card: in place, one row's bytes."""
+    from repro_torch.serve import TenantTable
+    trees = [{"w": _pack(128, 64, 16, 8, 4, 60 + t, cuda)} for t in range(3)]
+    table = TenantTable(trees[0], capacity=3)
+    w = table.stacked["w"]
+    ptrs = [a.data_ptr() for a in (w.idx, w.codes, w.scale, w.zero)]
+    table.write(1, trees[0])
+    table.write(3, trees[2])
+    before = [a.clone() for a in (w.idx, w.codes, w.scale, w.zero)]
+    table.write(2, trees[1])
+    table.clear(3)
+    torch.cuda.synchronize()
+    for a, b in zip((w.idx, w.codes, w.scale, w.zero), before):
+        assert torch.equal(a[:2], b[:2]) and not a[3].any()
+    assert torch.equal(w.codes[2], trees[1]["w"].codes)
+    assert [a.data_ptr() for a in (w.idx, w.codes, w.scale, w.zero)] == ptrs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["delta_spmm", "delta_spmm_segments",
+                                   "delta_spmm_slots", "fused_base_delta", "dequant"])
+def test_out_of_envelope_on_the_card_raises(cuda, entry):
+    """No plain formulation runs on the card: every entry point refuses a
+    packing outside the envelope, naming the dimension."""
+    g = torch.Generator().manual_seed(61)
+    d = groupwise_dropout_pack(torch.randn(512, 32, generator=g) * 0.02, h_g=512,
+                               alpha=8.0, generator=g).to(cuda)
+    assert ops.envelope_miss(d) == "h_g"
+    x = _x(4, 512, 62, cuda)
+    stack = stack_tenant_deltas([{"w": d}, {"w": d}])["w"]
+    calls = {
+        "delta_spmm": lambda: ops.delta_spmm(x, d),
+        "delta_spmm_segments": lambda: ops.delta_spmm_segments(
+            x, stack, torch.tensor([1], device=cuda), torch.tensor([0, 4], device=cuda)),
+        "delta_spmm_slots": lambda: ops.delta_spmm_slots(x[:2, None], stack),
+        "fused_base_delta": lambda: ops.fused_base_delta(
+            x, torch.zeros(512, 32, device=cuda), d),
+        "dequant": lambda: ops.dequant(d),
+    }
+    with pytest.raises(ValueError, match=rf"{entry}: .*envelope \(h_g\)"):
+        calls[entry]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunked", [False, True])
+def test_mixed_codec_engine_equals_alone_on_card(engine_fleet, chunked):
+    """tenant1 served as BitDelta beside two DeltaDQ tenants: two codec
+    groups, every step one segments call per group and site, and every
+    request equal to an engine holding only its tenant."""
+    from repro_torch.core.codecs import BitDeltaSpec
+    from repro_torch.launch.serve import synth_tenants
+    cfg, base, tenants = engine_fleet
+    bd = synth_tenants(cfg, base, 1, [BitDeltaSpec()], seed=1)[0]
+    fleet = (cfg, base, [tenants[0], ("tenant1",) + bd[1:], tenants[2]])
+    kw = dict(chunked_prefill=True, chunk_size=4) if chunked else {}
+    eng = _cuda_engine(fleet, **kw)
+    assert [g.codecs for g in eng._groups] == [("deltadq",), ("bitdelta",)]
+    stream = _cuda_stream(cfg.vocab)
+    mixed = _submit_all(eng, stream)
+    kern.reset_launches()
+    eng.run()
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["delta_spmm_segments"] % (2 * 7 * cfg.n_layers) == 0
+    for name, d, rep in [(None, None, None)] + fleet[2]:
+        alone = _cuda_engine((cfg, base, [] if name is None else [(name, d, rep)]), **kw)
+        idx = [i for i, (t, _) in enumerate(stream) if t == name]
+        got = _submit_all(alone, stream, idx)
+        alone.run()
+        for i, r in zip(idx, got):
+            np.testing.assert_array_equal(r.output(), mixed[i].output())

@@ -37,6 +37,7 @@ SPEC = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
 # the serving slice's modules, which the boundary test must reach
 SERVING_MODULES = ("repro_torch.serve.kv", "repro_torch.serve.metrics",
                    "repro_torch.serve.telemetry", "repro_torch.serve.engine",
+                   "repro_torch.serve.registry", "repro_torch.core.codecs",
                    "repro_torch.launch.serve")
 
 
@@ -93,6 +94,16 @@ def test_generate_logits_match_reference_bf16():
 
 
 def test_mixed_slot_decode_equals_per_tenant_decode_exactly():
+    _mixed_slot_decode_equals_per_tenant_decode(skip_zero_row=False)
+
+
+def test_mixed_slot_decode_zero_row_skipped_equals_per_tenant_decode():
+    """The engine's layout: base slots (row 0) are in no segment and get a
+    zero-filled correction, bit-equal to decoding the zero delta."""
+    _mixed_slot_decode_equals_per_tenant_decode(skip_zero_row=True)
+
+
+def _mixed_slot_decode_equals_per_tenant_decode(skip_zero_row):
     """One decode step over 8 slots of {base, tenant0..2} with per-slot
     positions (the call ContinuousEngine._decode_all makes) equals each
     tenant's own decode of the same batch, bit for bit, on the CPU."""
@@ -123,7 +134,7 @@ def test_mixed_slot_decode_equals_per_tenant_decode_exactly():
     mixed_cache = [{k: torch.stack([caches[rows[b]][li][k][b] for b in range(B)])
                     for k in ("k", "v", "pos")} for li in range(cfg.n_layers)]
     stacked = stack_tenant_deltas([zero_delta_like(trees[0])] + trees)
-    seg = tenant_segments(rows).to("cpu")
+    seg = tenant_segments(rows, skip_zero_row=skip_zero_row).to("cpu")
     sd = wrap_slot_deltas(stacked, torch.from_numpy(rows).long(), segments=seg)
     mixed, _ = tlm.decode_step(cfg, base, mixed_cache, step_tok, step_pos, deltas=sd)
     for b in range(B):

@@ -425,34 +425,42 @@ def test_live_unregister_refuses_to_remap_inflight_rows():
 
 
 def test_register_rejects_other_structure_and_packing():
-    """A tree of another structure fails with ValueError, one of another
-    packing (a mixed codec group, not ported) with NotImplementedError;
-    either leaves the engine's tenants as they were, and serve_batch
-    falls back to per-tenant grouping for such a fleet."""
+    """A tree of another structure fails with ValueError and leaves the
+    engine's tenants as they were; one of another packing (DeltaDQ at
+    32x beside the 128x fleet) forms a second codec group and serves
+    token-identically to an engine holding it alone; serve_batch still
+    serves such a fleet as Engine.generate does."""
     cfg, base, fleet = _fleet()
     eng = _engine()
     bad = {k: dict(v) for k, v in fleet[0][1].items()}
     bad["attn"]["wq"] = None
     with pytest.raises(ValueError, match="structure"):
         eng.register_tenant("bad", bad)
-    other = synth_tenants(cfg, base, 1, RATIO_SPECS[32], seed=5)[0][1]
-    with pytest.raises(NotImplementedError, match="codec groups"):
-        eng.register_tenant("other", other)
     assert eng.store.names() == ["tenant0", "tenant1", "tenant2"]
     assert eng._rows == {"tenant0": 1, "tenant1": 2, "tenant2": 3}
+    other = synth_tenants(cfg, base, 1, RATIO_SPECS[32], seed=5)[0][1]
+    eng.register_tenant("other", other)
+    assert eng._rows == {"tenant0": 1, "tenant1": 2, "tenant2": 3, "other": 4}
+    assert [g.names for g in eng._groups] == [["tenant0", "tenant1", "tenant2"],
+                                              ["other"]]
+    assert eng._groups[1].lut.tolist() == [0, 0, 0, 0, 1]
+    p = np.arange(6) % cfg.vocab
+    got = eng.serve([("tenant1", p), ("other", p)], max_new_tokens=4)
+    alone = ContinuousEngine(cfg, base, n_slots=3, max_seq=32,
+                             clock=VirtualClock(tick=1e-3))
+    alone.register_tenant("other", other)
+    np.testing.assert_array_equal(got[1], alone.serve([("other", p)], max_new_tokens=4)[0])
 
     static = Engine(cfg, base, max_seq=32, clock=VirtualClock(tick=1e-3))
     static.register_tenant("tenant0", fleet[0][1])
     static.register_tenant("other", other)
-    p = np.arange(6) % cfg.vocab
     outs = static.serve_batch([("tenant0", p), ("other", p)], max_new_tokens=3)
     np.testing.assert_array_equal(
         outs[1], static.generate("other", p[None], max_new_tokens=3)[0])
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(data=2),
-                                dict(residency_budget_bytes=1 << 20),
-                                dict(tenant_capacity=4)])
+                                dict(residency_budget_bytes=1 << 20)])
 def test_options_of_later_slices_raise(kw):
     cfg, base, _ = _fleet()
     with pytest.raises(NotImplementedError):

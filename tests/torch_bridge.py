@@ -1,6 +1,6 @@
 """Test-side bridge from the JAX package to the PyTorch port.
 
-Turns JAX pytrees (params, PackedDelta deltas trees) into the port's
+Turns JAX pytrees (params, deltas trees of any codec's leaves) into the port's
 tensors through numpy, with bf16 passed as raw uint16 bits the way
 ``repro/checkpoint/ckpt.py`` stores it. Only tests import both packages;
 the port itself never imports jax.
@@ -12,6 +12,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from repro.core.codecs import BitDeltaLeaf as JaxBitDeltaLeaf
+from repro.core.codecs import LowRankLeaf as JaxLowRankLeaf
 from repro.core.pack import PackedDelta as JaxPackedDelta
 from repro.utils import flatten_with_paths
 
@@ -64,7 +66,27 @@ def packed_to_jax(d) -> JaxPackedDelta:
     return JaxPackedDelta(**arrays, **meta)
 
 
+def _fields_to_port(d, arrays, meta):
+    return ({k: to_numpy(getattr(d, k))[0] for k in arrays},
+            {k: getattr(d, k) for k in meta})
+
+
+def leaf_to_port(d, device=CPU):
+    """Any JAX codec leaf (PackedDelta, BitDeltaLeaf, LowRankLeaf) or None."""
+    if d is None:
+        return None
+    if isinstance(d, JaxPackedDelta):
+        return packed_to_port(d, device)
+    if isinstance(d, JaxBitDeltaLeaf):
+        return convert.bitdelta_leaf_from_numpy(
+            *_fields_to_port(d, ("sign", "scale"), ("h_in", "h_out")), device=device)
+    if isinstance(d, JaxLowRankLeaf):
+        return convert.lowrank_leaf_from_numpy(
+            *_fields_to_port(d, ("codes", "scale", "zero", "u", "v"),
+                             ("h_in", "h_out", "k_bits", "rank")), device=device)
+    raise TypeError(f"no port counterpart for {type(d).__name__}")
+
+
 def deltas_to_port(deltas, device=CPU):
-    """JAX deltas tree (dicts with PackedDelta / None leaves) -> port tree."""
-    return map_with_paths(
-        lambda _p, d: None if d is None else packed_to_port(d, device), deltas)
+    """JAX deltas tree (dicts with codec leaves / None) -> port tree."""
+    return map_with_paths(lambda _p, d: leaf_to_port(d, device), deltas)
