@@ -21,9 +21,18 @@ depth-cut copy a LowRank tenant and ``compress(codec="auto")``), the
 tenant lifecycle (``[lifecycle]``: a tenant table and a
 ``DeltaRegistry`` registering, rolling out, retiring, evicting and
 promoting tenants mid-traffic, against engines built up front), the
-quickstart (``launch/quickstart.py``: compress, serve separately and
-merged) and the kernels demo (``launch/kernels_demo.py``: the four
-kernels' entry points). The correction kernels are also held to their
+pre-decoded residency tier (``[residency]``: the engine with a 4-row
+budget, packed on the card, equal to the packed run; resident values
+bit-equal to in-step decode), the storage layer (``[storage]``: tenant0's
+every matrix through the m-part parts and back onto the card), the
+group-size search and the baselines (``[groupsearch]``: the card against
+the CPU), the quickstart (``launch/quickstart.py``: compress, serve
+separately and merged), the kernels demo (``launch/kernels_demo.py``: the
+four kernels' entry points) and the other dense configs at full width
+and depth (``[archs]``: gemma3-1b, gemma-7b and phi3-medium-14b, each
+with 3 tenants, both correction kernels at its site new to them, and the
+engine, mixed == alone; gemma3's prompts wrap its 512-token rings, whole
+and chunked). The correction kernels are also held to their
 plain versions on the codec packings (BitDelta and LowRank lowerings,
 keep = h_g = 128). It checks the outputs, that each path launched
 its kernels, and prints one JSON line of kernel measurements, then the
@@ -119,6 +128,20 @@ CODEC_TIME_T = (8, 128)
 # script can spend on a second layer. [codecs] logs each leaf's host time
 LOWRANK_LAYERS = 1
 LIFECYCLE_CAPACITY = 4
+# [residency]: the tier's budget in rows of f32 values (3.24 GB a row at
+# full wizard-llama2-7b width); [storage]: host threads for the m-part
+# round trip of tenant0's 224 matrices; [groupsearch]: calibration tokens
+# and the card-vs-CPU bound on the proxy error (f32, summation order)
+RESIDENCY_ROWS = 4
+STORAGE_THREADS = 8
+GROUPSEARCH_TOKENS = 256
+GROUPSEARCH_REL_TOL = 1e-4
+# [archs]: each config's site new to the kernels (block, leaf): gemma3's
+# wk (1152 x 256), gemma-7b's MLP wo (h_in 24576), phi3's wi (5120 x 17920)
+ARCH_SITES = {"gemma3-1b": ("attn", "wk"), "gemma-7b": ("mlp", "wo"),
+              "phi3-medium-14b": ("mlp", "wi")}
+# gemma3-1b's stream: prompts longer than its 512-token local window
+WINDOW_REQUESTS, WINDOW_MIN, WINDOW_MAX, WINDOW_SEED, WINDOW_CHUNK = 12, 520, 900, 17, 64
 DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
 REPLACED_NOTE = ("the kernel this one replaced is gone from this checkout; it is timed "
                  "by the parent commit's chip_smoke.py in the same chip call (PERF.md)")
@@ -972,14 +995,14 @@ def _margin_ok(torch, logits) -> tuple:
 
 
 def _greedy_b1(torch, lm, cfg, base, deltas, prompt, n_new: int, chunk: int,
-               ring_dtype: str = None) -> tuple:
+               ring_dtype: str = None, max_seq: int = ENGINE_MAX_SEQ) -> tuple:
     """B=1 greedy decode with the prompt prefilled in ``chunk``-token
     chunks (``lm.prefill_chunk``, the tail right-padded, as the chunked
     engine does) into a ring of ``ring_dtype`` (default the params'):
     (tokens, [logits [V] that chose each token])."""
     import dataclasses
     ring_cfg = cfg if ring_dtype is None else dataclasses.replace(cfg, param_dtype=ring_dtype)
-    cache = lm.init_cache(ring_cfg, 1, ENGINE_MAX_SEQ, device=DEVICE)
+    cache = lm.init_cache(ring_cfg, 1, max_seq, device=DEVICE)
     L = len(prompt)
     for start in range(0, L, chunk):
         n = min(chunk, L - start)
@@ -1716,6 +1739,532 @@ def phase_kernels_demo(torch, kern, report: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of dense serving and of compression: residency, storage,
+# group-size search, and the other dense configs at full width
+# ---------------------------------------------------------------------------
+def _row_bytes(deltas) -> int:
+    """Bytes of one tenant row of the residency tier: f32 values shaped
+    like every packed leaf's idx."""
+    from repro_torch.core.pack import PackedDelta
+    from repro_torch.utils import iter_leaves
+    return sum(4 * d.idx.numel() for _, d in iter_leaves(deltas) if isinstance(d, PackedDelta))
+
+
+def phase_residency(torch, kern, ctx: dict, report: dict) -> dict:
+    """``ContinuousEngine(residency_budget_bytes=)`` at full width on the
+    [engine] stream, budget RESIDENCY_ROWS rows: the tier is built and
+    accounted, never consulted on the card (the values path is plain
+    torch, as the reference takes it only with its Pallas backend off),
+    so every step is packed and the tokens equal the packed [engine] run.
+    Then a direct ``ensure()`` of tenants 1-3: the resident values equal
+    ``pack.decode_values`` and the dequant kernel's dense delta at the
+    kept positions, bit for bit."""
+    import numpy as np
+    from repro_torch.core.pack import PackedDelta, decode_values
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+    from repro_torch.utils import iter_leaves
+
+    cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
+    row_bytes = _row_bytes(store.get("tenant0").deltas)
+    budget = RESIDENCY_ROWS * row_bytes
+    stream = _engine_stream(cfg)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ce = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                          store=store, clock=VirtualClock(tick=ENGINE_TICK),
+                          residency_budget_bytes=budget)
+    run = _engine_run(torch, kern, ce, stream, list(range(len(stream))),
+                      f"residency: mixed, budget {RESIDENCY_ROWS} rows")
+    res = run["report"]["residency"]
+    mem = {"engine_gb": (torch.cuda.memory_allocated() - mem0) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "values_gb": res["allocated_bytes"] / 1e9}
+    packed = report["engine"]["tokens"]
+    same = sum(run["tokens"][i].tolist() == packed[str(i)] for i in range(len(stream)))
+    log(f"[residency] budget {budget / 1e9:.3f} GB = {RESIDENCY_ROWS} rows of "
+        f"{row_bytes / 1e9:.3f} GB f32 values; stats {res}; tokens equal to the packed "
+        f"[engine] run: {same}/{len(stream)}; engine {mem['engine_gb']:.2f} GB "
+        f"({mem['values_gb']:.2f} GB values), peak {mem['peak_gb']:.2f} GB")
+    if same != len(stream):
+        fail(f"[residency] {len(stream) - same} requests differ from the packed run")
+    if not (res["enabled"] and res["capacity_rows"] == RESIDENCY_ROWS
+            and res["value_steps"] == 0 and res["hits"] == 0
+            and res["packed_steps"] == run["decode_steps"] > 0):
+        fail(f"[residency] stats {res} after {run['decode_steps']} steps")
+    want = {"delta_spmm": 7 * cfg.n_layers * len(stream),
+            "delta_spmm_segments": 7 * cfg.n_layers * run["decode_steps"],
+            "fused_base_delta": 0, "dequant": 0}
+    if run["launches"] != want:
+        fail(f"[residency] launches {run['launches']}, expected {want}")
+
+    # a direct ensure() on the card: promotions are in-place copies of
+    # decode_values; each equals the dequant kernel's dense delta at idx
+    t0 = time.perf_counter()
+    rm = ce.residency.ensure(np.array([1, 2, 3], np.int32))
+    torch.cuda.synchronize()
+    ensure_s = time.perf_counter() - t0
+    kern.reset_launches()
+    n_checked = 0
+    for path, d in iter_leaves(ce._groups[0].stacked):
+        if not isinstance(d, PackedDelta):
+            continue
+        vals = ce.residency.values
+        for k in path.split("/"):
+            vals = vals[k]
+        for row in (1, 2, 3):
+            v = vals[rm[row]]
+            one = d.index(row)
+            if not torch.equal(v, decode_values(one)):
+                fail(f"[residency] {path} row {row}: resident values != decode_values")
+            for layer in range(one.stack_shape()[0]):
+                m = one.index(layer)
+                dense = ops.dequant(m).reshape(m.n_groups, m.h_g, m.h_out)
+                if not torch.equal(dense.gather(1, m.idx.long()), v[layer]):
+                    fail(f"[residency] {path} row {row} layer {layer}: resident values "
+                         f"!= the dequant kernel's delta at idx")
+                n_checked += 1
+    torch.cuda.synchronize()
+    check_launches = dict(kern.LAUNCHES)
+    log(f"[residency] ensure(tenants 1-3) on the card in {ensure_s * 1e3:.1f} ms: "
+        f"{n_checked} matrices equal decode_values and the dequant kernel's delta at idx, "
+        f"bit for bit (launches {check_launches})")
+    report["residency"] = {"budget_bytes": budget, "row_bytes": row_bytes, "stats": res,
+                           "tokens_equal_packed": same, "launches": run["launches"],
+                           "wall_s": run["wall_s"], "ms_per_step": run["ms_per_step"],
+                           "memory": mem, "ensure_ms": ensure_s * 1e3,
+                           "matrices_checked": n_checked, "check_launches": check_launches}
+    del ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def _storage_roundtrip(torch, d):
+    """One matrix through to_storage_parts -> from_storage_parts onto the
+    card: (storage bits of its parts, packed bytes), or None where a
+    reloaded array differs from the packing's."""
+    from repro_torch.core.pack import from_storage_parts, to_storage_parts
+    parts = to_storage_parts(d)
+    d2 = from_storage_parts(parts, h_in=d.h_in, h_out=d.h_out, h_g=d.h_g, keep=d.keep,
+                            alpha=d.alpha, k_bits=d.k_bits, scale=d.scale, zero=d.zero,
+                            device=DEVICE)
+    for f in ("idx", "codes", "scale", "zero"):
+        a, b = getattr(d2, f), getattr(d, f)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            return None
+    return sum(p.storage_bits(d.k_bits, d.m, d.h_g) for p in parts), packed_bytes(d)
+
+
+def phase_storage(torch, kern, ctx: dict, report: dict) -> dict:
+    """tenant0 at full width, every matrix of every leaf, through the m-part
+    storage layer (numpy on the host, matrices on STORAGE_THREADS threads)
+    and back onto the card: idx, codes, scale and zero equal the packing;
+    delta_spmm on a reloaded matrix equals the original bit for bit; one
+    BitDelta leaf the same way."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.codecs import BitDeltaSpec, get_codec
+    from repro_torch.core.pack import PackedDelta, from_storage_parts, to_storage_parts
+    from repro_torch.kernels import ops
+    from repro_torch.utils import iter_leaves
+
+    base = ctx["base"]
+    deltas = ctx["eng"].store.get("tenant0").deltas
+    jobs = [(path, layer, d.index(layer)) for path, d in iter_leaves(deltas)
+            if isinstance(d, PackedDelta) for layer in range(d.stack_shape()[0])]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(STORAGE_THREADS) as pool:
+        results = list(pool.map(lambda j: _storage_roundtrip(torch, j[2]), jobs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(p, l) for (p, l, _), r in zip(jobs, results) if r is None]
+    if bad:
+        fail(f"[storage] {len(bad)} matrices differ after the round trip: {bad[:4]}")
+    bits = sum(r[0] for r in results)
+    nbytes = sum(r[1] for r in results)
+    codec = get_codec("deltadq")
+    paper = sum(codec.storage_bits(d)["value_bits"] for _, d in iter_leaves(deltas)
+                if isinstance(d, PackedDelta))
+    log(f"[storage] tenant0: {len(jobs)} matrices round-tripped in {wall:.1f} s "
+        f"({STORAGE_THREADS} host threads); idx, codes, scale, zero equal; storage parts "
+        f"{bits / 8e9:.3f} GB (values + log2(h_g)-bit indices + 64-bit group offsets) "
+        f"against {nbytes / 1e9:.3f} GB packed runtime arrays; paper value bits "
+        f"{paper / 8e9:.3f} GB")
+
+    # the kernel on a reloaded matrix: the same bits as on the original
+    d = deltas["mlp"]["wi"].index(0)
+    d2 = from_storage_parts(to_storage_parts(d), h_in=d.h_in, h_out=d.h_out, h_g=d.h_g,
+                            keep=d.keep, alpha=d.alpha, k_bits=d.k_bits, scale=d.scale,
+                            zero=d.zero, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(17)
+    kern.reset_launches()
+    for T in (8, 128):
+        x = torch.randn((T, d.h_in), generator=gen, device=DEVICE)
+        if not torch.equal(ops.delta_spmm(x, d2), ops.delta_spmm(x, d)):
+            fail(f"[storage] delta_spmm on the reloaded wi (T={T}) != on the original")
+    torch.cuda.synchronize()
+    launches = dict(kern.LAUNCHES)
+    log(f"[storage] delta_spmm on reloaded mlp/wi layer 0 == original, bit for bit, "
+        f"T=8 and T=128 (launches {launches})")
+
+    # one BitDelta leaf (attention wq, layer 0) through its codec's storage
+    c = get_codec("bitdelta")
+    w = base["attn"]["wq"][0]
+    noise = torch.randn(w.shape, generator=gen, device=DEVICE) * 0.02
+    leaf = c.compress_leaf(w, (w.float() + noise).to(w.dtype), BitDeltaSpec())
+    parts, meta = c.to_storage_parts(leaf)
+    leaf2 = c.from_storage_parts(parts, meta, device=DEVICE)
+    if not (torch.equal(leaf2.sign, leaf.sign) and torch.equal(leaf2.scale, leaf.scale)):
+        fail("[storage] the BitDelta leaf differs after the round trip")
+    bd_bits = c.storage_bits(leaf)
+    log(f"[storage] BitDelta attn/wq layer 0: sign and scale equal after the round trip; "
+        f"storage {bd_bits['total_bits'] / 8e6:.3f} MB against {leaf.nbytes() / 1e6:.3f} MB "
+        f"runtime leaf ({c.runtime_packed(leaf).nbytes() / 1e6:.3f} MB lowered)")
+    report["storage"] = {"matrices": len(jobs), "wall_s": wall, "storage_bits": bits,
+                         "packed_bytes": nbytes, "paper_value_bits": paper,
+                         "launches": launches,
+                         "bitdelta": {"storage_bits": bd_bits, "nbytes": leaf.nbytes()}}
+    del d2, leaf, leaf2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_groupsearch(torch, ctx: dict, report: dict) -> None:
+    """The paper's proxy group-size search on layer 0's wq/wk at full width
+    (calibration x: the embedded tokens of GROUPSEARCH_TOKENS prompt
+    positions; the fine-tuned weights are w + 0.02 N(0, 1), the launcher's
+    tenant rule), every candidate from alpha to h_in, on the card; the
+    error at h_g = 16 against the same call on the CPU with the same keys;
+    each baseline on wq's delta against its CPU result."""
+    import numpy as np
+    from repro_torch.core import baselines
+    from repro_torch.core.codecs import DeltaDQSpec
+    from repro_torch.core.groupsearch import (attention_proxy_error, candidate_group_sizes,
+                                              search_proxy)
+    from repro_torch.models import lm
+
+    cfg, base = ctx["cfg"], ctx["base"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(23)
+    toks = np.random.default_rng(23).integers(0, cfg.vocab, GROUPSEARCH_TOKENS)
+    x = lm.embed_tokens(cfg, base, torch.as_tensor(toks, device=DEVICE))
+    wq_b, wk_b = base["attn"]["wq"][0], base["attn"]["wk"][0]
+    wq_f, wk_f = [(w.float() + 0.02 * torch.randn(w.shape, generator=gen, device=DEVICE)
+                   ).to(w.dtype) for w in (wq_b, wk_b)]
+    spec = DeltaDQSpec(alpha=ALPHA, k_bits=4, m=8)
+    cands = candidate_group_sizes(cfg.d_model, spec.alpha)
+    res = search_proxy(x, wq_b, wk_b, wq_f, wk_f, spec, generator=gen)
+    torch.cuda.synchronize()
+    log(f"[groupsearch] {cfg.name} layer 0 wq/wk, {GROUPSEARCH_TOKENS} calibration tokens, "
+        f"{len(cands)} candidates {cands}: h_g* = {res.h_g_star} in {res.seconds:.2f} s; "
+        f"errors {{{', '.join(f'{k}: {v:.6e}' for k, v in res.errors.items())}}}")
+    if sorted(res.errors) != cands or res.errors[res.h_g_star] != min(res.errors.values()):
+        fail(f"[groupsearch] candidates {sorted(res.errors)} or h_g* {res.h_g_star}")
+    if not all(np.isfinite(v) and v > 0 for v in res.errors.values()):
+        fail(f"[groupsearch] errors {res.errors}")
+
+    # the card against the CPU at h_g = 16, with the same keys
+    hg = 16
+    cpu_gen = torch.Generator().manual_seed(29)
+    G = cfg.d_model // hg
+    keys = tuple(torch.rand((G, hg, w.shape[1]), generator=cpu_gen) for w in (wq_b, wk_b))
+    t0 = time.perf_counter()
+    card = float(attention_proxy_error(x, wq_b, wk_b, wq_f, wk_f, hg, spec,
+                                       keys=tuple(k.to(DEVICE) for k in keys)))
+    t1 = time.perf_counter()
+    host = float(attention_proxy_error(*(t.cpu() for t in (x, wq_b, wk_b, wq_f, wk_f)),
+                                       hg, spec, keys=keys))
+    t2 = time.perf_counter()
+    rel = abs(card - host) / abs(host)
+    log(f"[groupsearch] h_g=16 with one set of keys: card {card:.8e} ({t1 - t0:.2f} s), "
+        f"CPU {host:.8e} ({t2 - t1:.2f} s), relative difference {rel:.3e} (bound "
+        f"{GROUPSEARCH_REL_TOL})")
+    if not rel <= GROUPSEARCH_REL_TOL:
+        fail(f"[groupsearch] the card's proxy error is {rel:.3e} from the CPU's")
+
+    # the baselines on wq's delta: the card against the CPU
+    dq = (wq_f - wq_b).float()
+    mask = torch.rand(dq.shape, generator=cpu_gen) < 1.0 / ALPHA
+    rows = {}
+    for name, fn in baselines.METHODS.items():
+        extra = {"mask": mask} if name == "dare" else {}
+        on_card = fn(dq, alpha=ALPHA, **{k: v.to(DEVICE) for k, v in extra.items()}).cpu()
+        on_host = fn(dq.cpu(), alpha=ALPHA, **extra)
+        err = (on_card - on_host).abs().max().item()
+        exact = torch.equal(on_card, on_host)
+        rows[name] = {"exact": exact, "max_abs_err": err,
+                      "kept": (on_card != 0).float().mean().item(),
+                      "bits": baselines.method_bits(name, tuple(dq.shape), alpha=ALPHA)}
+        log(f"[groupsearch] baseline {name} on wq's delta: card == CPU "
+            f"{'bit for bit' if exact else f'within {err:.3e}'}; {rows[name]['kept']:.4f} "
+            f"kept, {rows[name]['bits'] / 8e6:.3f} MB at 16-bit values")
+        # magnitude and dare select and rescale (exact on both); deltazip's
+        # quant-dequant may round its q * s + lo once (an FMA) on the card
+        ok = exact if name != "deltazip" else torch.allclose(on_card, on_host, **KERNEL_TOL)
+        if not ok:
+            fail(f"[groupsearch] baseline {name}: the card differs from the CPU ({err:.3e})")
+    report["groupsearch"] = {"h_g_star": res.h_g_star, "errors": res.errors,
+                             "seconds": res.seconds, "candidates": cands,
+                             "card_vs_cpu": {"h_g": hg, "card": card, "cpu": host,
+                                             "rel": rel},
+                             "baselines": rows}
+    del x, dq
+    torch.cuda.empty_cache()
+
+
+def _window_stream(cfg) -> list:
+    """gemma3-1b's stream: WINDOW_REQUESTS requests round-robin over {base,
+    tenant0..2}, prompts of WINDOW_MIN..WINDOW_MAX tokens (every one
+    longer than the 512-token local window) from a seeded generator."""
+    import numpy as np
+    rng = np.random.default_rng(WINDOW_SEED)
+    lengths = rng.integers(WINDOW_MIN, WINDOW_MAX + 1, WINDOW_REQUESTS)
+    names = (None, "tenant0", "tenant1", "tenant2")
+    return [(names[i % 4], rng.integers(0, cfg.vocab, int(L)).astype(np.int32),
+             ENGINE_GAP * i) for i, L in enumerate(lengths)]
+
+
+def _arch_kernels(torch, ops, fb, kern, arch, cfg, fleet, gen) -> dict:
+    """Both correction kernels at the config's site new to them, held to
+    their plain versions, timed (CUDA-graph replays) against their bound
+    and torch.matmul on the dense delta; the decode plans it gets."""
+    import numpy as np
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.serve.scheduler import tenant_segments
+
+    block, name = ARCH_SITES[arch]
+    leaves = [deltas[block][name] for _, deltas, _ in fleet]
+    d0 = leaves[0].index(0)
+    site = f"{block}/{name}"
+    worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0}
+    for T in (1, 8, 64, 128):
+        x = torch.randn((T, d0.h_in), generator=gen, device=DEVICE)
+        got, want = ops.delta_spmm(x, d0), fb.correction(x, d0)
+        err = (got - want).abs().max().item()
+        worst["delta_spmm"] = max(worst["delta_spmm"], err)
+        if not torch.allclose(got, want, **KERNEL_TOL):
+            fail(f"[archs] {cfg.name} {site} delta_spmm T={T}: {err:.3e} from the plain version")
+    stack = stack_tenant_deltas([{"w": leaves[t].index(layer)}
+                                 for t, layer in ((0, 0), (1, 0), (2, 0), (0, 1))])["w"]
+    seg = tenant_segments(np.asarray(MIXED_SLOT_ROWS, np.int32)).to(DEVICE)
+    for T, layout in ((len(MIXED_SLOT_ROWS), "mixed"), (WINDOW_CHUNK, "chunk")):
+        x = torch.randn((T, d0.h_in), generator=gen, device=DEVICE)
+        if layout == "chunk":
+            xs, (sr, so) = x, _chunk_segments(T)
+        else:
+            xs, sr, so = x.index_select(0, seg.order), seg.seg_rows, seg.seg_offsets
+        got = ops.delta_spmm_segments(xs, stack, sr, so)
+        want = _plain_segments(torch, fb, xs, stack, sr, so)
+        err = (got - want).abs().max().item()
+        worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], err)
+        if not torch.allclose(got, want, **KERNEL_TOL):
+            fail(f"[archs] {cfg.name} {site} segments {layout} T={T}: {err:.3e} from the "
+                 f"plain version")
+    del stack
+    plans = {tb: kern.decode_plan(d0, tb) for tb in kern.ROW_TILES}
+    if any(p is None for p in plans.values()):
+        fail(f"[archs] {cfg.name} {site}: no decode plan for {plans}")
+    ring = [leaves[i % 3].index((i // 3) % cfg.n_layers) for i in range(8)]
+    dense = [reconstruct_dense(d) for d in ring]
+    times = [_time_spmm(torch, ops, fb, ring, dense, gen, site, 8, None),
+             _time_spmm(torch, ops, fb, ring, dense, gen, site, 128, None)]
+    del dense
+    times.append(_time_segments(torch, ops, fb, ring, gen, site, "mixed", 8))
+    for t in times:
+        t["arch"] = arch
+    summary = {tb: (p["rows"], p["sg"], p["stages"], p["smem_bytes"]) for tb, p in plans.items()}
+    log(f"[archs] {cfg.name} {site} ({d0.h_in} x {d0.h_out}, h_g {d0.h_g}, keep "
+        f"{d0.keep}): both kernels within {KERNEL_TOL} of their plain versions (worst "
+        f"{worst}); decode plan by row tile {summary} (rows a block, groups a stage, "
+        f"stages, shared bytes); delta_spmm T=128 takes row tile "
+        f"{ops.spmm_row_tile(128, d0)}")
+    del ring
+    torch.cuda.empty_cache()
+    return {"site": site, "shape": [d0.h_in, d0.h_out], "worst": worst,
+            "plans": {str(k): v for k, v in plans.items()}, "times": times}
+
+
+def _arch_engine(torch, kern, cfg, base, ref, stream, max_seq: int, chunk: int,
+                 chunked: bool, tag: str) -> dict:
+    """The fleet in one engine on ``stream`` (launch counts checked), then
+    each tenant's requests (and the base's) alone through the same engine,
+    token for token."""
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+    sites = 7 * cfg.n_layers
+    ce = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=max_seq, store=ref.store,
+                          clock=VirtualClock(tick=ENGINE_TICK), chunked_prefill=chunked,
+                          chunk_size=chunk)
+    mixed = _engine_run(torch, kern, ce, stream, list(range(len(stream))), f"{tag} mixed")
+    steps = mixed["decode_steps"]
+    n_chunks = sum(-(-len(p) // chunk) for _, p, _ in stream)
+    want = {"delta_spmm": 0 if chunked else sites * len(stream),
+            "delta_spmm_segments": sites * (steps + (n_chunks if chunked else 0)),
+            "fused_base_delta": 0, "dequant": 0}
+    if mixed["launches"] != want:
+        fail(f"[archs] {tag}: launches {mixed['launches']}, expected {want}")
+    bad = []
+    for name in (None, "tenant0", "tenant1", "tenant2"):
+        ce.reset_metrics()
+        idx = [i for i, (t, _, _) in enumerate(stream) if t == name]
+        run = _engine_run(torch, kern, ce, stream, idx, f"{tag} alone {name or 'base'}")
+        for i in idx:
+            j = _first_mismatch(run["tokens"][i], mixed["tokens"][i])
+            if j is not None:
+                bad.append({"request": i, "tenant": name, "step": j})
+    log(f"[archs] {tag}: mixed == alone, token for token: "
+        f"{len(stream) - len(bad)}/{len(stream)} requests" + (f"; differ: {bad}" if bad else ""))
+    if bad:
+        fail(f"[archs] {tag}: mixed serving differs from serving alone: {bad}")
+    del ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return mixed
+
+
+def _arch_generate(torch, ref, stream, mixed, idx, tag: str) -> list:
+    """Engine.generate (B=1) on requests ``idx``, tie-aware (other
+    extents): equal in full, or a first mismatch at a near tie."""
+    rows = []
+    for i in idx:
+        name, prompt, _ = stream[i]
+        lg = []
+        toks = ref.generate(name, prompt[None], max_new_tokens=ENGINE_NEW, logits_out=lg)[0]
+        j = _first_mismatch(mixed["tokens"][i], toks)
+        row = {"request": i, "tenant": name, "first_mismatch": j}
+        if j is not None:
+            row["margin"], row["bound"] = _margin_ok(torch, lg[j][0])
+            if row["margin"] > row["bound"]:
+                fail(f"[archs] {tag} request {i} leaves Engine.generate at step {j}, "
+                     f"margin {row['margin']:.4e} > {row['bound']:.4e}")
+        rows.append(row)
+    log(f"[archs] {tag} vs Engine.generate (B=1), requests {list(idx)}: "
+        f"{sum(r['first_mismatch'] is None for r in rows)}/{len(rows)} equal in full; {rows}")
+    return rows
+
+
+def _window_chunked_checks(torch, lm, cfg, base, ref, stream, chunked, max_seq) -> dict:
+    """gemma3-1b's chunked engine against B=1 chunked decode (tie-aware),
+    and the first-token logits of chunked prefill with an f32 ring against
+    whole-prompt prefill (gated at CHUNK_F32_REL_TOL)."""
+    rows, full, rel_f32 = [], 0, []
+    for i, (name, prompt, _) in enumerate(stream):
+        deltas = ref.store.get(name).deltas if name else None
+        toks, lg = _greedy_b1(torch, lm, cfg, base, deltas, prompt, ENGINE_NEW,
+                              WINDOW_CHUNK, max_seq=max_seq)
+        j = _first_mismatch(chunked["tokens"][i], toks)
+        row = {"request": i, "tenant": name, "first_mismatch": j}
+        if j is None:
+            full += 1
+        else:
+            row["margin"], row["bound"] = _margin_ok(torch, lg[j])
+            if row["margin"] > row["bound"]:
+                fail(f"[archs] {cfg.name} chunked request {i} leaves B=1 chunked decode "
+                     f"at step {j}, margin {row['margin']:.4e} > {row['bound']:.4e}")
+        whole = []
+        ref.generate(name, prompt[None], max_new_tokens=1, logits_out=whole)
+        f32_first = _greedy_b1(torch, lm, cfg, base, deltas, prompt, 1, WINDOW_CHUNK,
+                               "float32", max_seq=max_seq)[1][0]
+        w0 = whole[0][0]
+        row["first_logit_rel_f32_ring"] = \
+            (f32_first - w0).abs().max().item() / w0.abs().max().item()
+        rel_f32.append(row["first_logit_rel_f32_ring"])
+        if row["first_logit_rel_f32_ring"] > CHUNK_F32_REL_TOL:
+            fail(f"[archs] {cfg.name} request {i}: chunked prefill with an f32 ring is "
+                 f"{row['first_logit_rel_f32_ring']:.3e} from whole-prompt prefill")
+        rows.append(row)
+    log(f"[archs] {cfg.name} chunked engine vs B=1 chunked decode: {full}/{len(stream)} "
+        f"equal in full, the rest at a near tie: "
+        f"{[r for r in rows if r['first_mismatch'] is not None]}; first-token logits, "
+        f"chunked (f32 ring) vs whole-prompt prefill: {min(rel_f32):.3e}-{max(rel_f32):.3e} "
+        f"(bound {CHUNK_F32_REL_TOL})")
+    return {"full_match_b1_chunked": full, "rows": rows}
+
+
+def phase_archs(torch, kern, report: dict) -> dict:
+    """gemma3-1b, gemma-7b and phi3-medium-14b at full width and depth, one
+    after the other (each freed before the next): random init from seed 0,
+    3 tenants at the 128x spec compressed on the card, both correction
+    kernels at the site new to them, and the engine: gemma-7b and phi3 on
+    the [engine] stream, whole-prompt, two requests against
+    Engine.generate; gemma3-1b on prompts longer than its 512-token local
+    window (its rings wrap in prefill and in decode), whole-prompt and
+    chunked, the chunked engine against B=1 chunked decode.
+    -> launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine
+    from repro_torch.serve.scheduler import LengthBuckets
+    from repro_torch.utils import tree_bytes
+
+    out, by_path = {}, {}
+    for arch in ARCH_SITES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        base = lm.init_params(cfg, 0, device=DEVICE)
+        fleet = synth_tenants(cfg, base, 3, RATIO_SPECS[128], seed=0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_arch
+        mem = {"params_gb": tree_bytes(base) / 1e9,
+               "tenants_gb": sum(tree_bytes(d) for _, d, _ in fleet) / 1e9}
+        log(f"[archs] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}; {mem['params_gb']:.2f} GB params, 3 tenants "
+            f"{mem['tenants_gb']:.3f} GB packed ({fleet[0][2].summary()}); init and "
+            f"compression {t_init:.1f} s")
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(31)
+        row = {"memory": mem, "init_s": t_init,
+               "kernels": _arch_kernels(torch, ops, fb, kern, arch, cfg, fleet, gen)}
+        windowed = any(cfg.layer_windows or ())
+        if windowed:
+            stream = _window_stream(cfg)
+            top = max(LengthBuckets(min_bucket=8, max_bucket=1 << 20, exact=False).bucket(
+                len(p)) for _, p, _ in stream)
+            max_seq, modes = top + ENGINE_NEW, (False, True)
+        else:
+            stream, max_seq, modes = _engine_stream(cfg), ENGINE_MAX_SEQ, (False,)
+        ref = Engine(cfg, base, max_seq=max_seq)
+        for name, d, rep in fleet:
+            ref.register_tenant(name, d, rep)
+        del fleet
+        row["stream"] = {"prompt_lengths": [len(p) for _, p, _ in stream],
+                         "max_seq": max_seq, "chunk": WINDOW_CHUNK if windowed else None}
+        mem0 = torch.cuda.memory_allocated()
+        for chunked in modes:
+            mode = "chunked" if chunked else "whole"
+            run = _arch_engine(torch, kern, cfg, base, ref, stream, max_seq, WINDOW_CHUNK,
+                               chunked, f"{arch} {mode}")
+            by_path[f"archs:{arch}:{mode}"] = run["launches"]
+            row[mode] = {k: run[k] for k in ("wall_s", "decode_steps", "ms_per_step",
+                                             "tokens_per_s", "launches")}
+            if chunked:
+                row[mode].update(_window_chunked_checks(torch, lm, cfg, base, ref, stream,
+                                                        run, max_seq))
+            elif not windowed:
+                row["generate"] = _arch_generate(torch, ref, stream, run, (0, 1), arch)
+        mem.update(engine_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        row["wall_s"] = time.perf_counter() - t_arch
+        log(f"[archs] {arch} memory: params {mem['params_gb']:.2f} GB, tenants "
+            f"{mem['tenants_gb']:.3f} GB, engine up to {mem['engine_gb']:.2f} GB more, peak "
+            f"{mem['peak_gb']:.2f} GB; {row['wall_s']:.1f} s")
+        out[arch] = row
+        del ref, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["archs"] = out
+    return by_path
+
+
 def kernel_times(torch) -> list:
     """``--kernel-times``: device times of the decode-side correction
     kernels alone (delta_spmm at DECODE_T, the three segments layouts) at
@@ -1773,6 +2322,12 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
             extra["codec_shapes"] = [
                 {k: c[k] for k in ("codec", "site", "T", "layout", "tb", *keys) if k in c}
                 for c in report["codec_times"] if c["kernel"] == name]
+        if name in ("delta_spmm", "delta_spmm_segments"):   # the other configs' sites
+            extra["arch_sites"] = [
+                {k: a[k] for k in ("arch", "site", "h_in", "h_out", "T", "layout", "tb",
+                                   *keys) if k in a}
+                for r in report["archs"].values() for a in r["kernels"]["times"]
+                if a["kernel"] == name]
         if name == "delta_spmm_segments":   # the chunked engine's prompt chunks
             c = by[(name, "wi", ENGINE_CHUNK, "chunk")]
             extra["chunk_layout"] = {
@@ -1861,12 +2416,20 @@ def main(argv: list) -> int:
             phase_done("codecs")
             lifecycle_launches = phase_lifecycle(torch, kern, ctx, report)
             phase_done("lifecycle")
+            residency_launches = phase_residency(torch, kern, ctx, report)
+            phase_done("residency")
+            storage_launches = phase_storage(torch, kern, ctx, report)
+            phase_done("storage")
+            phase_groupsearch(torch, ctx, report)
+            phase_done("groupsearch")
             main_launches, merge_launches = ctx["launches"], ctx["merge_launches"]
             ctx.clear()          # frees the base, the engine and the tenants
             torch.cuda.empty_cache()
             quickstart_launches = phase_quickstart(torch, kern, report)
             demo_launches = phase_kernels_demo(torch, kern, report)
             phase_done("quickstart and demo")
+            arch_launches = phase_archs(torch, kern, report)
+            phase_done("archs")
     finally:
         _write_report(report, t_start)
 
@@ -1876,9 +2439,10 @@ def main(argv: list) -> int:
         "delta_spmm": engine_launches, "delta_spmm_segments": engine_launches,
         "fused_base_delta": demo_launches, "dequant": merge_launches}, {
         "engine": engine_launches, "codecs": codecs_launches,
-        "lifecycle": lifecycle_launches, "generate": main_launches,
+        "lifecycle": lifecycle_launches, "residency": residency_launches,
+        "storage": storage_launches, "generate": main_launches,
         "mixed_step": mixed_launches, "merge": merge_launches,
-        "quickstart": quickstart_launches, "demo": demo_launches})
+        "quickstart": quickstart_launches, "demo": demo_launches, **arch_launches})
     report["kernels"] = entries
     _write_report(report, t_start)
     log(f"[done] {report['wall_s']:.1f} s")

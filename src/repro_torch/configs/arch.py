@@ -166,6 +166,9 @@ def _ensure_loaded():
     # import every config module for its register() side effect (the
     # dense configs the port serves so far)
     from repro_torch.configs import (  # noqa: F401
+        gemma3_1b,
+        gemma_7b,
         llama32_1b,
+        phi3_medium_14b,
         wizard_llama2_7b,
     )

@@ -9,6 +9,7 @@ from repro_torch.core.apply import (
     dget,
     dindex,
     merge_delta,
+    none_like,
     slot_delta_matmul,
     stack_tenant_deltas,
     wrap_slot_deltas,
@@ -40,8 +41,27 @@ from repro_torch.core.compress import (
     decompress,
     is_compressible,
 )
-from repro_torch.core.dropout import groupwise_dropout_pack, keep_count
-from repro_torch.core.pack import PackedDelta, decode_values, reconstruct_dense
+from repro_torch.core.dropout import (
+    bernoulli_dropout_dense,
+    groupwise_dropout_pack,
+    keep_count,
+    rowwise_dropout_pack,
+)
+from repro_torch.core.groupsearch import (
+    SearchResult,
+    attention_proxy_error,
+    candidate_group_sizes,
+    search_direct,
+    search_proxy,
+)
+from repro_torch.core.pack import (
+    PackedDelta,
+    StoragePart,
+    decode_values,
+    from_storage_parts,
+    reconstruct_dense,
+    to_storage_parts,
+)
 from repro_torch.core.quant import (
     QuantParams,
     compression_ratio,

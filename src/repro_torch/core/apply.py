@@ -88,10 +88,21 @@ class SlotDelta:
     ``slots`` is int [B] mapping each batch row to a tenant row; row 0 is
     conventionally the zero delta (base model). ``segments`` carries the
     sorted tenant-segment layout consumed by the unique-tenant dispatch.
+
+    ``values``/``res_map`` (optional, only with ``segments``) carry the
+    pre-decoded residency tier (``serve.engine.DeltaResidency``):
+    ``values`` f32 [C, *lead, G, K, O] holds ``pack.decode_values`` output
+    for C resident tenant rows, ``res_map`` int [R] maps a tenant row to
+    its residency row (rows not made resident this step map to 0 and are
+    never referenced by a live segment). The segment dispatch then reads
+    the decoded values instead of unpacking the codes — on CPU tensors
+    only: on the card ``ops.delta_spmm_segments`` refuses them.
     """
     delta: PackedDelta
     slots: torch.Tensor
     segments: Optional[TenantSegments] = None
+    values: Optional[torch.Tensor] = None
+    res_map: Optional[torch.Tensor] = None
 
     def index(self, i) -> "SlotDelta":
         """Slice the *layer* stack (axis 1, after the tenant axis)."""
@@ -100,7 +111,9 @@ class SlotDelta:
             d.idx[:, i], d.codes[:, i],
             d.scale[:, i] if d.scale.ndim >= 2 else d.scale,
             d.zero[:, i] if d.zero.ndim >= 2 else d.zero),
-            self.slots, self.segments)
+            self.slots, self.segments,
+            self.values[:, i] if self.values is not None else None,
+            self.res_map)
 
     def gather(self) -> PackedDelta:
         """Per-row delta: [B, G, K, O] gathered from the tenant stack."""
@@ -158,7 +171,8 @@ def _segment_dispatch(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
     x2 = xs.reshape(B * tokens_per_row, d.h_in)
     # row ranges scale with the tokens folded out of each batch row
     y2 = ops.delta_spmm_segments(x2, d, seg.seg_rows,
-                                 seg.seg_offsets * tokens_per_row)
+                                 seg.seg_offsets * tokens_per_row,
+                                 values=sd.values, res_map=sd.res_map)
     # same dtype round-trip as every other path (no-op for f32)
     y = y2.reshape(B, *lead, d.h_out).to(x.dtype)
     return y.index_select(0, seg.inv_order)
@@ -210,6 +224,13 @@ def apply_linear(x: torch.Tensor, w: torch.Tensor, d=None) -> torch.Tensor:
 # Delta-tree helpers: deltas mirror the params tree with None at
 # uncompressed leaves, so block code can slice them alongside params.
 # ---------------------------------------------------------------------------
+def none_like(params: Any) -> Any:
+    """A deltas tree of all-None matching ``params``' dict structure."""
+    if isinstance(params, dict):
+        return {k: none_like(v) for k, v in params.items()}
+    return None
+
+
 def dget(deltas: Any, *keys: str) -> Any:
     """None-safe nested lookup into a deltas tree."""
     node = deltas
@@ -299,10 +320,25 @@ def stack_tenant_deltas(trees: list) -> Any:
 
 
 def wrap_slot_deltas(stacked: Any, slots: torch.Tensor,
-                     segments: Optional[TenantSegments] = None) -> Any:
+                     segments: Optional[TenantSegments] = None,
+                     values: Any = None,
+                     res_map: Optional[torch.Tensor] = None) -> Any:
     """Attach per-row tenant ids (and, optionally, the sorted tenant-
-    segment layout) to every leaf of a tenant-stacked tree."""
-    return _map_packed(lambda d: SlotDelta(d, slots, segments), stacked)
+    segment layout for unique-tenant dispatch, plus the pre-decoded
+    residency tier: ``values`` a tree of f32 buffers mirroring ``stacked``
+    leaf for leaf and ``res_map`` the shared tenant-row -> residency-row
+    indirection) to every leaf of a tenant-stacked tree."""
+    if values is None:
+        return _map_packed(lambda d: SlotDelta(d, slots, segments), stacked)
+
+    def wrap(node, vals):
+        if isinstance(node, dict):
+            return {k: wrap(v, vals[k]) for k, v in node.items()}
+        if node is None:
+            return None
+        return SlotDelta(node, slots, segments, vals, res_map)
+
+    return wrap(stacked, values)
 
 
 def merge_delta(params: Any, deltas: Any) -> Any:

@@ -9,6 +9,9 @@ about one delta-compression format:
 * ``decode_values``     — per-row kept values of the *runtime* form
 * ``storage_bits``      — paper/honest storage accounting per leaf
 * ``runtime_packed``    — codec leaf -> :class:`PackedDelta`
+* ``to_storage_parts`` / ``from_storage_parts`` — offline (numpy)
+  serialization of one matrix's leaf: ``(parts, meta)`` and back, onto
+  the caller's device
 
 The last method is the serving contract: every codec lowers its leaf to
 the structured :class:`~repro_torch.core.pack.PackedDelta` runtime
@@ -32,8 +35,7 @@ Registered codecs:
 A leaf with leading stack dims (layers) is lowered and compressed one
 matrix at a time: the per-tensor scales are per matrix either way, and a
 full-width ``[32, 4096, 11008]`` leaf never needs its int32 temporaries
-at once. The storage layout (``to/from_storage_parts``) and the dry-run
-twins (``leaf_spec``/``leaf_axes``) are not ported.
+at once. The dry-run twins (``leaf_spec``/``leaf_axes``) are not ported.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from repro_torch.core import quant
 from repro_torch.core.dropout import groupwise_dropout_pack
 from repro_torch.core.pack import PackedDelta
 from repro_torch.core import pack as pack_lib
-from repro_torch.utils import tree_map
+from repro_torch.utils import resolve_device, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +155,14 @@ def _per_matrix(leaf, fn: Callable[[Any], torch.Tensor]) -> torch.Tensor:
     for i in range(1, out.shape[0]):
         out[i] = fn(flat.index(i))
     return out.reshape(*lead, *first.shape)
+
+
+def _check_unstacked(leaf) -> None:
+    """The storage layer works per matrix: a stacked leaf raises."""
+    if leaf.stack_shape():
+        raise ValueError(
+            "storage layer operates per-matrix; got stacked leaf with "
+            f"stack_shape={leaf.stack_shape()}")
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +274,16 @@ class DeltaCodec:
     def storage_bits(self, leaf) -> dict:
         raise NotImplementedError
 
+    def to_storage_parts(self, leaf) -> tuple[Any, dict]:
+        """One matrix's leaf -> (host numpy parts, meta dict); a stacked
+        leaf raises ValueError (the storage layer works per matrix)."""
+        raise NotImplementedError
+
+    def from_storage_parts(self, parts, meta: dict, *, device=None):
+        """The inverse of :meth:`to_storage_parts`, onto ``device``
+        (``cuda`` unless the caller names another)."""
+        raise NotImplementedError
+
     def planned_total_bits(self, shape: tuple, spec) -> Optional[float]:
         """``storage_bits(...)["total_bits"]`` of the leaf that compressing
         a weight of ``shape`` with ``spec`` would give, where the shapes
@@ -305,6 +325,36 @@ class DeltaDQCodec(DeltaCodec):
         stack = math.prod(leaf.stack_shape())
         vb = leaf.value_bits() * stack
         return {"value_bits": vb, "total_bits": vb + leaf.index_bits() * stack}
+
+    def to_storage_parts(self, leaf: PackedDelta):
+        _check_unstacked(leaf)
+        meta = {"codec": self.name, "h_in": leaf.h_in, "h_out": leaf.h_out,
+                "h_g": leaf.h_g, "keep": leaf.keep, "alpha": leaf.alpha,
+                "k_bits": leaf.k_bits, "m": leaf.m,
+                "scale": float(leaf.scale), "zero": int(leaf.zero)}
+        if leaf.k_bits is None:
+            parts = {"idx": leaf.idx.cpu().numpy(),
+                     "values": leaf.codes.cpu().numpy()}
+            return parts, meta
+        return pack_lib.to_storage_parts(leaf), meta
+
+    def from_storage_parts(self, parts, meta: dict, *, device=None) -> PackedDelta:
+        dev = resolve_device(device)
+        if meta["k_bits"] is None:
+            hg = meta["h_g"]
+            idx_dtype = torch.uint8 if hg <= 256 else torch.int32
+            return PackedDelta(
+                idx=torch.from_numpy(np.asarray(parts["idx"])).to(idx_dtype).to(dev),
+                codes=torch.from_numpy(np.asarray(parts["values"], np.float32)).to(dev),
+                scale=pack_lib.scalar_tensor(meta["scale"], torch.float32, dev),
+                zero=pack_lib.scalar_tensor(meta["zero"], torch.int32, dev),
+                h_in=meta["h_in"], h_out=meta["h_out"], h_g=hg,
+                keep=meta["keep"], alpha=meta["alpha"], k_bits=None,
+                m=meta["m"])
+        return pack_lib.from_storage_parts(
+            parts, h_in=meta["h_in"], h_out=meta["h_out"], h_g=meta["h_g"],
+            keep=meta["keep"], alpha=meta["alpha"], k_bits=meta["k_bits"],
+            scale=meta["scale"], zero=meta["zero"], device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +407,20 @@ class BitDeltaCodec(DeltaCodec):
         stack = math.prod(leaf.stack_shape())
         vb = 1.0 * leaf.h_in * leaf.h_out * stack
         return {"value_bits": vb, "total_bits": vb + 32.0 * stack}
+
+    def to_storage_parts(self, leaf: BitDeltaLeaf):
+        _check_unstacked(leaf)
+        parts = {"sign": leaf.sign.cpu().numpy()}
+        meta = {"codec": self.name, "h_in": leaf.h_in, "h_out": leaf.h_out,
+                "scale": float(leaf.scale)}
+        return parts, meta
+
+    def from_storage_parts(self, parts, meta: dict, *, device=None) -> BitDeltaLeaf:
+        dev = resolve_device(device)
+        return BitDeltaLeaf(
+            sign=torch.from_numpy(np.asarray(parts["sign"], np.uint8)).to(dev),
+            scale=pack_lib.scalar_tensor(meta["scale"], torch.float32, dev),
+            h_in=meta["h_in"], h_out=meta["h_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +489,25 @@ class LowRankCodec(DeltaCodec):
     def storage_bits(self, leaf: LowRankLeaf) -> dict:
         return self._bits(leaf.h_in, leaf.h_out, leaf.k_bits, leaf.rank,
                           math.prod(leaf.stack_shape()))
+
+    def to_storage_parts(self, leaf: LowRankLeaf):
+        _check_unstacked(leaf)
+        parts = {k: getattr(leaf, k).cpu().numpy() for k in ("codes", "u", "v")}
+        meta = {"codec": self.name, "h_in": leaf.h_in, "h_out": leaf.h_out,
+                "k_bits": leaf.k_bits, "rank": leaf.rank,
+                "scale": float(leaf.scale), "zero": int(leaf.zero)}
+        return parts, meta
+
+    def from_storage_parts(self, parts, meta: dict, *, device=None) -> LowRankLeaf:
+        dev = resolve_device(device)
+        return LowRankLeaf(
+            codes=torch.from_numpy(np.asarray(parts["codes"], np.uint8)).to(dev),
+            scale=pack_lib.scalar_tensor(meta["scale"], torch.float32, dev),
+            zero=pack_lib.scalar_tensor(meta["zero"], torch.int32, dev),
+            u=torch.from_numpy(np.asarray(parts["u"], np.float32)).to(dev),
+            v=torch.from_numpy(np.asarray(parts["v"], np.float32)).to(dev),
+            h_in=meta["h_in"], h_out=meta["h_out"],
+            k_bits=meta["k_bits"], rank=meta["rank"])
 
     def planned_total_bits(self, shape: tuple, spec: LowRankSpec) -> float:
         return self._bits(shape[-2], shape[-1], spec.k_bits, spec.rank,

@@ -86,3 +86,41 @@ def groupwise_dropout_pack(
         h_in=h_in, h_out=h_out, h_g=h_g, keep=keep,
         alpha=float(alpha), k_bits=k_bits, m=m,
     )
+
+
+def rowwise_dropout_pack(delta: torch.Tensor, *, alpha: float,
+                         k_bits: Optional[int] = None, m: int = 1,
+                         u: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None) -> PackedDelta:
+    """Paper's Row-wise Dropout = group size h_g == h_in (one group per row).
+
+    The idx dtype is int32 once h_in exceeds 256, as in every packing."""
+    return groupwise_dropout_pack(delta, h_g=delta.shape[-2], alpha=alpha,
+                                  k_bits=k_bits, m=m, u=u, generator=generator)
+
+
+def bernoulli_mask(shape, keep_rate: float, *, device,
+                   u: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Bernoulli(keep_rate) mask: True where the uniform key ``u`` is
+    below ``keep_rate`` (``jax.random.bernoulli``'s own rule, so the
+    reference's ``uniform`` draw of the same key gives the same mask);
+    without ``u`` the keys are drawn from ``generator``."""
+    if u is None:
+        u = torch.rand(tuple(shape), generator=generator, device=device,
+                       dtype=torch.float32)
+    elif tuple(u.shape) != tuple(shape):
+        raise ValueError(f"u has shape {tuple(u.shape)}; need {tuple(shape)}")
+    return u.to(device) < keep_rate
+
+
+def bernoulli_dropout_dense(delta: torch.Tensor, *, alpha: float,
+                            u: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None
+                            ) -> torch.Tensor:
+    """Paper's original (expected-count) formulation, dense output. Used to
+    validate that the exact-count variant is statistically equivalent."""
+    mask = bernoulli_mask(delta.shape, 1.0 / alpha, device=delta.device, u=u,
+                          generator=generator)
+    return torch.where(mask, delta * alpha, torch.zeros((), dtype=delta.dtype,
+                                                        device=delta.device))

@@ -6,8 +6,9 @@ consume. Group-wise dropout with an exact per-group keep count yields
 ``[keep]`` vector of local indices and k-bit codes (bit-packed).
 
 Weights are stored as ``w[h_in, h_out]`` (y = x @ w); dropout groups run
-along h_in, the contraction dimension. The paper-faithful m-part CSR
-storage layout (``to/from_storage_parts``) is not ported yet.
+along h_in, the contraction dimension. :func:`to_storage_parts` /
+:func:`from_storage_parts` are the paper-faithful m-part CSR storage
+layout a tenant ships in (numpy, offline, as in the reference).
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ import math
 from dataclasses import dataclass, replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
+from repro_torch.utils import resolve_device
 
 
 @dataclass
@@ -125,3 +128,119 @@ def reconstruct_dense(d: PackedDelta, dtype=torch.float32) -> torch.Tensor:
     dense.scatter_add_(2, idx, vals)
     dense = dense.reshape(*lead, d.h_in, d.h_out)
     return dense.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paper-faithful m-part CSR storage (numpy, offline)
+# ---------------------------------------------------------------------------
+@dataclass
+class StoragePart:
+    """One of the m Separate-Quantization parts: a group-CSR sparse matrix."""
+    part: int                 # 1..m
+    group_offsets: np.ndarray  # int64 [G*O + 1] prefix sums of per-(g,o) counts
+    local_idx: np.ndarray      # per-element local index within group
+    low_codes: np.ndarray      # (k - log2 m)-bit stored codes (uint8)
+
+    def storage_bits(self, k_bits: int, m: int, h_g: int) -> float:
+        vb = quant.storage_bits_per_value(k_bits, m) * len(self.low_codes)
+        ib = math.log2(max(h_g, 2)) * len(self.local_idx)
+        ob = 64.0 * len(self.group_offsets)
+        return vb + ib + ob
+
+
+def to_storage_parts(d: PackedDelta) -> list[StoragePart]:
+    """Decompose a (non-stacked) PackedDelta into m paper-faithful parts
+    (host numpy arrays, whatever device ``d`` lies on). The parts equal
+    the reference's: each part's elements in (group, column, k) order.
+    One stable sort by part id replaces the reference's m boolean masks
+    (the same order, one pass)."""
+    if d.k_bits is None:
+        raise ValueError(
+            "separate quantization requires quantized codes; this "
+            "PackedDelta has k_bits=None (raw float values)")
+    if d.stack_shape():
+        raise ValueError(
+            "storage layer operates per-matrix; got stacked delta with "
+            f"stack_shape={d.stack_shape()}")
+    q = quant.unpack_bits(d.codes, quant.pack_width(d.k_bits), d.keep,
+                          axis=d.codes.ndim - 2).to(torch.int32)
+    G, K, O = q.shape
+    width = (2**d.k_bits) // d.m
+    # order elements by (g, o) then k so group offsets are well defined
+    qf = q.permute(0, 2, 1).reshape(G * O, K).cpu().numpy()
+    idxf = d.idx.permute(0, 2, 1).reshape(G * O, K).cpu().numpy()
+    pid = (qf // width).astype(np.uint8)
+    low = (qf - pid.astype(np.int32) * width).astype(np.uint8).reshape(-1)
+    # per (row, part) counts, and every element's place: by part, then in
+    # (row, k) order within its part (a stable sort keeps that order)
+    counts = np.bincount((np.arange(G * O, dtype=np.int64)[:, None] * d.m + pid).reshape(-1),
+                         minlength=G * O * d.m).reshape(G * O, d.m)
+    order = np.argsort(pid.reshape(-1), kind="stable")
+    ends = np.cumsum(counts.sum(axis=0))
+    local = idxf.reshape(-1)[order].astype(np.uint16)
+    codes = low[order]
+    parts = []
+    for j in range(d.m):
+        a, b = (ends[j - 1] if j else 0), ends[j]
+        offs = np.zeros(G * O + 1, np.int64)
+        np.cumsum(counts[:, j], out=offs[1:])
+        parts.append(StoragePart(part=j + 1, group_offsets=offs,
+                                 local_idx=local[a:b], low_codes=codes[a:b]))
+    return parts
+
+
+def from_storage_parts(parts: list[StoragePart], *, h_in: int, h_out: int, h_g: int,
+                       keep: int, alpha: float, k_bits: int, scale, zero,
+                       device=None) -> PackedDelta:
+    """Reassemble the runtime layout from m storage parts (load path); the
+    delta lands on ``device`` (``cuda`` unless the caller names another).
+
+    Each (group, column)'s kept entries come back sorted by local index,
+    the order packing gives them (``dropout.groupwise_dropout_pack``), so
+    a round trip restores the packed arrays exactly and the kernels sum
+    in the original order. The reference reassembles them part by part
+    instead (``repro/core/pack.py:204-229``): the same (index, code)
+    pairs in another order."""
+    dev = resolve_device(device)
+    m = len(parts)
+    G = h_in // h_g
+    width = (2**k_bits) // m
+    rows = np.concatenate([np.repeat(np.arange(G * h_out), np.diff(p.group_offsets))
+                           for p in parts])
+    local = np.concatenate([p.local_idx for p in parts]).astype(np.int64)
+    q = np.concatenate([p.low_codes.astype(np.int32) + j * width
+                        for j, p in enumerate(parts)])
+    # place every (index, code) pair at its column of the group; reading
+    # the kept places back in row-major order sorts each row by index
+    kept = np.zeros((G * h_out, h_g), bool)
+    kept[rows, local] = True
+    dense_q = np.zeros((G * h_out, h_g), np.int32)
+    dense_q[rows, local] = q
+    r, c = np.nonzero(kept)
+    if len(r) != G * h_out * keep or len(rows) != len(r):
+        raise ValueError(
+            f"storage parts hold {len(rows)} entries ({len(r)} distinct); a "
+            f"[{h_in}, {h_out}] delta at h_g={h_g}, keep={keep} has "
+            f"{G * h_out * keep}")
+    ix = c.reshape(G, h_out, keep).transpose(0, 2, 1)
+    q = dense_q[r, c].reshape(G, h_out, keep).transpose(0, 2, 1)
+    codes = quant.pack_bits(torch.from_numpy(np.ascontiguousarray(q)),
+                            quant.pack_width(k_bits), axis=1)
+    idx_dtype = torch.uint8 if h_g <= 256 else torch.int32
+    return PackedDelta(
+        idx=torch.from_numpy(np.ascontiguousarray(ix)).to(idx_dtype).to(dev),
+        codes=codes.contiguous().to(dev),
+        scale=scalar_tensor(scale, torch.float32, dev),
+        zero=scalar_tensor(zero, torch.int32, dev),
+        h_in=h_in, h_out=h_out, h_g=h_g, keep=keep,
+        alpha=alpha, k_bits=k_bits, m=m,
+    )
+
+
+def scalar_tensor(v, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``v`` (a number, numpy scalar or 0-d tensor),
+    exact: f32 goes through ``np.float32``, as ``jnp.float32`` does."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    np_dtype = np.float32 if dtype == torch.float32 else np.int32
+    return torch.from_numpy(np.asarray(v, np_dtype).reshape(())).to(device)

@@ -43,7 +43,9 @@ def quantize(x: torch.Tensor, k_bits: int, lead_dims: int = 0
     lo = torch.amin(xf, dim=red, keepdim=True)
     hi = torch.amax(xf, dim=red, keepdim=True)
     span = torch.clamp(hi - lo, min=1e-12)
-    s = span / (2**k_bits - 1)
+    # a tensor divisor: CUDA multiplies by the rounded reciprocal of a
+    # Python-number divisor, one ulp off the quotient the CPU computes
+    s = span / torch.tensor(2**k_bits - 1, dtype=torch.float32, device=span.device)
     z = torch.round(-lo / s).to(torch.int32)
     q = torch.clamp(torch.round(xf / s).to(torch.int32) + z, 0, 2**k_bits - 1)
     lead = tuple(x.shape[:lead_dims])

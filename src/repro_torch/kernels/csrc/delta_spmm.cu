@@ -1419,6 +1419,22 @@ int delta_spmm_prefill_ok(int tb, int h_g, int keep) {
   return prefill_fits(tb, h_g, keep) ? 1 : 0;
 }
 
+// The decode route's plan (delta_spmm at row tile tb, and the segments
+// kernel) for one matrix: out[0..3] = groups a step holds, ring depth,
+// rows a block computes at most, dynamic shared memory bytes. 1 where a
+// plan fits, 0 otherwise. Host only: launches nothing.
+int delta_spmm_decode_plan(int h_in, int O, int h_g, int keep, int kp, int wbits, int tb,
+                           int* out) {
+  const Shape s{1, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits};
+  DecPlan p;
+  if (!shape_ok(s) || !dec_tile(tb) || !dec_plan(s, tb, p)) return 0;
+  out[0] = p.sg;
+  out[1] = p.ns;
+  out[2] = p.rt;
+  out[3] = static_cast<int>(dec_smem_bytes(s, p.sg, p.ns, p.rt));
+  return 1;
+}
+
 // As delta_spmm_launch, with a tenant-stacked delta: idx [R, G, keep, O],
 // codes [R, G, kp, O] (or f32 [R, G, keep, O]), scale/zero [R], each
 // tenant's block contiguous and the tenant axis strided by idx_stride /

@@ -135,6 +135,9 @@ def _load() -> ctypes.CDLL:
             lib.fused_base_delta_launch.restype = i
             lib.delta_spmm_prefill_ok.argtypes = [i, i, i]
             lib.delta_spmm_prefill_ok.restype = i
+            lib.delta_spmm_decode_plan.argtypes = [i, i, i, i, i, i, i,
+                                                   ctypes.POINTER(i)]
+            lib.delta_spmm_decode_plan.restype = i
             lib.fused_base_delta_splits.argtypes = [i, i, i, i]
             lib.fused_base_delta_splits.restype = i
             lib.dequant_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
@@ -148,6 +151,23 @@ def prefill_fits(tb: int, h_g: int, keep: int) -> bool:
     ``h_g`` rows with ``keep`` kept values (its shared memory fits); asks
     the library."""
     return tb in PREFILL_TILES and bool(_load().delta_spmm_prefill_ok(tb, h_g, keep))
+
+
+def decode_plan(d: PackedDelta, tb: int) -> dict | None:
+    """The decode route's launch plan for ``d`` at row tile ``tb`` (as
+    ``delta_spmm`` and the segments kernel take it): groups a step holds
+    (``sg``), ring depth (``stages``), rows a block computes at most
+    (``rows``; below ``tb`` where the shared memory does not fit) and its
+    dynamic shared memory bytes; None where no plan fits. Asks the
+    library."""
+    from repro_torch.core.quant import pack_width, packed_len
+    kp, wbits = (d.keep, 0) if d.k_bits is None else (packed_len(d.keep, d.k_bits),
+                                                      pack_width(d.k_bits))
+    out = (ctypes.c_int * 4)()
+    if not _load().delta_spmm_decode_plan(d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb,
+                                          out):
+        return None
+    return {"tb": tb, "sg": out[0], "stages": out[1], "rows": out[2], "smem_bytes": out[3]}
 
 
 def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, int]:

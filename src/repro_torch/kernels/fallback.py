@@ -22,8 +22,9 @@ Bit-identity note: the gather contraction is an elementwise multiply
 followed by ``sum`` over one merged (group, keep) axis — NOT a matmul or
 einsum, whose reduction order varies with the batch extent. A row's
 correction then has the same bits whether it is computed alone, in a
-tenant group or in a mixed slot batch. The ``values=``/``res_map=``
-residency inputs of the reference are not ported yet.
+tenant group or in a mixed slot batch. ``values=``/``res_map=`` (the
+pre-decoded residency tier) skip the code unpack and feed the same
+contraction, so resident rows keep those bits.
 """
 from __future__ import annotations
 
@@ -116,14 +117,21 @@ def _rows_core(x_rows: torch.Tensor, gidx: torch.Tensor,
     return (sel * vals).sum(dim=1)
 
 
-def gather_correction_rows(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
+def gather_correction_rows(x: torch.Tensor, d: PackedDelta,
+                           values: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-row deltas: x [B, ..., h_in], d row-stacked [B] -> [B, ..., h_out].
 
     Peak extra memory is ``B * nnz`` floats (the gathered activations),
     not ``B * h_in * h_out``.
+
+    ``values`` (optional f32 [B, G, K, O]) supplies pre-decoded kept
+    values and skips the code unpack — the residency path. The decode is
+    elementwise (``(q - z) * s`` after a bit unpack), so values decoded
+    ahead of time equal values decoded here bit for bit, and the
+    contraction below is unchanged.
     """
     B = x.shape[0]
-    vals = decode_values(d)                          # [B, G, K, O]
+    vals = decode_values(d) if values is None else values   # [B, G, K, O]
     _, G, K, O = vals.shape
     gidx = _flat_gather_idx(d, d.idx)                # [B, G, K, O]
     x2 = x.to(torch.float32).reshape(B, -1, d.h_in)
@@ -141,7 +149,9 @@ def gather_correction_rows(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
 
 def segment_correction(x2: torch.Tensor, d: PackedDelta,
                        seg_rows: torch.Tensor,
-                       seg_offsets: torch.Tensor) -> torch.Tensor:
+                       seg_offsets: torch.Tensor,
+                       values: Optional[torch.Tensor] = None,
+                       res_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Unique-tenant dispatch: x2 [T, h_in] rows sorted by tenant.
 
     ``d`` is the tenant-stacked packed delta [R, ...]; ``seg_rows`` [S]
@@ -151,10 +161,17 @@ def segment_correction(x2: torch.Tensor, d: PackedDelta,
     contracted by the same :func:`_rows_core` the per-row path uses.
     Rows that no segment covers, and rows of a segment whose tenant row
     is outside the stack, are zero, as in the kernel.
+
+    ``values``/``res_map`` (optional) select the pre-decoded residency
+    tier: ``values`` f32 [C, G, K, O] holds decoded kept values for C
+    resident tenant rows and ``res_map`` int [R] maps tenant row ->
+    residency row. The code unpack is skipped; the values were decoded at
+    promotion by the same elementwise math, so the bits entering
+    :func:`_rows_core` are unchanged.
     """
     T = x2.shape[0]
     _note("segment_correction", formulation="segments-torch", codec=d.codec,
-          residency="packed", T=int(T))
+          residency="values" if values is not None else "packed", T=int(T))
     # map each (sorted) row to its segment: count of segment ends <= row
     offs = seg_offsets.to(torch.int64)
     rows_iota = torch.arange(T, dtype=torch.int64, device=x2.device)
@@ -166,5 +183,8 @@ def segment_correction(x2: torch.Tensor, d: PackedDelta,
     dl = d.with_arrays(d.idx[tenant_rows], d.codes[tenant_rows],
                        d.scale.to(torch.float32)[tenant_rows],
                        d.zero.to(torch.int32)[tenant_rows])
-    y = gather_correction_rows(x2[:, None, :], dl)[:, 0]
+    vals = None
+    if values is not None:
+        vals = values[res_map.to(torch.int64)[tenant_rows]]   # [T, G, K, O]
+    y = gather_correction_rows(x2[:, None, :], dl, values=vals)[:, 0]
     return torch.where(covered[:, None], y, 0.0)

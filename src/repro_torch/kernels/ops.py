@@ -146,14 +146,31 @@ def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
 
 def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
                         seg_rows: torch.Tensor,
-                        seg_offsets: torch.Tensor) -> torch.Tensor:
+                        seg_offsets: torch.Tensor,
+                        values: torch.Tensor | None = None,
+                        res_map: torch.Tensor | None = None) -> torch.Tensor:
     """Unique-tenant batched slot dispatch: x_sorted rows grouped by tenant.
 
     x_sorted [T, h_in] (each tenant one contiguous segment); d is the
     tenant-stacked PackedDelta [R, ...]; seg_rows [S] int32 maps segment
     -> tenant row; seg_offsets [S+1] int32 bounds each segment (empty
     segments allowed). Each unique delta is decoded once per segment.
+
+    ``values``/``res_map`` (the pre-decoded residency tier) take the plain
+    values formulation on CPU tensors, as the reference sends them to its
+    XLA formulation (``repro/kernels/ops.py:212-214``): the segments
+    kernel decodes each tile once per segment already, so no kernel reads
+    values. On a CUDA tensor they raise ``ValueError``: no plain version
+    runs on the card, and the engine never passes them there.
     """
+    if values is not None:
+        if _device_kind(x_sorted) != "cpu":
+            raise ValueError(
+                "delta_spmm_segments: values= (resident decoded values) "
+                "has no CUDA kernel; on the card the segments kernel "
+                "decodes the packed codes, so serve those")
+        return fallback.segment_correction(x_sorted, d, seg_rows, seg_offsets,
+                                           values=values, res_map=res_map)
     if _out_of_envelope("delta_spmm_segments", d.index(0), x_sorted) or \
             _device_kind(x_sorted) == "cpu":
         return fallback.segment_correction(x_sorted, d, seg_rows, seg_offsets)

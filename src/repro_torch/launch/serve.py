@@ -19,12 +19,15 @@ The request stream is the reference's: request i goes to tenant
 ``i * arrival_gap`` seconds in; the prompt tokens are drawn from a numpy
 generator seeded with ``100 + i``. ``--codec`` picks each tenant's codec
 (``mixed`` alternates DeltaDQ and BitDelta: one engine, two codec
-groups); ``--check-identity`` serves the stream again on the default
-path (whole-prompt prefill) when ``--chunked``, and each tenant alone
-when ``--codec mixed``, and fails unless every request's tokens match;
-``--lifecycle`` runs the online-lifecycle drill (:func:`run_lifecycle`).
-Meshes and residency are not ported yet, and ``--strict-compile`` has no
-counterpart until the port counts CUDA-graph captures.
+groups); ``--residency-mb`` gives the engine a :class:`DeltaResidency`
+budget (pre-decoded tenant values; served on the CPU, accounted on the
+card); ``--check-identity`` serves the stream again on the default path
+(whole-prompt prefill, no residency) when ``--chunked`` or
+``--residency-mb`` is set, and each tenant alone when ``--codec mixed``,
+and fails unless every request's tokens match; ``--lifecycle`` runs the
+online-lifecycle drill (:func:`run_lifecycle`). Meshes are not ported
+yet, and ``--strict-compile`` has no counterpart until the port counts
+CUDA-graph captures.
 
 :data:`RATIO_SPECS` maps a target compression ratio to its DeltaDQ spec,
 and :func:`synth_tenants` makes fine-tuned variants of a base model and
@@ -164,18 +167,21 @@ def tenant_specs(codec: str, n: int, ratio: int = 128) -> list:
 
 
 def _engine_kw(args) -> dict:
+    from repro_torch.serve import residency_bytes_from_mb
     return dict(n_slots=args.slots, max_seq=args.max_seq, admission=args.admission,
                 chunked_prefill=args.chunked, chunk_size=args.chunk_size,
-                chunk_share=args.chunk_share)
+                chunk_share=args.chunk_share,
+                residency_budget_bytes=residency_bytes_from_mb(args.residency_mb))
 
 
 def _serve_stream(cfg, base, tenants, stream, args, *, default_path=False, **kw):
     """One engine over ``tenants`` serving ``stream`` at its arrivals; the
-    default path is whole-prompt prefill. -> (engine, requests)."""
+    default path is whole-prompt prefill without residency.
+    -> (engine, requests)."""
     from repro_torch.serve import ContinuousEngine
     ekw = _engine_kw(args)
     if default_path:
-        ekw.update(chunked_prefill=False)
+        ekw.update(chunked_prefill=False, residency_budget_bytes=None)
     eng = ContinuousEngine(cfg, base, **ekw, **kw)
     for name, deltas, report in tenants:
         eng.register_tenant(name, deltas, report)
@@ -345,6 +351,11 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk-share", type=float, default=1.0,
                     help="max fraction of decode-active steps that may "
                          "carry a prefill chunk (--chunked)")
+    ap.add_argument("--residency-mb", type=float, default=0.0,
+                    help="pre-decoded delta residency budget in MB: hot "
+                         "tenants' dequantized f32 delta values stay "
+                         "resident (LRU) and decode steps on the CPU skip "
+                         "the per-step unpack; 0 disables the tier")
     ap.add_argument("--admission", default="occupancy",
                     choices=("occupancy", "affinity"),
                     help="slot admission policy (one slot pool: both place "
@@ -367,16 +378,17 @@ def main(argv=None) -> int:
         return 0
     if args.codec == "auto" and args.budget_bits is None:
         raise SystemExit("--codec auto needs --budget-bits")
-    if args.check_identity and not (args.chunked or args.codec == "mixed"):
-        raise SystemExit("--check-identity requires --chunked or --codec mixed "
-                         "(nothing to compare against otherwise)")
+    nondefault = args.chunked or args.residency_mb > 0
+    if args.check_identity and not (nondefault or args.codec == "mixed"):
+        raise SystemExit("--check-identity requires --chunked, --residency-mb > 0 "
+                         "or --codec mixed (nothing to compare against otherwise)")
     tenants = synth_tenants(cfg, base, args.tenants,
                             tenant_specs(args.codec, args.tenants, args.ratio),
                             seed=0, budget_bits=args.budget_bits)
     stream = request_stream(cfg, args.requests, args.tenants)
 
     ref_reqs = None
-    if args.check_identity and args.chunked:
+    if args.check_identity and nondefault:
         _, ref_reqs = _serve_stream(cfg, base, tenants, stream, args, default_path=True)
 
     kw = {}
@@ -398,7 +410,7 @@ def main(argv=None) -> int:
                if not np.array_equal(r.output(), s.output())]
         if bad:
             raise SystemExit(f"token identity FAILED for requests {bad}")
-        print(f"token identity vs whole-prompt prefill: OK ({len(reqs)} requests)",
+        print(f"token identity vs the default path: OK ({len(reqs)} requests)",
               flush=True)
     if args.check_identity and args.codec == "mixed":
         # mixed-codec contract: each request's tokens match an engine
@@ -440,6 +452,14 @@ def main(argv=None) -> int:
             print(f"  {name}: {t['requests']} reqs, {t['tokens']} toks, "
                   f"ttft p50 {1e3 * t['ttft_p50']:.0f}ms "
                   f"latency p95 {1e3 * t['latency_p95']:.0f}ms")
+        if rep.get("residency"):
+            r_ = rep["residency"]
+            hr = "n/a" if r_.get("hit_rate") is None else f"{r_['hit_rate']:.2f}"
+            print(f"  residency: {r_.get('resident_rows')}/"
+                  f"{r_.get('capacity_rows')} rows resident "
+                  f"({(r_.get('allocated_bytes') or 0) / 1e6:.2f}MB "
+                  f"allocated), hit rate {hr}, {r_['value_steps']} value / "
+                  f"{r_['packed_steps']} packed steps")
 
     if eng.trace is not None:
         trace = eng.trace.export(args.trace_out)

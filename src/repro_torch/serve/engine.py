@@ -15,7 +15,8 @@ share that model:
   bucketed and left-padded; ``chunked_prefill=`` streams prompts in
   fixed-size chunks inside the decode step instead. ``tenant_capacity=``
   pre-allocates a :class:`TenantTable` so tenants register, roll out and
-  retire as in-place row writes.
+  retire as in-place row writes. ``residency_budget_bytes=`` builds the
+  :class:`DeltaResidency` tier of pre-decoded tenant values.
 
 * :class:`Engine` — the static per-tenant-batch engine, kept as the
   reference path (``generate``) and as a thin shim: ``serve_batch``
@@ -24,12 +25,12 @@ share that model:
 
 The reference jits each step; the port runs eagerly and updates the KV
 cache and the tenant table in place. What waits for later slices raises:
-``mesh=``, ``data > 1``, ``residency_budget_bytes=`` and non-dense
-families.
+``mesh=``, ``data > 1`` and non-dense families.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, List, Optional
 
@@ -44,7 +45,7 @@ from repro_torch.core.apply import (
 )
 from repro_torch.core.codecs import runtime_delta_tree
 from repro_torch.core.compress import CompressionReport
-from repro_torch.core.pack import PackedDelta
+from repro_torch.core.pack import PackedDelta, decode_values
 from repro_torch.models import lm
 from repro_torch.serve.kv import SlotKVCache
 from repro_torch.serve.metrics import Metrics
@@ -145,6 +146,170 @@ class DeltaStore:
 
     def total_bytes(self) -> int:
         return sum(t.bytes() for t in self._tenants.values())
+
+
+# ---------------------------------------------------------------------------
+# Pre-decoded delta residency (the hot-tenant value cache)
+# ---------------------------------------------------------------------------
+def residency_bytes_from_mb(mb: float) -> Optional[int]:
+    """``--residency-mb``-style knob -> ``residency_budget_bytes=``.
+
+    Decimal MB; 0 (or negative) disables the tier (None). The one
+    conversion every entry point uses, so the unit and the disable
+    semantics cannot drift between them.
+    """
+    b = int(mb * 1e6)
+    return b if b > 0 else None
+
+
+def _zip_packed(fn, stacked: Any, values: Any) -> None:
+    """Call ``fn(delta, buffer)`` for each PackedDelta leaf of ``stacked``
+    and its buffer in the parallel ``values`` tree."""
+    if isinstance(stacked, dict):
+        for k, v in stacked.items():
+            _zip_packed(fn, v, values[k])
+    elif stacked is not None:
+        fn(stacked, values)
+
+
+class DeltaResidency:
+    """LRU cache of *dequantized* per-tenant delta values under a byte budget.
+
+    The packed delta stack stays the ground truth; this tier additionally
+    keeps, for up to ``capacity`` hot tenant rows, the f32
+    ``pack.decode_values`` output of every leaf (shape = the leaf's idx
+    shape — ~8x the packed bytes at k=4, still ~10x under dense). A
+    decode step whose unique tenant rows are all resident skips the
+    per-step code unpack (the values path of ``core.apply`` /
+    ``kernels.fallback``); any other step takes the packed path, which is
+    always correct.
+
+    The values path is a plain torch formulation, taken on CPU tensors
+    only, as the reference takes it only when its Pallas backend is off
+    (``repro/serve/engine.py:1373``): on the card the segments kernel
+    decodes each tile once per segment and ``ops.delta_spmm_segments``
+    refuses values, so the engine builds and accounts the tier on every
+    device but consults it only for a stack on the CPU.
+
+    * **Budget**: ``capacity = budget_bytes // bytes-per-row`` rows
+      (capped at the stack height). Below 2 rows the tier disables
+      itself — row 0 (the zero delta) is pinned to residency row 0,
+      whose zero-initialized buffer IS its decoded value, so at least
+      one real tenant must also fit for the tier to ever apply.
+    * **Promotion** is an in-place ``copy_`` of
+      ``pack.decode_values(stack row)`` into the residency row of each
+      leaf: the same elementwise math the packed path runs in-step, so
+      resident values equal in-step decode bit for bit.
+    * **Demotion** is LRU among rows not referenced by the current
+      step; no device work — the row is simply reused.
+    """
+
+    def __init__(self, stacked: Any, budget_bytes: int):
+        leaves = _packed_leaves(stacked)
+        if not leaves:
+            raise ValueError(
+                "residency needs a stacked delta tree with PackedDelta "
+                f"leaves; got {type(stacked).__name__}")
+        self.n_rows = int(leaves[0].idx.shape[0])
+        self.device = leaves[0].device   # the stack's, and the buffers'
+        self.row_bytes = int(sum(4 * math.prod(l.idx.shape[1:]) for l in leaves))
+        self.budget_bytes = int(budget_bytes)
+        self.capacity = int(min(self.n_rows, self.budget_bytes // self.row_bytes))
+        self.enabled = self.capacity >= 2
+        self.hits = self.misses = self.fallback_steps = 0
+        self._stacked = stacked
+        self._slot_of: dict[int, int] = {}
+        self._lru: List[int] = []        # tenant rows, least-recent first
+        self._free: List[int] = []
+        self.values: Any = None
+        if not self.enabled:
+            return
+        self.values = _map_packed(
+            lambda d: torch.zeros((self.capacity, *d.idx.shape[1:]),
+                                  dtype=torch.float32, device=d.device),
+            stacked)
+        self._slot_of = {0: 0}           # zero delta: decoded values ARE 0
+        self._free = list(range(1, self.capacity))
+
+    def _promote(self, row: int, slot: int) -> None:
+        _zip_packed(lambda d, buf: buf[slot].copy_(decode_values(d.index(row))),
+                    self._stacked, self.values)
+
+    def ensure(self, rows: np.ndarray) -> Optional[np.ndarray]:
+        """Make every unique tenant row of ``rows`` resident, promoting
+        (and LRU-demoting) as needed; returns the int32 [n_rows]
+        tenant-row -> residency-row map, or None when this step must run
+        packed (tier disabled, or more unique tenants than capacity)."""
+        if not self.enabled:
+            return None
+        uniq = [int(r) for r in np.unique(np.asarray(rows)) if r != 0]
+        if len(uniq) > self.capacity - 1:     # row 0 keeps its pinned slot
+            self.fallback_steps += 1
+            return None
+        missing = [r for r in uniq if r not in self._slot_of]
+        self.hits += len(uniq) - len(missing)
+        self.misses += len(missing)
+        for r in missing:
+            if self._free:
+                slot = self._free.pop(0)
+            else:
+                victim = next(v for v in self._lru if v not in uniq)
+                self._lru.remove(victim)
+                slot = self._slot_of.pop(victim)
+            self._slot_of[r] = slot
+            self._promote(r, slot)
+        for r in uniq:                        # refresh recency, MRU last
+            if r in self._lru:
+                self._lru.remove(r)
+            self._lru.append(r)
+        res_map = np.zeros(self.n_rows, np.int32)
+        for row, slot in self._slot_of.items():
+            res_map[row] = slot
+        return res_map
+
+    def invalidate(self, rows) -> None:
+        """Drop the pre-decoded values of ``rows`` (their packed source
+        was rewritten — a tenant-table write, rollout or retire); the
+        freed residency slots go back to the promotion free list. Row 0
+        stays pinned: the zero delta's values are always zeros."""
+        if not self.enabled:
+            return
+        for r in rows:
+            r = int(r)
+            if r == 0:
+                continue
+            slot = self._slot_of.pop(r, None)
+            if slot is not None:
+                self._free.append(slot)
+            if r in self._lru:
+                self._lru.remove(r)
+
+    def retarget(self, stacked: Any) -> None:
+        """Point promotions at a rewritten stacked tree (same shapes)."""
+        self._stacked = stacked
+
+    def reset_counters(self) -> None:
+        """Zero the hit/miss/fallback counters; resident rows stay warm."""
+        self.hits = self.misses = self.fallback_steps = 0
+
+    def stats(self) -> dict:
+        total = self.hits + self.misses
+        return {
+            "enabled": self.enabled,
+            "capacity_rows": self.capacity,
+            "row_bytes": self.row_bytes,
+            "budget_bytes": self.budget_bytes,
+            # the full capacity*row_bytes buffer is committed at
+            # construction; resident_bytes is the HOT subset of it
+            "allocated_bytes": (self.capacity if self.enabled else 0)
+            * self.row_bytes,
+            "resident_rows": len(self._slot_of),
+            "resident_bytes": len(self._slot_of) * self.row_bytes,
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": self.hits / total if total else None,
+            "fallback_steps": self.fallback_steps,
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +516,12 @@ class ContinuousEngine:
     A rollout lands in a new row; in-flight sequences drain on the old
     one, which is then cleared and freed.
 
+    ``residency_budget_bytes=`` builds the :class:`DeltaResidency` tier
+    of pre-decoded values over the tenant stack (segments dispatch, one
+    codec group). It serves values only for a stack on the CPU; on the
+    card every step is a packed step, as on a TPU running the reference's
+    Pallas kernels.
+
     ``trace=`` (a :class:`~repro_torch.serve.trace.Tracer`), ``slo=`` (a
     :class:`~repro_torch.serve.telemetry.SLOCounters`) and ``telemetry=``
     (a :class:`~repro_torch.serve.telemetry.TelemetrySnapshotWriter`)
@@ -380,10 +551,6 @@ class ContinuousEngine:
         if data is not None and data != 1:
             raise NotImplementedError(
                 f"data={data}: data-parallel slot pools come with the mesh")
-        if residency_budget_bytes:
-            raise NotImplementedError(
-                "residency_budget_bytes=: the pre-decoded delta residency "
-                "tier is not ported yet")
         if slot_dispatch not in ("segments", "per_row"):
             raise ValueError(f"slot_dispatch={slot_dispatch!r} not in "
                              "('segments', 'per_row')")
@@ -404,6 +571,10 @@ class ContinuousEngine:
                     f"> tenant_capacity={tenant_capacity}")
         self.tenant_capacity = (None if tenant_capacity is None
                                 else int(tenant_capacity))
+        # pre-decoded delta residency: built with the tenant stack (one
+        # codec group, segments dispatch), consulted for a CPU stack
+        self.residency_budget_bytes = residency_budget_bytes
+        self.residency: Optional[DeltaResidency] = None
         self._table: Optional[TenantTable] = None
         self._retiring: set = set()      # rolled-out rows awaiting drain
         self.restacks = 0                # dynamic re-stacks of the tenant rows
@@ -546,6 +717,8 @@ class ContinuousEngine:
             self._store_version = self.store.version
             self._table.clear(row)
             self._table.free(row)
+            if self.residency is not None:
+                self.residency.invalidate([row])
             self._sync_table_group()
             self.bus.emit("tenant_retire", self._now(), tenant=name,
                           row=row, free_rows=self._table.n_free)
@@ -581,12 +754,18 @@ class ContinuousEngine:
             self._groups = [_CodecGroup(
                 stacked=table.stacked, lut=lut, names=[], codecs=codecs,
                 shapes=_stack_signature(table.stacked))]
+            if self.residency_budget_bytes and self.slot_dispatch == "segments":
+                self.residency = DeltaResidency(table.stacked,
+                                                self.residency_budget_bytes)
         else:
             self._table.check_compatible(rt)
         self._reclaim_retired()
         row = self._table.alloc()        # ValueError when full, pre-mutation
         old = self._rows.get(name)
         self._table.write(row, rt)
+        if self.residency is not None:
+            # a resident copy of this row would be stale after the write
+            self.residency.invalidate([row])
         self._rows[name] = row
         if old is not None:
             # rollout: in-flight sequences keep decoding the old row
@@ -598,14 +777,19 @@ class ContinuousEngine:
             else:
                 self._table.clear(old)
                 self._table.free(old)
+                if self.residency is not None:
+                    self.residency.invalidate([old])
         self._sync_table_group()
         return row, old
 
     def _sync_table_group(self) -> None:
         """Bookkeeping after a row write: the group's tenant names (the
-        table is written in place, so dispatch needs nothing else)."""
+        table is written in place, so dispatch needs nothing else; the
+        residency tier is pointed at the same arrays)."""
         self._groups[0].names = [
             n for n, _ in sorted(self._rows.items(), key=lambda kv: kv[1])]
+        if self.residency is not None:
+            self.residency.retarget(self._table.stacked)
 
     def _reclaim_retired(self) -> None:
         """Tombstone rolled-out rows once their last in-flight sequence
@@ -621,6 +805,8 @@ class ContinuousEngine:
             self._table.clear(row)
             self._table.free(row)
             self._retiring.discard(row)
+            if self.residency is not None:
+                self.residency.invalidate([row])
         self._sync_table_group()
 
     def _refresh_stacked(self) -> None:
@@ -670,7 +856,7 @@ class ContinuousEngine:
         # drop the old stacks before building the new ones: one stacked
         # copy at a time (a failed build leaves the engine stale, so the
         # next refresh builds again)
-        self._groups, self._zero_tree = [], None
+        self._groups, self._zero_tree, self.residency = [], None, None
         self._store_version = -1
         groups = []
         n_global = len(tenants) + 1
@@ -687,6 +873,12 @@ class ContinuousEngine:
         self.restacks += 1
         self._groups = groups
         self._zero_tree = _row_view(groups[0].stacked, 0) if groups else None
+        if groups and self.residency_budget_bytes \
+                and self.slot_dispatch == "segments" and len(groups) == 1:
+            # the tier keys its value buffers to ONE stack's rows;
+            # mixed-codec engines serve packed (still correct)
+            self.residency = DeltaResidency(groups[0].stacked,
+                                            self.residency_budget_bytes)
         self._rows = new_rows
         self._store_version = self.store.version
 
@@ -848,7 +1040,7 @@ class ContinuousEngine:
         # unique-tenant segment count
         rows_eff = np.where(act, self._row, 0)
         # every host-to-device copy of the step before its first launch
-        sd = self._slot_delta(rows_eff)
+        sd, res_used = self._slot_delta(rows_eff)
         dev = self._to_device(np.stack([self._tok, self._pos,
                                         act.astype(np.int64)]))
         tok_d, pos_d, act_d = dev[0][:, None], dev[1], dev[2].bool()
@@ -864,7 +1056,8 @@ class ContinuousEngine:
             host[1] = task.start + np.arange(C)
             host[2, :task.length] = 1
             chunk = self._to_device(host)
-            cd = self._slot_delta(self._row[task.slot:task.slot + 1])
+            cd, _ = self._slot_delta(self._row[task.slot:task.slot + 1],
+                                     resident=False)
         cache = self.kv.cache
         masked = not act.all()
         with attribution() as notes:
@@ -888,10 +1081,10 @@ class ContinuousEngine:
                      "valid": chunk[2:3].bool()}, row, deltas=cd)
                 cn = torch.argmax(clog[0], dim=-1)
         if task is None:
-            sig = ("decode_masked", len(self._groups), False)
+            sig = ("decode_masked", len(self._groups), bool(res_used))
             site = "decode_masked"
         else:
-            sig = ("combined", self.chunk_size, len(self._groups), False)
+            sig = ("combined", self.chunk_size, len(self._groups), bool(res_used))
             site = "combined"
         path_notes, recompiled = self._record_path(sig, self._group_shapes(), site,
                                                    notes, now)
@@ -902,7 +1095,7 @@ class ContinuousEngine:
             chunk_tokens=task.length if task is not None else 0,
             shard_active=None,
             shard_unique=self.sched.shard_unique_tenants(rows_eff),
-            residency_used=None,
+            residency_used=res_used,
             path="base" if sd is None else path_label(path_notes),
             notes=path_notes, recompiled=recompiled)
         for slot in decode_slots:
@@ -948,9 +1141,10 @@ class ContinuousEngine:
                     self._finish(task.slot, t)
         return True
 
-    def _slot_delta(self, rows: np.ndarray):
-        """Per-slot delta dispatch tree for one step (None with no
-        tenants). ``rows`` is the [n_slots] GLOBAL tenant-row vector a
+    def _slot_delta(self, rows: np.ndarray, resident: bool = True):
+        """Per-slot delta dispatch tree for one step and whether the
+        residency tier served it: ``(sd, res_used)``, ``(None, None)`` with
+        no tenants. ``rows`` is the [n_slots] GLOBAL tenant-row vector a
         decode step serves (the chunked path masks parked slots to row
         0), or the one row of a prompt chunk, which threads the SAME
         segment dispatch as decode (on the card the segments kernel at
@@ -960,18 +1154,37 @@ class ContinuousEngine:
         segments dispatch, their tenant-sorted layout (built on the host,
         copied to the device once), which leaves the zero row's segment
         out so those rows are zero-filled, not decoded; the groups' trees
-        are combined into MultiSlotDelta leaves."""
+        are combined into MultiSlotDelta leaves.
+
+        With a residency tier (one group, segments dispatch) a decode step
+        (``resident``; a prompt chunk is not) promotes its tenants and
+        attaches their values when the stack lies on the CPU — the port's
+        form of the reference's ``not get_use_pallas()``
+        (``repro/serve/engine.py:1373``); ``res_used`` is False when the
+        step runs packed (over capacity, or a stack on the card), None
+        without a tier."""
         if not self._groups:
-            return None
+            return None, None
         parts = []
+        res_used = None
         for g in self._groups:
             rows_g = g.lut[rows]
             seg = None
+            values = res_map = None
             if self.slot_dispatch == "segments":
                 seg = tenant_segments(rows_g, skip_zero_row=True).to(self.device)
+                if self.residency is not None and resident:
+                    rm = None
+                    if self.residency.device.type == "cpu":
+                        rm = self.residency.ensure(rows_g)
+                    res_used = rm is not None
+                    if res_used:
+                        values = self.residency.values
+                        res_map = self._to_device(rm.astype(np.int64))
             parts.append(wrap_slot_deltas(
-                g.stacked, self._to_device(rows_g.astype(np.int64)), segments=seg))
-        return combine_slot_deltas(parts)
+                g.stacked, self._to_device(rows_g.astype(np.int64)), segments=seg,
+                values=values, res_map=res_map))
+        return combine_slot_deltas(parts), res_used
 
     def _group_shapes(self) -> tuple:
         """The codec groups' stack shapes (a reference jit's retrace key)."""
@@ -982,13 +1195,13 @@ class ContinuousEngine:
         if not active:
             return
         self._refresh_stacked()
-        sd = self._slot_delta(self._row)
+        sd, res_used = self._slot_delta(self._row)
         dev = self._to_device(np.stack([self._tok, self._pos]))
         with attribution() as notes:
             logits, _ = lm.decode_step(self.cfg, self.base, self.kv.cache,
                                        dev[0][:, None], dev[1], deltas=sd)
             nxt = torch.argmax(logits, dim=-1)
-        sig = ("decode", len(self._groups), False)
+        sig = ("decode", len(self._groups), bool(res_used))
         path_notes, recompiled = self._record_path(sig, self._group_shapes(), "decode",
                                                    notes, now)
         nxt = nxt.cpu().numpy()
@@ -997,7 +1210,7 @@ class ContinuousEngine:
             "step", t, t_start=now, n_active=len(active),
             shard_active=None,
             shard_unique=self.sched.shard_unique_tenants(self._row),
-            residency_used=None,
+            residency_used=res_used,
             path="base" if sd is None else path_label(path_notes),
             notes=path_notes, recompiled=recompiled)
         for slot in active:
@@ -1056,10 +1269,14 @@ class ContinuousEngine:
         else:
             raise RuntimeError(f"serve loop did not drain in {max_steps} steps")
         self.bus.emit("stop", self._now())
+        if self.residency is not None:
+            self.metrics.residency = self.residency.stats()
         return self.metrics
 
     def _telemetry_payload(self) -> dict:
         """Snapshot body for the periodic telemetry writer."""
+        if self.residency is not None:
+            self.metrics.residency = self.residency.stats()
         payload = {"metrics": self.metrics.report()}
         if self.slo is not None:
             payload["slo"] = self.slo.report()
@@ -1070,9 +1287,12 @@ class ContinuousEngine:
 
         The event bus is rebuilt around the new collector; an attached
         tracer/SLO consumer keeps its history. Memoised path notes stay
-        (the reference's compiled jits do)."""
+        (the reference's compiled jits do); the residency tier's counters
+        reset with the metrics window while its rows stay warm."""
         self.metrics = Metrics(self.n_slots, data_shards=1)
         self.bus = EventBus([self.metrics, self.trace, self.slo])
+        if self.residency is not None:
+            self.residency.reset_counters()
         self._t0 = None
 
     def serve(self, requests: List[tuple], max_new_tokens: int = 16) -> List[np.ndarray]:

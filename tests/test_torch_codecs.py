@@ -450,7 +450,7 @@ def test_mixed_codec_decode_logits_match_jax():
     jsd, _ = jeng._slot_delta(rows)
     jlog, _ = jlm.decode_step(jcfg, jbase, jlm.init_cache(jcfg, 4, 16), jnp.asarray(tok),
                               jnp.asarray(pos), deltas=jsd)
-    tsd = teng._slot_delta(rows)
+    tsd, _ = teng._slot_delta(rows)
     tlog, _ = lm.decode_step(tcfg, tbase, lm.init_cache(tcfg, 4, 16, device="cpu"),
                              torch.as_tensor(tok).long(), torch.as_tensor(pos).long(),
                              deltas=tsd)

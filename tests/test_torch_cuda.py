@@ -717,3 +717,67 @@ def test_mixed_codec_engine_equals_alone_on_card(engine_fleet, chunked):
         alone.run()
         for i, r in zip(idx, got):
             np.testing.assert_array_equal(r.output(), mixed[i].output())
+
+
+@pytest.mark.gpu
+def test_resident_values_on_the_card_raise(cuda):
+    """The residency tier's values formulation is plain torch: on a CUDA
+    tensor ``ops.delta_spmm_segments(values=)`` raises ValueError naming
+    ``values`` (no plain version runs on the card); without values the
+    kernel runs."""
+    from repro_torch.serve import DeltaResidency
+    stack = stack_tenant_deltas([_pack(256, 128, 16, 8, 4, s, cuda) for s in range(3)])
+    r = DeltaResidency({"w": stack}, 1 << 30)
+    rm = r.ensure(np.asarray([1, 2]))
+    seg = tenant_segments(np.asarray([1, 2, 2, 1], np.int32)).to(cuda)
+    x = _x(4, 256, 3, cuda)[seg.order]
+    with pytest.raises(ValueError, match="values"):
+        ops.delta_spmm_segments(x, stack, seg.seg_rows, seg.seg_offsets,
+                                values=r.values["w"], res_map=torch.as_tensor(rm).to(cuda))
+    ops.delta_spmm_segments(x, stack, seg.seg_rows, seg.seg_offsets)
+
+
+@pytest.mark.gpu
+def test_residency_engine_on_the_card_serves_packed(engine_fleet):
+    """A residency engine on the card builds and accounts the tier but
+    never consults it: every step is a packed step, tokens equal the
+    engine without a tier, and a direct ensure() decodes bit-exact
+    values into the card's buffers."""
+    from repro_torch.core.pack import decode_values
+    stream = _cuda_stream(engine_fleet[0].vocab)
+    plain = _cuda_engine(engine_fleet)
+    want = _submit_all(plain, stream)
+    plain.run()
+    eng = _cuda_engine(engine_fleet, residency_budget_bytes=1 << 30)
+    got = _submit_all(eng, stream)
+    eng.run()
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.output(), a.output())
+    res = eng.metrics.report()["residency"]
+    assert res["enabled"] and res["value_steps"] == 0 and res["hits"] == 0
+    assert res["packed_steps"] == eng.metrics.report()["decode_steps"] > 0
+    rm = eng.residency.ensure(np.asarray([1, 2, 3]))
+    d = eng._groups[0].stacked["attn"]["wq"]
+    vals = eng.residency.values["attn"]["wq"]
+    for row in (1, 2, 3):
+        assert torch.equal(vals[rm[row]], decode_values(d.index(row)))
+
+
+@pytest.mark.gpu
+def test_storage_roundtrip_into_the_kernel(cuda):
+    """A packing through to_storage_parts -> from_storage_parts onto the
+    card: idx, codes, scale and zero equal the original, so
+    ``delta_spmm`` on the reloaded delta equals the original's output bit
+    for bit."""
+    import dataclasses
+    from repro_torch.core.pack import from_storage_parts, to_storage_parts
+    d = dataclasses.replace(_pack(512, 256, 16, 8, 4, 4, cuda), m=8)
+    d2 = from_storage_parts(to_storage_parts(d), h_in=d.h_in, h_out=d.h_out,
+                            h_g=d.h_g, keep=d.keep, alpha=d.alpha, k_bits=d.k_bits,
+                            scale=d.scale, zero=d.zero, device=cuda)
+    assert d2.device.type == "cuda"
+    for f in ("idx", "codes", "scale", "zero"):
+        assert torch.equal(getattr(d2, f), getattr(d, f)), f
+    for T in (1, 8, 128):
+        x = _x(T, 512, 5, cuda)
+        assert torch.equal(ops.delta_spmm(x, d2), ops.delta_spmm(x, d))

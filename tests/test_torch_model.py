@@ -32,7 +32,7 @@ from repro_torch.models import lm as tlm  # noqa: E402
 import torch_bridge as br  # noqa: E402
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=1e-3, rtol=1e-3)}
-ARCHS = ["wizard-llama2-7b", "llama3.2-1b"]
+ARCHS = ["wizard-llama2-7b", "llama3.2-1b", "gemma3-1b", "gemma-7b", "phi3-medium-14b"]
 SPEC = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
 
 # the reference's model functions under jit, as its engines call them:

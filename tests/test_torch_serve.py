@@ -48,23 +48,26 @@ from repro_torch.serve.trace import Tracer, validate_chrome_trace  # noqa: E402
 import torch_bridge as br  # noqa: E402
 
 ARCH = "wizard-llama2-7b"
+# gemma3's 5:1 local:global pattern: 8-token windows at smoke size, so the
+# streams' longer prompts wrap the local rings (the *_windowed twins)
+WINDOWED = "gemma3-1b"
 SPEC = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
 LENGTHS = (5, 9, 7, 12, 5, 9, 3, 7)
 CHUNK_TOL = dict(atol=1e-4, rtol=1e-4)   # f32, summation order only
 
 
 @functools.lru_cache(maxsize=None)
-def _fleet():
+def _fleet(arch=ARCH):
     """Port-native smoke fleet (bf16 weights): base + 3 tenants at 128x."""
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     base = lm.init_params(cfg, 0, device="cpu")
     return cfg, base, synth_tenants(cfg, base, 3, RATIO_SPECS[128], seed=0)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fleet():
+def _jax_fleet(arch=ARCH):
     """f32 smoke fleet made by the reference and carried across."""
-    jcfg = dataclasses.replace(j_smoke(ARCH), param_dtype="float32")
+    jcfg = dataclasses.replace(j_smoke(arch), param_dtype="float32")
     base = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     tenants = []
     for t in range(2):
@@ -73,13 +76,13 @@ def _jax_fleet():
                 jax.random.PRNGKey(7 + t), p.shape, jnp.float32).astype(p.dtype)
             if p.ndim >= 2 else p, base)
         tenants.append((f"tenant{t}", compress(base, ft, SPEC)[0]))
-    tcfg = dataclasses.replace(get_smoke_config(ARCH), param_dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
     port = [(n, br.deltas_to_port(d)) for n, d in tenants]
     return jcfg, base, tenants, tcfg, br.params_to_port(base), port
 
 
-def _engine(n_slots=3, max_seq=32, **kw):
-    cfg, base, fleet = _fleet()
+def _engine(n_slots=3, max_seq=32, arch=ARCH, **kw):
+    cfg, base, fleet = _fleet(arch)
     eng = ContinuousEngine(cfg, base, n_slots=n_slots, max_seq=max_seq,
                            clock=VirtualClock(tick=1e-3), **kw)
     for name, d, rep in fleet:
@@ -153,22 +156,24 @@ def test_per_row_dispatch_matches_segments(chunked):
         np.testing.assert_array_equal(a, b)
 
 
-def _xla_to_torch(rep: dict) -> dict:
-    """The reference labels its plain formulations ``*-xla``, the port
-    ``*-torch``: the same path under each framework's name."""
-    rep = dict(rep)
-    if rep["decode_paths"]:
-        rep["decode_paths"] = {k.replace("-xla", "-torch"): v
-                               for k, v in rep["decode_paths"].items()}
-    return rep
-
-
 @pytest.mark.parametrize("chunked", [False, True])
 def test_continuous_matches_jax_engine(chunked):
     """f32 smoke config, same VirtualClock trace: the port's engine and
     the reference's give the same tokens and the same metrics report
     (timings, steps, paths and the jit_trace count included)."""
-    jcfg, jbase, jten, tcfg, tbase, tten = _jax_fleet()
+    _check_matches_jax_engine(chunked, ARCH)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_continuous_matches_jax_engine_windowed(chunked):
+    """The same on gemma3-1b: 8-token local rings that the 9-12 token
+    prompts wrap, in prefill and in decode, qk-norm, softcap and tied
+    embeddings."""
+    _check_matches_jax_engine(chunked, WINDOWED)
+
+
+def _check_matches_jax_engine(chunked, arch):
+    jcfg, jbase, jten, tcfg, tbase, tten = _jax_fleet(arch)
     kw = dict(n_slots=3, max_seq=32, chunked_prefill=chunked, chunk_size=4)
     jeng = JContinuousEngine(jcfg, jbase, clock=JVirtualClock(tick=1e-3), **kw)
     teng = ContinuousEngine(tcfg, tbase, clock=VirtualClock(tick=1e-3), **kw)
@@ -181,7 +186,7 @@ def test_continuous_matches_jax_engine(chunked):
     th = _serve(teng, stream, max_new=5)
     for (tenant, _), a, b in zip(stream, jh, th):
         np.testing.assert_array_equal(b.output(), a.output(), err_msg=str(tenant))
-    assert teng.metrics.report() == _xla_to_torch(jeng.metrics.report())
+    assert teng.metrics.report() == br.xla_to_torch(jeng.metrics.report())
     assert teng.metrics.jit_traces == jeng.metrics.jit_traces > 0
     assert teng.prefill_shapes == jeng.prefill_shapes
 
@@ -191,8 +196,19 @@ def test_mixed_stream_equals_tenants_alone(chunked):
     """Each tenant's requests (and the base's) served alone through the
     same engine, same n_slots and arrivals, give the mixed run's tokens:
     every row's arithmetic is independent of the other rows' tenants."""
+    _check_mixed_equals_alone(chunked, ARCH)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_mixed_stream_equals_tenants_alone_windowed(chunked):
+    """The same on gemma3-1b, whose local rings the 9-12 token prompts
+    wrap."""
+    _check_mixed_equals_alone(chunked, WINDOWED)
+
+
+def _check_mixed_equals_alone(chunked, arch):
     kw = dict(chunked_prefill=True, chunk_size=4) if chunked else {}
-    eng = _engine(n_slots=4, **kw)
+    eng = _engine(n_slots=4, arch=arch, **kw)
     stream = _stream(eng.cfg.vocab, lengths=(5, 9, 7, 12, 5, 9, 3, 7, 11, 4))
     mixed = [r.output() for r in _serve(eng, stream)]
     for tenant in (None, "tenant0", "tenant1", "tenant2"):
@@ -248,7 +264,19 @@ def test_chunked_ring_equals_whole_prompt_ring():
     """Chunks of 4 (pads included) leave the ring a whole-prompt prefill
     leaves: the same valid positions, pads never written, and K/V within
     1e-4 (f32; the chunks attend in another order)."""
-    _, _, _, tcfg, tbase, tten = _jax_fleet()
+    _check_chunked_ring(ARCH)
+
+
+def test_chunked_ring_equals_whole_prompt_ring_windowed():
+    """The same on gemma3-1b: the 10-token prompt wraps the 8-token local
+    rings, so the chunks overwrite their own earliest entries (the ring
+    save and restore at ``pos % S_c``) and must leave what whole-prompt
+    prefill leaves."""
+    _check_chunked_ring(WINDOWED)
+
+
+def _check_chunked_ring(arch):
+    _, _, _, tcfg, tbase, tten = _jax_fleet(arch)
     td = tten[1][1]
     prompt = torch.from_numpy(
         np.random.default_rng(4).integers(0, tcfg.vocab, 10)).long()[None]
@@ -459,12 +487,25 @@ def test_register_rejects_other_structure_and_packing():
         outs[1], static.generate("other", p[None], max_new_tokens=3)[0])
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(data=2),
-                                dict(residency_budget_bytes=1 << 20)])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(data=2)])
 def test_options_of_later_slices_raise(kw):
     cfg, base, _ = _fleet()
     with pytest.raises(NotImplementedError):
         ContinuousEngine(cfg, base, n_slots=2, max_seq=16, **kw)
+
+
+def test_residency_budget_builds_the_tier():
+    """``residency_budget_bytes=`` (a later slice's option until now)
+    builds the DeltaResidency tier with the tenant stack: 1 MB holds every
+    smoke row, and a CPU stack serves its decode steps from values."""
+    eng = _engine(n_slots=2, max_seq=16, residency_budget_bytes=1 << 20)
+    p = np.arange(6) % eng.cfg.vocab
+    eng.serve([("tenant1", p)], max_new_tokens=3)
+    r = eng.residency
+    assert r is not None and r.enabled and r.capacity == r.n_rows == 4
+    res = eng.metrics.report()["residency"]
+    assert res["value_steps"] == 2 and res["packed_steps"] == 0
+    assert res["capacity_rows"] == 4 and res["misses"] == 1
 
 
 def test_chunk_size_validation():

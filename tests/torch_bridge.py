@@ -90,3 +90,14 @@ def leaf_to_port(d, device=CPU):
 def deltas_to_port(deltas, device=CPU):
     """JAX deltas tree (dicts with codec leaves / None) -> port tree."""
     return map_with_paths(lambda _p, d: leaf_to_port(d, device), deltas)
+
+
+def xla_to_torch(rep: dict) -> dict:
+    """A reference ``Metrics.report()`` under the port's path names: the
+    reference labels its plain formulations ``*-xla``, the port
+    ``*-torch`` (the same path under each framework's name)."""
+    rep = dict(rep)
+    if rep["decode_paths"]:
+        rep["decode_paths"] = {k.replace("-xla", "-torch"): v
+                               for k, v in rep["decode_paths"].items()}
+    return rep
