@@ -28,11 +28,17 @@ every matrix through the m-part parts and back onto the card), the
 group-size search and the baselines (``[groupsearch]``: the card against
 the CPU), the quickstart (``launch/quickstart.py``: compress, serve
 separately and merged), the kernels demo (``launch/kernels_demo.py``: the
-four kernels' entry points) and the other dense configs at full width
+four kernels' entry points), the other dense configs at full width
 and depth (``[archs]``: gemma3-1b, gemma-7b and phi3-medium-14b, each
 with 3 tenants, both correction kernels at its site new to them, and the
 engine, mixed == alone; gemma3's prompts wrap its 512-token rings, whole
-and chunked). The correction kernels are also held to their
+and chunked) and, last, the MoE family
+(``[moe]``: qwen3-moe-30b-a3b at full width and depth with 2 tenants, the
+expert-stacked route onto the segments kernel against its plain version
+and ``torch.bmm``, a tenant's logits against the plain expert correction,
+``Engine.generate`` and ``serve_batch``'s grouped fallback, the
+continuous engine with attention-only tenants, mixed == alone). The
+correction kernels are also held to their
 plain versions on the codec packings (BitDelta and LowRank lowerings,
 keep = h_g = 128). It checks the outputs, that each path launched
 its kernels, and prints one JSON line of kernel measurements, then the
@@ -142,6 +148,31 @@ ARCH_SITES = {"gemma3-1b": ("attn", "wk"), "gemma-7b": ("mlp", "wo"),
               "phi3-medium-14b": ("mlp", "wi")}
 # gemma3-1b's stream: prompts longer than its 512-token local window
 WINDOW_REQUESTS, WINDOW_MIN, WINDOW_MAX, WINDOW_SEED, WINDOW_CHUNK = 12, 520, 900, 17, 64
+# [moe]: qwen3-moe-30b-a3b at its published width and full depth with 2
+# tenants at 128x (a third does not fit beside the 62.3 GB base). The
+# expert route is checked and timed at (routed tokens T, capacity C) in
+# MOE_CASES: C = 1 at T = 2 (Engine.generate's B=2 decode) and T = 8,
+# C = 10 at T = 128 (a 128-token prefill), all three at cf 1.25, and
+# C = 64 (cf 8.0 at T = 128), with per-expert counts routed from T
+# tokens, on a ring of MOE_RING layer slices. The continuous engine
+# serves at cf = E / K, the least at which C >= T, so no row can be
+# dropped for another row's routing and mixed serving must equal serving
+# alone token for token (the reference's cf 8.0 gives C = 2T at its smoke
+# size, C = T / 2 here); one more pass at cf 8.0 counts the requests
+# whose tokens change with the batch they were routed in.
+MOE_ARCH, MOE_TENANTS = "qwen3-moe-30b-a3b", 2
+MOE_CASES = ((2, 1), (8, 1), (128, 10), (128, 64))
+MOE_CF_DROPS = 8.0
+MOE_RING = 8
+MOE_SITES = ("wi", "wg", "wo")
+# first-token logits of a tenant through the kernels against the same
+# tenant with the plain expert correction (dense reconstruction and a
+# batched product, the reference's formulation): summation order only,
+# through 48 routed layers. An H100 read 6.3e-7 of max|logit|; the bound
+# is 16x that, and a control with one expert's correction zeroed
+# (MOE_CONTROL_EXPERT, in every layer) must exceed it
+MOE_LOGIT_REL_TOL = 1e-5
+MOE_CONTROL_EXPERT = 0
 DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
 REPLACED_NOTE = ("the kernel this one replaced is gone from this checkout; it is timed "
                  "by the parent commit's chip_smoke.py in the same chip call (PERF.md)")
@@ -263,7 +294,8 @@ def _plain_segments(torch, fb, xs, stack, seg_rows, seg_offsets, gather_max_t=No
     y = torch.zeros((xs.shape[0], stack.h_out), device=xs.device)
     offs = seg_offsets.tolist()
     for s, t in enumerate(seg_rows.tolist()):
-        if offs[s + 1] > offs[s]:
+        # a segment whose tenant row is outside the stack stays zero
+        if offs[s + 1] > offs[s] and 0 <= t < stack.idx.shape[0]:
             y[offs[s]:offs[s + 1]] = fb.correction(
                 xs[offs[s]:offs[s + 1]], stack.index(t),
                 **({} if gather_max_t is None else {"gather_max_t": gather_max_t}))
@@ -912,16 +944,16 @@ def phase_mixed_decode(torch, kern, ctx: dict, report: dict) -> dict:
     return launches
 
 
-def _engine_stream(cfg) -> list:
-    """[(tenant, prompt, arrival)]: round-robin over {base, tenant0..2},
-    prompt lengths 33..128 from a seeded generator (both buckets)."""
+def _engine_stream(cfg, names=(None, "tenant0", "tenant1", "tenant2")) -> list:
+    """[(tenant, prompt, arrival)]: round-robin over ``names`` (the base
+    and tenant0..2), prompt lengths 33..128 from a seeded generator (both
+    buckets)."""
     import numpy as np
     rng = np.random.default_rng(ENGINE_SEED)
     lengths = rng.integers(33, 129, ENGINE_REQUESTS)
     if not (lengths <= 64).any() or not (lengths > 64).any():
         fail(f"the engine stream misses a length bucket: {lengths.tolist()}")
-    names = (None, "tenant0", "tenant1", "tenant2")
-    return [(names[i % 4], rng.integers(0, cfg.vocab, int(L)).astype(np.int32),
+    return [(names[i % len(names)], rng.integers(0, cfg.vocab, int(L)).astype(np.int32),
              ENGINE_GAP * i) for i, L in enumerate(lengths)]
 
 
@@ -2265,6 +2297,418 @@ def phase_archs(torch, kern, report: dict) -> dict:
     return by_path
 
 
+def _routed_counts(torch, n_experts: int, top_k: int, n_tokens: int, cap: int, gen):
+    """Per-expert live rows [E] when ``n_tokens`` tokens each pick
+    ``top_k`` distinct experts uniformly: their assignments counted per
+    expert and capped at ``cap`` (the drops)."""
+    pick = torch.rand((n_tokens, n_experts), generator=gen, device=DEVICE).argsort(dim=1)
+    counts = torch.bincount(pick[:, :top_k].reshape(-1), minlength=n_experts)
+    return counts.clamp(max=cap).to(torch.int32)
+
+
+def _zero_past(torch, x, counts):
+    """x [E, C, h] with each expert's rows past its count zeroed (an
+    expert buffer's layout)."""
+    C = x.shape[1]
+    return x.masked_fill(torch.arange(C, device=x.device)[None, :, None]
+                         >= counts[:, None, None].to(x.device), 0.0)
+
+
+def _moe_kernels(torch, ops, fb, cfg, fleet, gen) -> tuple:
+    """The expert-stacked route (``ops.delta_spmm_experts``: the segments
+    kernel, one segment an expert) at wi, wg and wo for each (T, C) in
+    MOE_CASES: held to its plain version within KERNEL_TOL on the all-C
+    layout; the routed-counts layout and a random-counts one bit-equal to
+    all-C; both layouts timed (CUDA-graph replays over MOE_RING layer
+    slices) against the bound, the plain version and one torch.bmm on the
+    dense f32 expert stack, beside the layout ops.expert_counts_pay takes
+    for that T and C. -> (rows, worst error)."""
+    from repro_torch.core.pack import reconstruct_dense
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    rows, worst = [], 0.0
+    for site in MOE_SITES:
+        leaves = [deltas["moe"][site] for _, deltas, _ in fleet]
+        ring = [leaves[i % len(leaves)].index((i // len(leaves)) % cfg.n_layers)
+                for i in range(MOE_RING)]
+        d0 = ring[0]
+        h_in, h_out = d0.h_in, d0.h_out
+        per_expert = packed_bytes(d0.index(0))
+        for T, C in MOE_CASES:
+            x = torch.randn((E, C, h_in), generator=gen, device=DEVICE)
+            seg_rows, offs = ops.expert_segments(E, C, None, DEVICE)
+            got = ops.delta_spmm_experts(x, d0)
+            want = _plain_segments(torch, fb, x.reshape(E * C, h_in), d0, seg_rows,
+                                   offs).reshape(E, C, h_out)
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            if not torch.allclose(got, want, **KERNEL_TOL):
+                fail(f"[moe] delta_spmm_experts {site} T={T} C={C}: {err:.3e} from the "
+                     f"plain version")
+            routed = _routed_counts(torch, E, K, T, C, gen)
+            rand = torch.randint(0, C + 1, (E,), generator=gen, device=DEVICE,
+                                 dtype=torch.int32)
+            for name, counts in (("routed", routed), ("random", rand)):
+                xz = _zero_past(torch, x, counts)
+                full = ops.delta_spmm_experts(xz, d0)
+                part = ops.delta_spmm_experts(xz, d0, counts)
+                if not torch.equal(full.view(torch.int32), part.view(torch.int32)):
+                    fail(f"[moe] delta_spmm_experts {site} T={T} C={C}: the {name} "
+                         f"counts layout is not bit-equal to all-C")
+            xr = _zero_past(torch, x, routed)
+            live, read = int(routed.sum().item()), int((routed > 0).sum().item())
+            counts_ms = time_ms(torch, [lambda d=d: ops.delta_spmm_experts(xr, d, routed)
+                                        for d in ring])
+            full_ms = time_ms(torch, [lambda d=d: ops.delta_spmm_experts(xr, d)
+                                      for d in ring])
+            takes = "counts" if ops.expert_counts_pay(T * K, E, C) else "all-C"
+            ms = counts_ms if takes == "counts" else full_ms
+            seg_r, offs_r = ops.expert_segments(E, C, routed, DEVICE)
+            plain = time_ms(torch, [lambda: _plain_segments(
+                torch, fb, xr.reshape(E * C, h_in), d0, seg_r, offs_r)], iters=2, reps=3,
+                eager=True)
+            dense = reconstruct_dense(d0)                 # [E, h_in, h_out] f32
+            lib_y = torch.bmm(xr, dense)
+            if not torch.allclose(lib_y, ops.delta_spmm_experts(xr, d0, routed),
+                                  **KERNEL_TOL):
+                fail(f"[moe] {site} T={T} C={C}: torch.bmm on the dense stack disagrees "
+                     f"with the kernel")
+            lib = time_ms(torch, [lambda: torch.bmm(xr, dense)])
+            del dense, lib_y
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound_ms(live * h_in * 4, read * per_expert, E * C * h_out * 4,
+                                  2.0 * live * d0.index(0).nnz)
+            t = {"kernel": "delta_spmm_segments", "layout": "experts", "site": f"moe/{site}",
+                 "h_in": h_in, "h_out": h_out, "T": E * C, "C": C, "E": E,
+                 "routed_tokens": T, "live_rows": live, "experts_read": read,
+                 "tb": ops.row_tile(C), "ops_layout": takes, "ms": ms,
+                 "counts_ms": counts_ms, "all_c_ms": full_ms, "plain_ms": plain,
+                 "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                 "all_experts_bound_ms": bound_ms(E * C * h_in * 4, E * per_expert,
+                                                  E * C * h_out * 4,
+                                                  2.0 * E * C * d0.index(0).nnz)[0]}
+            log(f"[moe] delta_spmm_experts moe/{site} ({h_in} x {h_out}) T={T:3d} C={C:2d} "
+                f"({live} live rows, {read} of {E} experts read): counts layout "
+                f"{counts_ms:.4f} ms, all {E * C} rows {full_ms:.4f} ms, ops takes {takes} "
+                f"(T*K/(E*C) = {T * K / (E * C):.3f}); plain {plain:.4f} ms, library "
+                f"(torch.bmm, dense f32 stack) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"all experts {t['all_experts_bound_ms']:.4f} ms); row tile {t['tb']}; "
+                f"within {KERNEL_TOL} of plain (err {err:.3e}), counts bit-equal to all-C")
+            rows.append(t)
+        del ring
+    return rows, worst
+
+
+def _moe_attention_times(torch, ops, fb, cfg, fleet, gen) -> list:
+    """delta_spmm at qwen3's widest attention sites, wq (2048 x 4096) and
+    wo (4096 x 2048), at the shapes Engine.generate gives it (T=2 decode,
+    T=128 prefill): held to the plain version, timed on a ring of
+    MOE_RING layer slices against its bound and torch.matmul on the dense
+    delta."""
+    from repro_torch.core.pack import reconstruct_dense
+    out = []
+    for site in ("wq", "wo"):
+        leaves = [deltas["attn"][site] for _, deltas, _ in fleet]
+        ring = [leaves[i % len(leaves)].index((i // len(leaves)) % cfg.n_layers)
+                for i in range(MOE_RING)]
+        for T in (2, 128):
+            x = torch.randn((T, ring[0].h_in), generator=gen, device=DEVICE)
+            got, want = ops.delta_spmm(x, ring[0]), fb.correction(x, ring[0])
+            if not torch.allclose(got, want, **KERNEL_TOL):
+                fail(f"[moe] delta_spmm attn/{site} T={T}: "
+                     f"{(got - want).abs().max().item():.3e} from the plain version")
+        dense = [reconstruct_dense(d) for d in ring]
+        for T in (2, 128):
+            t = _time_spmm(torch, ops, fb, ring, dense, gen, f"attn/{site}", T, None)
+            t["arch"] = MOE_ARCH
+            out.append(t)
+        del dense, ring
+    torch.cuda.empty_cache()
+    return out
+
+
+def _expert_notes_ok(notes: list, where: str) -> int:
+    """The expert sites' notes of a run on the card: every one the kernel
+    route, none a plain formulation or the out-of-envelope branch.
+    -> the number of expert-route notes."""
+    plain = [n for n in notes if n.get("formulation") in (
+        "experts-torch", "experts-dense", "plain-out-of-envelope", "segments-torch",
+        "torch-gather", "torch-dense")]
+    if plain:
+        fail(f"[moe] {where}: a plain formulation ran on the card: {plain}")
+    experts = [n for n in notes if n["site"] == "delta_spmm_experts"]
+    if not experts or any(n["formulation"] != "experts-cuda" for n in experts):
+        fail(f"[moe] {where}: expert sites took {experts}")
+    return len(experts)
+
+
+def _moe_logits(torch, lm, ops, cfg, base, deltas) -> dict:
+    """Tenant0's first-token logits on one 64-token prompt through the
+    kernels, against the same tenant with the plain expert correction
+    (``ops.delta_spmm_experts`` replaced by the dense reconstruction and
+    a batched product), within MOE_LOGIT_REL_TOL of max|logit|; a control
+    (the kernels with MOE_CONTROL_EXPERT's correction zeroed) must exceed
+    that bound; and the gap to the base."""
+    import numpy as np
+    from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.serve.trace import attribution
+    tok = torch.as_tensor(np.random.default_rng(18).integers(0, cfg.vocab, (1, 64)),
+                          dtype=torch.int64, device=DEVICE)
+
+    def first(d):
+        cache = lm.init_cache(cfg, 1, 64, device=DEVICE)
+        return lm.prefill(cfg, base, {"tokens": tok}, cache, deltas=d)[0][0]
+
+    with attribution() as notes:
+        got = first(deltas)
+    _expert_notes_ok(notes, "model-level logits")
+    real = ops.delta_spmm_experts
+
+    def one_expert_zeroed(x, d, counts=None):
+        y = real(x, d, counts)
+        y[MOE_CONTROL_EXPERT] = 0.0
+        return y
+
+    runs = {}
+    for name, route in (("plain", lambda x, d, counts=None: torch.matmul(
+            x, reconstruct_dense(d))), ("control", one_expert_zeroed)):
+        ops.delta_spmm_experts = route
+        try:
+            runs[name] = first(deltas)
+        finally:
+            ops.delta_spmm_experts = real
+    want = runs["plain"]
+    base_lg = first(None)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ctl = (runs["control"] - want).abs().max().item()
+    gap = (want - base_lg).abs().max().item()
+    log(f"[moe] tenant0 first-token logits, kernels vs the plain expert correction: "
+        f"max|diff| {err:.4e}, max|logit| {scale:.3e} (rel {err / scale:.3e}, bound "
+        f"{MOE_LOGIT_REL_TOL}); control with expert {MOE_CONTROL_EXPERT}'s correction "
+        f"zeroed: max|diff| {ctl:.4e} (rel {ctl / scale:.3e}, must exceed the bound); "
+        f"tenant-vs-base gap {gap:.3e}; argmax {int(got.argmax())} vs {int(want.argmax())}")
+    if not err <= MOE_LOGIT_REL_TOL * scale or not err < 0.1 * gap:
+        fail("[moe] the kernels' logits differ from the plain expert correction's")
+    if not ctl > MOE_LOGIT_REL_TOL * scale:
+        fail("[moe] the logit bound does not see one expert's correction missing")
+    return {"max_abs": err, "rel": err / scale, "control_rel": ctl / scale, "gap": gap,
+            "bound_rel": MOE_LOGIT_REL_TOL}
+
+
+def _moe_grouped(torch, kern, cfg, base, fleet) -> dict:
+    """Engine.generate, B=2 prompts of 64 tokens and 16 new, for the base
+    and each tenant at cf 1.25 (counts read just after); then
+    Engine.serve_batch on the same requests, which falls back to
+    per-tenant grouping and must equal generate token for token."""
+    import numpy as np
+    from repro_torch.serve import Engine
+    from repro_torch.serve.trace import attribution
+    B, S, NEW = 2, 64, 16
+    L = cfg.n_layers
+    eng = Engine(cfg, base, max_seq=96)
+    for name, d, rep in fleet:
+        eng.register_tenant(name, d, rep)
+    names = [None] + [n for n, _, _ in fleet]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    outputs, walls = {}, {}
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    with attribution() as notes:
+        for name in names:
+            lg = []
+            t0 = time.perf_counter()
+            outputs[name] = eng.generate(name, prompts, max_new_tokens=NEW, logits_out=lg)
+            torch.cuda.synchronize()
+            walls[str(name)] = time.perf_counter() - t0
+            if outputs[name].shape != (B, NEW) or not all(bool(torch.isfinite(x).all())
+                                                          for x in lg):
+                fail(f"[moe] generate {name}: shape {outputs[name].shape} or non-finite")
+    launches, routes = dict(kern.LAUNCHES), dict(kern.ROUTES)
+    n_notes = _expert_notes_ok(notes, "Engine.generate")
+    n_t = len(fleet)
+    want = {"delta_spmm": n_t * NEW * 4 * L, "delta_spmm_segments": n_t * NEW * 3 * L,
+            "fused_base_delta": 0, "dequant": 0}
+    want_routes = {"delta_spmm_prefill": n_t * 4 * L,
+                   "delta_spmm_decode": n_t * (NEW - 1) * 4 * L}
+    log(f"[moe] Engine.generate base + {n_t} tenants, B={B} S={S} new={NEW}, cf "
+        f"{cfg.moe.capacity_factor}: {sum(walls.values()):.2f} s ({walls}); "
+        f"{B * NEW / walls[str(names[1])]:.1f} tokens per wall s a tenant; launches "
+        f"{launches}, routes {routes} (expected {want}, {want_routes}: 4 attention sites "
+        f"and 3 expert sites x {L} layers x {NEW} calls x {n_t} tenants); expert sites "
+        f"noted {n_notes} distinct calls, all experts-cuda")
+    if launches != want or routes != want_routes:
+        fail(f"[moe] generate launches {launches} routes {routes}, expected {want} "
+             f"{want_routes}")
+    for name in names[1:]:
+        if np.array_equal(outputs[name], outputs[None]):
+            fail(f"[moe] {name} generated the base model's tokens")
+    # serve_batch: expert deltas cannot slot-dispatch, so it falls back to
+    # per-tenant grouping: the same generate calls, the same launches
+    reqs = [(name, prompts[i]) for name in names for i in range(B)]
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.serve_batch(reqs, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    sb_wall = time.perf_counter() - t0
+    sb_launches = dict(kern.LAUNCHES)
+    bad = [(name, i) for (name, _), i, o in zip(reqs, [i for _ in names for i in range(B)],
+                                                outs)
+           if not np.array_equal(o, outputs[name][i])]
+    log(f"[moe] Engine.serve_batch ({len(reqs)} requests with expert deltas): falls back "
+        f"to per-tenant grouping, {sb_wall:.2f} s; launches {sb_launches}; equal to "
+        f"generate token for token: {len(reqs) - len(bad)}/{len(reqs)}")
+    if bad or sb_launches != want:
+        fail(f"[moe] serve_batch differs from generate: {bad}, launches {sb_launches}")
+    # one eager decode step (B=2), base vs tenant0, as a caller sees it
+    from repro_torch.models import lm
+    steps = {}
+    tok = torch.as_tensor(prompts, dtype=torch.int64, device=DEVICE)
+    for name in names[:2]:
+        d = eng.store.get(name).deltas if name else None
+        cache = lm.init_cache(cfg, B, 96, device=DEVICE)
+        lm.prefill(cfg, base, {"tokens": tok}, cache, deltas=d)
+        nxt = torch.as_tensor(outputs[name][:, :1], dtype=torch.int64, device=DEVICE)
+        steps[str(name)] = time_ms(torch, [lambda: lm.decode_step(
+            cfg, base, cache, nxt, S, deltas=d)], iters=5, reps=3, eager=True)
+        del cache
+    log(f"[moe] decode step B={B} (eager, host enqueue included): base "
+        f"{steps['None']:.2f} ms, tenant0 {steps[str(names[1])]:.2f} ms")
+    return {"launches": launches, "routes": routes, "wall_s": walls,
+            "serve_batch": {"wall_s": sb_wall, "launches": sb_launches, "equal": len(reqs)},
+            "decode_step_ms": steps,
+            "tokens": {str(k): v.tolist() for k, v in outputs.items()}}
+
+
+def _moe_stream_run(torch, kern, cfg, base, fleet, stream, cf: float) -> tuple:
+    """ContinuousEngine(n_slots=8, max_seq=256) at capacity factor ``cf``
+    on ``stream`` (launch counts and the envelope checked), each tenant
+    with its moe subtree pruned; then each tenant's requests alone
+    through the same engine. -> (the mixed run, the requests whose
+    tokens differ from serving alone)."""
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+    ccfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    names = [None] + [n for n, _, _ in fleet]
+    sites = 4 * cfg.n_layers
+    ce = ContinuousEngine(ccfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                          clock=VirtualClock(tick=ENGINE_TICK))
+    for name, d, rep in fleet:
+        ce.register_tenant(name, dict(d, moe=None), rep)
+    mixed = _engine_run(torch, kern, ce, stream, list(range(len(stream))),
+                        f"[moe] mixed, cf {cf}")
+    want = {"delta_spmm": sites * len(stream),
+            "delta_spmm_segments": sites * mixed["decode_steps"],
+            "fused_base_delta": 0, "dequant": 0}
+    if mixed["launches"] != want:
+        fail(f"[moe] continuous cf {cf} launches {mixed['launches']}, expected {want}")
+    edge = [p for p in mixed["report"]["decode_paths"] or {} if "out-of-envelope" in p]
+    if edge:
+        fail(f"[moe] continuous steps took the out-of-envelope branch: {edge}")
+    bad = []
+    for name in names:
+        ce.reset_metrics()
+        idx = [i for i, (t, _, _) in enumerate(stream) if t == name]
+        run = _engine_run(torch, kern, ce, stream, idx, f"[moe] alone {name or 'base'}, cf {cf}")
+        for i in idx:
+            j = _first_mismatch(run["tokens"][i], mixed["tokens"][i])
+            if j is not None:
+                bad.append({"request": i, "tenant": name, "step": j})
+    del ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return mixed, bad
+
+
+def _moe_continuous(torch, kern, cfg, base, fleet) -> dict:
+    """The continuous engine on the [engine] stream's prompts round-robin
+    over {base, tenants} (attention deltas only: slot dispatch refuses
+    expert deltas) at cf = E / K, where mixed must equal each tenant
+    alone token for token; then at MOE_CF_DROPS, where capacity drops
+    depend on the batch, the requests that differ are counted."""
+    names = [None] + [n for n, _, _ in fleet]
+    stream = _engine_stream(cfg, tuple(names))
+    cf = cfg.moe.n_experts / cfg.moe.top_k
+    mixed, bad = _moe_stream_run(torch, kern, cfg, base, fleet, stream, cf)
+    log(f"[moe] continuous: mixed == alone, token for token: "
+        f"{len(stream) - len(bad)}/{len(stream)} requests" + (f"; differ: {bad}" if bad
+                                                              else ""))
+    if bad:
+        fail(f"[moe] mixed serving differs from serving alone: {bad}")
+    log(f"[moe] continuous, cf {cf}: {mixed['decode_steps']} decode "
+        f"steps of {mixed['ms_per_step']:.1f} ms, {mixed['tokens_per_s']:.1f} tokens per "
+        f"wall s ({mixed['wall_s']:.2f} s for {len(stream)} requests); launches "
+        f"{mixed['launches']}")
+    drops, differ = _moe_stream_run(torch, kern, cfg, base, fleet, stream, MOE_CF_DROPS)
+    log(f"[moe] continuous, cf {MOE_CF_DROPS} (capacity drops depend on the batch; "
+        f"counted, not checked): mixed == alone in full for "
+        f"{len(stream) - len(differ)}/{len(stream)} requests; differ: {differ}; "
+        f"{drops['decode_steps']} decode steps of {drops['ms_per_step']:.1f} ms")
+    keys = ("wall_s", "decode_steps", "ms_per_step", "tokens_per_s", "launches")
+    return {k: mixed[k] for k in keys} | {
+        "capacity_factor": cf,
+        "drops": {k: drops[k] for k in keys} | {"capacity_factor": MOE_CF_DROPS,
+                                               "requests": len(stream), "differ": differ}}
+
+
+def phase_moe(torch, kern, report: dict) -> dict:
+    """qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts
+    top-8), random init from seed 0, MOE_TENANTS tenants at 128x
+    compressed on the card one matrix at a time: the expert route's
+    kernels, a tenant's logits against the plain expert correction,
+    grouped serving (Engine.generate, serve_batch's fallback) and the
+    continuous engine with attention-only tenants. -> launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    base = lm.init_params(cfg, 0, device=DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    fleet = synth_tenants(cfg, base, MOE_TENANTS, RATIO_SPECS[128], seed=0)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    mem = {"params_gb": tree_bytes(base) / 1e9,
+           "tenant_gb": [tree_bytes(d) / 1e9 for _, d, _ in fleet],
+           "after_init_gb": torch.cuda.memory_allocated() / 1e9}
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv}, {m.n_experts} experts top-{m.top_k}, d_expert "
+        f"{m.d_expert}, vocab {cfg.vocab}; {mem['params_gb']:.2f} GB params, init "
+        f"{t_init:.1f} s; {MOE_TENANTS} tenants {[round(g, 3) for g in mem['tenant_gb']]} "
+        f"GB packed ({fleet[0][2].summary()}), synthesized and compressed in "
+        f"{t_comp:.1f} s; {mem['after_init_gb']:.2f} GB allocated")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(18)
+    out = {"init_s": t_init, "compress_s": t_comp}
+    out["kernels"], worst = _moe_kernels(torch, ops, fb, cfg, fleet, gen)
+    out["attention_times"] = _moe_attention_times(torch, ops, fb, cfg, fleet, gen)
+    out["logits"] = _moe_logits(torch, lm, ops, cfg, base, fleet[0][1])
+    out["grouped"] = _moe_grouped(torch, kern, cfg, base, fleet)
+    out["continuous"] = _moe_continuous(torch, kern, cfg, base, fleet)
+    mem["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["memory"] = mem
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["worst"] = worst
+    log(f"[moe] memory: params {mem['params_gb']:.2f} GB, tenants "
+        f"{sum(mem['tenant_gb']):.3f} GB, peak {mem['peak_gb']:.2f} GB; phase "
+        f"{out['wall_s']:.1f} s")
+    report["moe"] = out
+    del fleet, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moe:generate": out["grouped"]["launches"],
+            "moe:serve_batch": out["grouped"]["serve_batch"]["launches"],
+            "moe:continuous": out["continuous"]["launches"]}
+
+
 def kernel_times(torch) -> list:
     """``--kernel-times``: device times of the decode-side correction
     kernels alone (delta_spmm at DECODE_T, the three segments layouts) at
@@ -2328,6 +2772,18 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
                                    *keys) if k in a}
                 for r in report["archs"].values() for a in r["kernels"]["times"]
                 if a["kernel"] == name]
+        if name == "delta_spmm":   # qwen3's attention sites, [moe]
+            extra["arch_sites"] += [
+                {k: a[k] for k in ("arch", "site", "h_in", "h_out", "T", "tb", *keys)}
+                for a in report["moe"]["attention_times"]]
+        if name == "delta_spmm_segments":   # the MoE expert stacks, [moe]
+            extra["expert_sites"] = [
+                {k: e[k] for k in ("site", "h_in", "h_out", "E", "C", "T", "routed_tokens",
+                                   "live_rows", "experts_read", "tb", "ops_layout",
+                                   "counts_ms", "all_c_ms", *keys)}
+                for e in report["moe"]["kernels"]]
+            extra["expert_launches"] = {p: l[name] for p, l in by_path.items()
+                                        if p.startswith("moe:")}
         if name == "delta_spmm_segments":   # the chunked engine's prompt chunks
             c = by[(name, "wi", ENGINE_CHUNK, "chunk")]
             extra["chunk_layout"] = {
@@ -2430,11 +2886,14 @@ def main(argv: list) -> int:
             phase_done("quickstart and demo")
             arch_launches = phase_archs(torch, kern, report)
             phase_done("archs")
+            moe_launches = phase_moe(torch, kern, report)
+            phase_done("moe")
     finally:
         _write_report(report, t_start)
 
     for k, v in codec_worst.items():
         worst[k] = max(worst[k], v)
+    worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], report["moe"]["worst"])
     entries = kernel_entries(report, worst, {
         "delta_spmm": engine_launches, "delta_spmm_segments": engine_launches,
         "fused_base_delta": demo_launches, "dequant": merge_launches}, {
@@ -2442,7 +2901,8 @@ def main(argv: list) -> int:
         "lifecycle": lifecycle_launches, "residency": residency_launches,
         "storage": storage_launches, "generate": main_launches,
         "mixed_step": mixed_launches, "merge": merge_launches,
-        "quickstart": quickstart_launches, "demo": demo_launches, **arch_launches})
+        "quickstart": quickstart_launches, "demo": demo_launches, **arch_launches,
+        **moe_launches})
     report["kernels"] = entries
     _write_report(report, t_start)
     log(f"[done] {report['wall_s']:.1f} s")

@@ -1,9 +1,9 @@
 """Architecture configuration system (copy of ``repro/configs/arch.py``).
 
 Every supported model is described by one frozen :class:`ArchConfig`.
-The port registers the dense configs it serves so far; each config file
-also exposes a ``smoke()``-sized reduced config of the same family for
-CPU tests.
+The port registers the configs it serves so far (the dense and MoE
+families); each config file also exposes a ``smoke()``-sized reduced
+config of the same family for CPU tests.
 """
 from __future__ import annotations
 
@@ -121,6 +121,17 @@ class ArchConfig:
             total += n
         return total
 
+    def n_active_params(self, seq_len: int = 1) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert
+        n_moe = sum(1 for k in self.layer_kinds if k == "moe")
+        inactive = (m.n_experts - m.top_k) * per_expert * n_moe
+        return total - inactive
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -164,11 +175,13 @@ def _ensure_loaded():
         return
     _LOADED = True
     # import every config module for its register() side effect (the
-    # dense configs the port serves so far)
+    # dense and MoE configs the port serves so far)
     from repro_torch.configs import (  # noqa: F401
         gemma3_1b,
         gemma_7b,
+        llama4_scout_17b_a16e,
         llama32_1b,
         phi3_medium_14b,
+        qwen3_moe_30b_a3b,
         wizard_llama2_7b,
     )

@@ -27,7 +27,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.pack import PackedDelta
+from repro_torch.core.pack import PackedDelta, reconstruct_dense
 
 def _note(site: str, **attrs) -> None:
     """Report the chosen dispatch to an open trace context (no-op
@@ -218,6 +218,37 @@ def apply_linear(x: torch.Tensor, w: torch.Tensor, d=None) -> torch.Tensor:
         c = _pinned(delta_matmul(x, d).to(torch.float32))
         y = (y.to(torch.float32) + c).to(y.dtype)
     return y
+
+
+def apply_linear_batched(x: torch.Tensor, w: torch.Tensor, d=None,
+                         counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched over a leading stack dim (MoE experts): x [E, ..., h_in],
+    w [E, h_in, h_out], delta stacked [E, ...] (``apply.py:496-523``).
+
+    The base is one batched product under :func:`_matmul`'s dtype rule;
+    the correction is added in f32 with ONE final rounding, as in
+    :func:`apply_linear`. On the CPU the correction is the reference's
+    formulation, the dense ``[E, h_in, h_out]`` reconstruction and a
+    batched product; on the card ``ops.delta_spmm_experts``, the segments
+    kernel over the expert stack (``counts`` [E], optional: each expert's
+    live leading rows of x, the rest being zero rows)."""
+    if isinstance(d, (SlotDelta, MultiSlotDelta)):
+        # Expert buffers mix tokens from many slots; a per-row gather has no
+        # meaning here. The serving engine must group such archs per tenant.
+        raise NotImplementedError(
+            "slot-dispatched deltas are not supported at expert-batched "
+            "linear sites (MoE); serve these tenants via per-tenant grouping")
+    from repro_torch.kernels import ops
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+    y = _matmul(x3, w)
+    if d is not None:
+        if ops._device_kind(x3) == "cpu":
+            _note("apply_linear_batched", formulation="experts-dense", codec=d.codec)
+            c = x3 @ reconstruct_dense(d, dtype=x3.dtype)
+        else:
+            c = ops.delta_spmm_experts(x3, d, counts)
+        y = (y.to(torch.float32) + _pinned(c.to(torch.float32))).to(y.dtype)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------

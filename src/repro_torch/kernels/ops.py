@@ -12,7 +12,10 @@ there raises ``ValueError``: no plain version runs on the card.
 
 ``fused_base_delta`` and ``dequant`` (``ops.py:390-431`` of the
 reference) follow the same rule; ``dequant`` is the merge path's
-(``core/apply.py::merge_delta``).
+(``core/apply.py::merge_delta``). ``delta_spmm_experts`` has no
+counterpart there (the reference reconstructs the dense expert stack):
+it is the MoE expert sites' route onto the segments kernel, an expert
+buffer being E segments of one stacked delta.
 
 Tiles: the kernels take every T and h_out as they are (they mask the
 ragged edges themselves), so the reference's row padding and column
@@ -47,6 +50,11 @@ DEQUANT_OB = 32    # output columns per block in the dequant kernel
 # beats it at every full-width site up to 64 rows; above, the 128-row tile
 # wins at MLP wo (h_in 11008) but loses at wq and wi
 PREFILL_MIN_T = 65
+# delta_spmm_experts takes per-expert counts when at most this share of
+# the E * C buffer rows can be live (T * K assignments): on an H100 the
+# counts layout wins at a share of 1/8 and 1/2 and loses at 4/5, where
+# nearly every expert is read either way (chip_smoke.py's [moe] lines)
+EXPERT_COUNTS_MAX_FILL = 0.5
 
 
 def _note(site: str, **attrs) -> None:
@@ -148,7 +156,8 @@ def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
                         seg_rows: torch.Tensor,
                         seg_offsets: torch.Tensor,
                         values: torch.Tensor | None = None,
-                        res_map: torch.Tensor | None = None) -> torch.Tensor:
+                        res_map: torch.Tensor | None = None,
+                        max_rows: int | None = None) -> torch.Tensor:
     """Unique-tenant batched slot dispatch: x_sorted rows grouped by tenant.
 
     x_sorted [T, h_in] (each tenant one contiguous segment); d is the
@@ -162,6 +171,10 @@ def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
     kernel decodes each tile once per segment already, so no kernel reads
     values. On a CUDA tensor they raise ``ValueError``: no plain version
     runs on the card, and the engine never passes them there.
+
+    ``max_rows`` (optional) bounds every segment's length, so the row tile
+    is chosen from it instead of from all T rows (every tile gives a row
+    the same bits).
     """
     if values is not None:
         if _device_kind(x_sorted) != "cpu":
@@ -174,14 +187,70 @@ def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
     if _out_of_envelope("delta_spmm_segments", d.index(0), x_sorted) or \
             _device_kind(x_sorted) == "cpu":
         return fallback.segment_correction(x_sorted, d, seg_rows, seg_offsets)
-    T = x_sorted.shape[0]
-    tb = row_tile(T)
+    tb = row_tile(x_sorted.shape[0] if max_rows is None else max_rows)
     _note("delta_spmm_segments", formulation="segments-cuda", codec=d.codec,
           residency="packed", tb=tb, ob=KERNEL_OB)
     return _k.delta_spmm_segments_cuda(
         x_sorted.to(torch.float32).contiguous(), d,
         seg_rows.to(torch.int32).contiguous(),
         seg_offsets.to(torch.int32).contiguous(), tb=tb)
+
+
+def expert_segments(n_experts: int, cap: int, counts: torch.Tensor | None,
+                    device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The segment layout of an expert buffer [E, C, h_in] flattened to
+    [E * C, h_in]: expert e is the segment of rows from e * C with tenant
+    row e. Without ``counts`` it spans all C rows (seg_rows = arange(E),
+    offsets e * C). With ``counts`` [E] (each at most C) it spans its
+    counts[e] live rows and is followed by a segment over the rest of its
+    C rows with tenant row -1, outside the stack, which the kernel and
+    its plain version zero-fill. -> (seg_rows, seg_offsets) int32 on
+    ``device``, built there (no host sync)."""
+    bounds = torch.arange(n_experts + 1, dtype=torch.int32, device=device) * cap
+    rows = torch.arange(n_experts, dtype=torch.int32, device=device)
+    if counts is None:
+        return rows, bounds
+    ends = bounds[:-1] + counts.to(device=device, dtype=torch.int32).clamp(0, cap)
+    seg_rows = torch.stack([rows, torch.full_like(rows, -1)], dim=1).reshape(-1)
+    offsets = torch.cat([torch.stack([bounds[:-1], ends], dim=1).reshape(-1), bounds[-1:]])
+    return seg_rows, offsets
+
+
+def expert_counts_pay(n_assign: int, n_experts: int, cap: int) -> bool:
+    """Whether an expert buffer of ``n_experts`` x ``cap`` rows filled by
+    at most ``n_assign`` assignments goes through the counts layout
+    (:data:`EXPERT_COUNTS_MAX_FILL`); host integers only, no sync."""
+    return n_assign <= EXPERT_COUNTS_MAX_FILL * n_experts * cap
+
+
+def delta_spmm_experts(x: torch.Tensor, d: PackedDelta,
+                       counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Expert-stacked correction: y[e, c] = x[e, c] @ dequant(d[e]).
+
+    x [E, C, h_in] (an MoE expert buffer), d the expert-stacked
+    PackedDelta [E, ...]; ``counts`` [E] (optional) each expert's live
+    rows, the rest of its C rows being zero. -> [E, C, h_out] f32.
+
+    The buffer is E segments of :func:`delta_spmm_segments`
+    (:func:`expert_segments`): one launch decodes each expert's packed
+    tile once per row tile, and with ``counts`` an expert with no token is
+    not read at all. A zero row's correction is +0.0 in the kernel and its
+    plain version, so ``counts`` leave every bit as the all-C layout gives
+    it. The row tile is chosen from the longest segment, C rows, not from
+    the E * C rows of the buffer.
+    """
+    E, C, h_in = x.shape
+    if d.stack_shape() != (E,):
+        raise ValueError(f"expert-stacked delta stack_shape={d.stack_shape()} must "
+                         f"equal ({E},), the experts of x {tuple(x.shape)}")
+    if _device_kind(x) == "cuda":   # refuse outside the envelope under this name
+        _out_of_envelope("delta_spmm_experts", d.index(0), x)
+    seg_rows, seg_offsets = expert_segments(E, C, counts, x.device)
+    y = delta_spmm_segments(x.reshape(E * C, h_in), d, seg_rows, seg_offsets, max_rows=C)
+    where = "torch" if _device_kind(x) == "cpu" else "cuda"
+    _note("delta_spmm_experts", formulation=f"experts-{where}", codec=d.codec,
+          E=int(E), C=int(C), counts=counts is not None)
+    return y.reshape(E, C, d.h_out)
 
 
 def delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:

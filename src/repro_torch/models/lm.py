@@ -1,4 +1,5 @@
-"""The dense decoder-only LM (port of ``repro/models/lm.py``, dense family).
+"""The decoder-only LM (port of ``repro/models/lm.py``, dense and MoE
+families).
 
 A model is (ArchConfig, params): params are a nested dict of tensors with
 the reference's layout — per-kind stacks with a leading layer dim:
@@ -6,7 +7,14 @@ the reference's layout — per-kind stacks with a leading layer dim:
     embed/tok [V, d] f32          final_norm/scale [d] f32
     unembed/w [d, V] f32          (absent when embeddings are tied)
     attn/{ln1 [L, d] f32, wq [L, d, q], wk, wv [L, d, kv], wo [L, q, d]}
-    mlp/{ln [L, d] f32, wi, wg [L, d, f], wo [L, f, d]}
+    mlp/{ln [L, d] f32, wi, wg [L, d, f], wo [L, f, d]}     ("attn" layers)
+    moe/{ln [L, d] f32, router [L, d, E], wi, wg [L, E, d, f_e],
+         wo [L, E, f_e, d], shared/{wi, wg [L, d, f_e], wo [L, f_e, d]}}
+                                  ("moe" layers; shared/ with a shared expert)
+
+An "attn" layer is attention + GLU MLP, a "moe" layer attention + the
+routed expert FFN (``models/moe.py``); the attention stack holds both
+kinds' attention in layer order, as the reference's does.
 
 Stacked weight matrices are in ``cfg.param_dtype``; everything with fewer
 than three dims is f32, as in the reference — so the residual stream is
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.core.apply import apply_linear, dget, dindex
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import attention, glu_mlp, qkv_project, rmsnorm, softcap
 from repro_torch.utils import resolve_device
 
@@ -55,20 +64,35 @@ def layer_plan(cfg: ArchConfig):
     return plan
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or set(cfg.layer_kinds) != {"attn"}:
+_FAMILIES = ("dense", "moe")
+_OTHER_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in _FAMILIES or not set(cfg.layer_kinds) <= {"attn", "moe"}:
         raise NotImplementedError(
-            f"the port serves the dense family only; {cfg.name!r} is "
+            f"the port serves the dense and MoE families only (not "
+            f"{', '.join(_OTHER_FAMILIES)}); {cfg.name!r} is "
             f"family={cfg.family!r} with kinds {sorted(set(cfg.layer_kinds))}")
+
+
+def _count(cfg: ArchConfig, kinds: tuple, upto: Optional[int] = None) -> int:
+    """Layers of ``kinds`` among the first ``upto`` (default all)."""
+    return sum(1 for k in cfg.layer_kinds[:upto] if k in kinds)
+
+
+def _attn_index(cfg: ArchConfig, li: int) -> int:
+    """Row of layer ``li``'s attention in the attention stack (attn and
+    moe layers both hold one)."""
+    return _count(cfg, ("attn", "moe"), li)
 
 
 # ---------------------------------------------------------------------------
 # Param table: path -> (shape, init, fan_in)
 # ---------------------------------------------------------------------------
 def _param_table(cfg: ArchConfig) -> dict:
-    _check_dense(cfg)
+    _check_family(cfg)
     d, q, kv, f, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff, cfg.head_dim
-    L = cfg.n_layers
     t: dict[str, tuple] = {
         "embed/tok": ((cfg.vocab, d), "embed", d),
         "final_norm/scale": ((d,), "zeros", 1),
@@ -82,7 +106,21 @@ def _param_table(cfg: ArchConfig) -> dict:
         attn += [("q_norm", (hd,), "zeros"), ("k_norm", (hd,), "zeros")]
     mlp = [("ln", (d,), "zeros"), ("wi", (d, f), "normal"),
            ("wg", (d, f), "normal"), ("wo", (f, d), "normal")]
-    for stack, rows in (("attn", attn), ("mlp", mlp)):
+    stacks = [("attn", _count(cfg, ("attn", "moe")), attn),
+              ("mlp", _count(cfg, ("attn",)) if f else 0, mlp)]
+    m = cfg.moe
+    if m is not None:
+        E, fe = m.n_experts, m.d_expert
+        moe = [("ln", (d,), "zeros"), ("router", (d, E), "normal"),
+               ("wi", (E, d, fe), "normal"), ("wg", (E, d, fe), "normal"),
+               ("wo", (E, fe, d), "normal")]
+        if m.shared_expert:
+            moe += [("shared/wi", (d, fe), "normal"), ("shared/wg", (d, fe), "normal"),
+                    ("shared/wo", (fe, d), "normal")]
+        stacks.append(("moe", _count(cfg, ("moe",)), moe))
+    for stack, L, rows in stacks:
+        if not L:
+            continue
         for name, shape, init in rows:
             fan_in = shape[-2] if len(shape) >= 2 else shape[0]
             t[f"{stack}/{name}"] = ((L, *shape), init, fan_in)
@@ -254,17 +292,25 @@ def _mlp_block(cfg, p, d, x):
     return x + glu_mlp(u, p, d, cfg.act)
 
 
+def _moe_block(cfg, p, d, x):
+    u = rmsnorm(x, p["ln"], cfg.norm_eps)
+    return x + moe_mod.moe_ffn(u, p, d, cfg)
+
+
 def _slice(tree: dict, i: int) -> dict:
-    return {k: v[i] for k, v in tree.items()}
+    return {k: _slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 def _walk(cfg: ArchConfig, params, x, positions, deltas=None, caches=None,
           decode_pos=None, chunk=False, chunk_valid=None):
     """Python loop over the layers (train, prefill, chunk and decode
-    paths)."""
+    paths). A layer's attention is row ``_attn_index`` of the attention
+    stack; its FFN is row ``j`` of its own kind's stack (the GLU MLP for
+    "attn", the experts for "moe")."""
     for li, (kind, j, window) in enumerate(layer_plan(cfg)):
-        p_a = _slice(params["attn"], j)
-        d_a = dindex(dget(deltas, "attn"), j)
+        ai = _attn_index(cfg, li)
+        p_a = _slice(params["attn"], ai)
+        d_a = dindex(dget(deltas, "attn"), ai)
         if decode_pos is not None:
             x = _attn_block_decode(cfg, p_a, d_a, x, decode_pos, window, caches[li])
         elif caches is not None and chunk:
@@ -274,8 +320,8 @@ def _walk(cfg: ArchConfig, params, x, positions, deltas=None, caches=None,
             x = _attn_block_prefill(cfg, p_a, d_a, x, positions, window, caches[li])
         else:
             x = _attn_block_train(cfg, p_a, d_a, x, positions, window)
-        x = _mlp_block(cfg, _slice(params["mlp"], j),
-                       dindex(dget(deltas, "mlp"), j), x)
+        stack, block = ("moe", _moe_block) if kind == "moe" else ("mlp", _mlp_block)
+        x = block(cfg, _slice(params[stack], j), dindex(dget(deltas, stack), j), x)
     return x
 
 
@@ -300,7 +346,7 @@ def unembed(cfg, params, h, deltas=None) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params, batch: dict, deltas=None) -> torch.Tensor:
     """Scoring forward: full-sequence causal logits [B,S,V]."""
-    _check_dense(cfg)
+    _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -311,7 +357,7 @@ def forward(cfg: ArchConfig, params, batch: dict, deltas=None) -> torch.Tensor:
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device=None) -> list:
     """Zero-initialized serving cache (one dict per layer). ``pos`` starts
     at -1 (invalid)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     out = []
@@ -331,7 +377,7 @@ def prefill(cfg: ArchConfig, params, batch: dict, cache, deltas=None):
     Returns (logits for the LAST position [B,V], cache). ``batch
     ["positions"]`` ([B, S], optional) overrides the default arange(S).
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = batch.get("positions")
@@ -357,7 +403,7 @@ def prefill_chunk(cfg: ArchConfig, params, batch: dict, cache, deltas=None):
     caller picks the last real position's logits of the final chunk for
     the first generated token.
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     h = _walk(cfg, params, x, batch["positions"], deltas=deltas, caches=cache,
@@ -373,7 +419,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
 
     Returns (logits [B,V], cache).
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     x = embed_tokens(cfg, params, tokens)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         pos = pos.to(device=tokens.device, dtype=torch.int64)

@@ -41,6 +41,7 @@ from repro_torch.configs.arch import ArchConfig
 from repro_torch.core.apply import (
     _map_packed,
     combine_slot_deltas,
+    dget,
     wrap_slot_deltas,
 )
 from repro_torch.core.codecs import runtime_delta_tree
@@ -315,6 +316,21 @@ class DeltaResidency:
 # ---------------------------------------------------------------------------
 # Which tenants can share one tenant stack
 # ---------------------------------------------------------------------------
+def _refuse_expert_deltas(deltas: Any) -> None:
+    """Slot dispatch mixes tenants' rows in one batch; an MoE expert
+    buffer mixes them again across experts, where a per-row delta has no
+    meaning (``apply_linear_batched`` raises). A tenant with packed deltas
+    at ``moe/{wi,wg,wo}`` is served by per-tenant grouping instead
+    (``Engine.serve_batch``), as the reference's engine refuses it
+    (``repro/serve/engine.py:882-888``)."""
+    moe = dget(deltas, "moe")
+    if moe is not None and any(isinstance(dget(moe, k), PackedDelta)
+                               for k in ("wi", "wg", "wo")):
+        raise ValueError(
+            "slot dispatch cannot apply deltas at MoE expert "
+            "sites; serve MoE tenants via per-tenant grouping")
+
+
 def _tree_structure(deltas: Any) -> tuple:
     """Paths of the tree and which of them hold a PackedDelta: two tenants
     can be combined only when these are equal."""
@@ -543,7 +559,7 @@ class ContinuousEngine:
                  chunked_prefill: bool = False, chunk_size: int = 16,
                  chunk_share: float = 1.0,
                  trace=None, slo=None, telemetry=None):
-        lm._check_dense(cfg)
+        lm._check_family(cfg)
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: sharded serving is not ported yet; the port serves "
@@ -742,6 +758,7 @@ class ContinuousEngine:
         events — seeding and hot registration both route here). Returns
         ``(row, old_row)``. Everything fallible happens before the first
         mutation, so a rejected tenant leaves the engine untouched."""
+        _refuse_expert_deltas(rt)
         if self._table is None:
             # the first tenant fixes the template: the envelope is built
             # once, here, as ONE group with an identity LUT for the
@@ -827,6 +844,7 @@ class ContinuousEngine:
         if tenants:
             ref_struct = _tree_structure(tenants[0].deltas)
             for i, t in enumerate(tenants):
+                _refuse_expert_deltas(t.deltas)
                 if _tree_structure(t.deltas) != ref_struct:
                     # codec groups relax the *packing* meta, not the tree
                     # shape: combining per-group corrections needs every
@@ -1374,12 +1392,15 @@ class Engine:
 
         Thin shim over :class:`ContinuousEngine`; falls back to the
         per-tenant static grouping where slot dispatch cannot apply to
-        the registered tenants (trees of different structure).
+        the registered tenants (packed deltas at MoE expert sites, trees
+        of different structure).
         """
         try:
             eng = self._continuous()
             eng._refresh_stacked()   # raises for non-stackable tenant sets
-        except ValueError:
+        except (ValueError, NotImplementedError):
+            # slot dispatch inapplicable (MoE expert deltas, trees of
+            # different structure): per-tenant grouping serves
             return self._serve_batch_grouped(requests, max_new_tokens)
         for tenant, prompt in requests:
             # capacity errors must NOT fall back: the grouped path would

@@ -667,7 +667,8 @@ def test_table_row_write_leaves_other_rows_unchanged(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("entry", ["delta_spmm", "delta_spmm_segments",
-                                   "delta_spmm_slots", "fused_base_delta", "dequant"])
+                                   "delta_spmm_slots", "fused_base_delta", "dequant",
+                                   "delta_spmm_experts"])
 def test_out_of_envelope_on_the_card_raises(cuda, entry):
     """No plain formulation runs on the card: every entry point refuses a
     packing outside the envelope, naming the dimension."""
@@ -685,6 +686,7 @@ def test_out_of_envelope_on_the_card_raises(cuda, entry):
         "fused_base_delta": lambda: ops.fused_base_delta(
             x, torch.zeros(512, 32, device=cuda), d),
         "dequant": lambda: ops.dequant(d),
+        "delta_spmm_experts": lambda: ops.delta_spmm_experts(x.reshape(2, 2, 512), stack),
     }
     with pytest.raises(ValueError, match=rf"{entry}: .*envelope \(h_g\)"):
         calls[entry]()
@@ -781,3 +783,57 @@ def test_storage_roundtrip_into_the_kernel(cuda):
     for T in (1, 8, 128):
         x = _x(T, 512, 5, cuda)
         assert torch.equal(ops.delta_spmm(x, d2), ops.delta_spmm(x, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 10, 64])
+def test_expert_route_bits_and_counts(cuda, C):
+    """delta_spmm_experts on an expert stack: one segments launch, each
+    expert a segment, bit for bit the segments kernel's oracle; with
+    per-expert counts (an empty and a full expert among them) every bit as
+    the all-C layout; within TOL of the dense formulation."""
+    E, h_in, h_out = 16, 256, 96
+    stack = stack_tenant_deltas([{"w": _pack(h_in, h_out, 16, 8, 4, 70 + e, cuda)}
+                                 for e in range(E)])["w"]
+    counts = np.random.default_rng(C).integers(0, C + 1, E)
+    counts[:2] = (0, C)
+    counts = torch.from_numpy(counts).to(cuda)
+    x = _x(E * C, h_in, 71, cuda).reshape(E, C, h_in)
+    x[torch.arange(C, device=cuda)[None, :] >= counts[:, None]] = 0.0
+    kern.reset_launches()
+    full = ops.delta_spmm_experts(x, stack)
+    part = ops.delta_spmm_experts(x, stack, counts)
+    assert kern.LAUNCHES["delta_spmm_segments"] == 2
+    assert torch.equal(full.view(torch.int32), part.view(torch.int32))
+    rows, offs = ops.expert_segments(E, C, None, cuda)
+    want = ref.segments_kernel_order(x.reshape(-1, h_in), stack, rows, offs)
+    assert torch.equal(full.reshape(-1, h_out).view(torch.int32), want.view(torch.int32))
+    torch.testing.assert_close(full, torch.matmul(x, reconstruct_dense(stack)), **TOL)
+
+
+@pytest.mark.gpu
+def test_moe_model_on_card_matches_cpu(cuda):
+    """The MoE smoke model with a tenant (expert deltas included): logits
+    on the card (segments kernel at the expert sites, delta_spmm at
+    attention) against the CPU's (dense reconstruction and the plain
+    versions), and the expert sites never take a plain formulation."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.serve.trace import attribution
+    from repro_torch.utils import map_with_paths
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"), param_dtype="float32")
+    base = lm.init_params(cfg, 0, device="cpu")
+    [(_, deltas, _)] = synth_tenants(cfg, base, 1, RATIO_SPECS[128], seed=0)
+    to = lambda t: map_with_paths(lambda _p, a: None if a is None else a.to(cuda), t)  # noqa: E731
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 12)))
+    want = lm.forward(cfg, base, {"tokens": toks}, deltas=deltas)
+    kern.reset_launches()
+    with attribution() as notes:
+        got = lm.forward(cfg, to(base), {"tokens": toks.to(cuda)}, deltas=to(deltas))
+    assert kern.LAUNCHES["delta_spmm_segments"] == 3 * cfg.n_layers
+    forms = {n["formulation"] for n in notes}
+    assert "experts-cuda" in forms and not forms & {"experts-torch", "experts-dense",
+                                                    "plain-out-of-envelope"}
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

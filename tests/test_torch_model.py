@@ -32,7 +32,9 @@ from repro_torch.models import lm as tlm  # noqa: E402
 import torch_bridge as br  # noqa: E402
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=1e-3, rtol=1e-3)}
-ARCHS = ["wizard-llama2-7b", "llama3.2-1b", "gemma3-1b", "gemma-7b", "phi3-medium-14b"]
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"]
+ARCHS = ["wizard-llama2-7b", "llama3.2-1b", "gemma3-1b", "gemma-7b", "phi3-medium-14b",
+         *MOE_ARCHS]
 SPEC = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
 
 # the reference's model functions under jit, as its engines call them:
@@ -153,6 +155,42 @@ def test_port_init_params_layout_matches_reference():
     p2 = tlm.init_params(cfg, 0, device="cpu")
     assert torch.equal(p1["attn"]["wq"], p2["attn"]["wq"])
     assert p1["attn"]["wq"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_port_moe_params_layout_matches_reference(name):
+    cfg = get_smoke_config(name)
+    ref = br.flatten_with_paths(jlm.param_specs(cfg))
+    got = tlm.param_shapes(cfg)
+    assert set(got) == set(ref)
+    for path, (shape, dtype) in got.items():
+        assert tuple(shape) == tuple(ref[path].shape), path
+        assert str(dtype).replace("torch.", "") == ref[path].dtype.name, path
+    from repro_torch.configs import get_smoke_config as t_smoke
+    assert t_smoke(name).n_params() == cfg.n_params()
+    assert t_smoke(name).n_active_params() == cfg.n_active_params()
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+@pytest.mark.parametrize("B", [1, 3, 5])
+def test_moe_decode_batch_sizes_match_reference(name, B):
+    """Decode at several batch sizes: the capacity C = max(int(B * K / E *
+    1.25), 1) changes with B, so the drops of each step differ."""
+    cfg, base, deltas, tbase, tdeltas = _setup(name, "float32")
+    S, max_seq = 6, 12
+    toks = _tokens(cfg, B, S, 10 + B)
+    jc = jlm.init_cache(cfg, B, max_seq)
+    jlog, jc = j_prefill(cfg, base, {"tokens": jnp.asarray(toks)}, jc, deltas=deltas)
+    tc = tlm.init_cache(cfg, B, max_seq, device="cpu")
+    tlog, tc = tlm.prefill(cfg, tbase, {"tokens": torch.from_numpy(toks).long()}, tc,
+                           deltas=tdeltas)
+    _check(tlog, jlog, "float32")
+    for t in range(3):
+        nxt = _tokens(cfg, B, 1, 20 + t)
+        jlog, jc = j_decode(cfg, base, jc, jnp.asarray(nxt), jnp.int32(S + t), deltas=deltas)
+        tlog, tc = tlm.decode_step(cfg, tbase, tc, torch.from_numpy(nxt).long(), S + t,
+                                   deltas=tdeltas)
+        _check(tlog, jlog, "float32")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
