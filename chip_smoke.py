@@ -37,7 +37,14 @@ and chunked) and, last, the MoE family
 expert-stacked route onto the segments kernel against its plain version
 and ``torch.bmm``, a tenant's logits against the plain expert correction,
 ``Engine.generate`` and ``serve_batch``'s grouped fallback, the
-continuous engine with attention-only tenants, mixed == alone). The
+continuous engine with attention-only tenants, mixed == alone) and the
+remaining families (``[families]``: mamba2-370m, recurrentgemma-9b,
+seamless-m4t-medium and llama-3.2-vision-11b at full width and depth with
+3 tenants each, the correction kernels at their new sites, a tenant's
+logits against the plain correction; the recurrent configs through the
+continuous engine whole-prompt and chunked, mixed == alone and against
+``Engine.generate``; the cross-attention configs through
+``Engine.generate`` with encoder frames or image embeddings). The
 correction kernels are also held to their
 plain versions on the codec packings (BitDelta and LowRank lowerings,
 keep = h_g = 128). It checks the outputs, that each path launched
@@ -173,6 +180,40 @@ MOE_SITES = ("wi", "wg", "wo")
 # (MOE_CONTROL_EXPERT, in every layer) must exceed it
 MOE_LOGIT_REL_TOL = 1e-5
 MOE_CONTROL_EXPERT = 0
+# [families]: the SSM, hybrid RG-LRU, enc-dec and VLM configs at full width
+# and depth, one after the other, 3 tenants each at 128x. FAMILY_SITES are
+# each config's linear sites new to the correction kernels (path, extra T):
+# mamba2's wdt has 32 output columns, the fewest of any site; the extra T
+# is the rows a memory-side site gets, B * enc_len encoder frames or
+# B * 1600 image tokens. The recurrent configs serve the [engine] stream
+# whole-prompt and chunked (ENGINE_CHUNK); the cross-attention configs go
+# through Engine.generate with FAMILY_B prompts of FAMILY_S tokens and
+# their frontend inputs (FAMILY_ENC_LEN frames, n_frontend_tokens image
+# embeddings) drawn from a generator seeded FAMILY_SEED.
+FAMILY_SITES = {
+    "mamba2-370m": (("ssm/wdt", None), ("ssm/wbc", None), ("ssm/wout", None)),
+    "recurrentgemma-9b": (("rec/linear_x", None), ("rec/linear_out", None),
+                          ("attn/wk", None)),
+    "seamless-m4t-medium": (("enc/attn/wq", "memory"), ("dec_cross/wk", "memory")),
+    "llama-3.2-vision-11b": (("cross/wk", "memory"), ("cross/wq", None)),
+}
+FAMILY_B, FAMILY_S, FAMILY_NEW, FAMILY_ENC_LEN, FAMILY_SEED = 2, 64, 16, 256, 19
+FAMILY_KERNEL_T = (2, 8, 128)
+# the vlm's cross gates (tanh-scaled, initialized to 0 as in the reference)
+# are set to this value so the cross blocks contribute to the logits
+VLM_GATE = 1.0
+# tenant0's first-token logits through the kernels against the same tenant
+# with the plain correction (ops.delta_spmm replaced by its plain version),
+# relative to max|logit|: summation order only. An H100 read 2.9e-5
+# (mamba2) and 4.4e-5 (the vlm); the bound is 23-34x those readings. A
+# control with one site's correction dropped in every layer
+# (FAMILY_CONTROL) must exceed it. seamless's encoder keeps its residual in
+# the param dtype, and in bf16 its random weights amplify a last-bit
+# difference of one correction into a rel 8.2e-2 change of the logits (the
+# argmax moved; same card): its check runs on an f32 copy of the weights
+FAMILY_LOGIT_REL_TOL = 1e-3
+FAMILY_CONTROL = {"mamba2-370m": "ssm/wdt", "recurrentgemma-9b": "rec/linear_x",
+                  "seamless-m4t-medium": "enc/attn/wq", "llama-3.2-vision-11b": "cross/wk"}
 DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
 REPLACED_NOTE = ("the kernel this one replaced is gone from this checkout; it is timed "
                  "by the parent commit's chip_smoke.py in the same chip call (PERF.md)")
@@ -2121,12 +2162,13 @@ def _arch_kernels(torch, ops, fb, kern, arch, cfg, fleet, gen) -> dict:
 
 
 def _arch_engine(torch, kern, cfg, base, ref, stream, max_seq: int, chunk: int,
-                 chunked: bool, tag: str) -> dict:
-    """The fleet in one engine on ``stream`` (launch counts checked), then
-    each tenant's requests (and the base's) alone through the same engine,
-    token for token."""
+                 chunked: bool, tag: str, sites: int = None) -> dict:
+    """The fleet in one engine on ``stream`` (launch counts checked, with
+    ``sites`` corrections a token, default 7 a layer), then each tenant's
+    requests (and the base's) alone through the same engine, token for
+    token."""
     from repro_torch.serve import ContinuousEngine, VirtualClock
-    sites = 7 * cfg.n_layers
+    sites = 7 * cfg.n_layers if sites is None else sites
     ce = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=max_seq, store=ref.store,
                           clock=VirtualClock(tick=ENGINE_TICK), chunked_prefill=chunked,
                           chunk_size=chunk)
@@ -2709,6 +2751,375 @@ def phase_moe(torch, kern, report: dict) -> dict:
             "moe:continuous": out["continuous"]["launches"]}
 
 
+def _leaf(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _family_sites(cfg, deltas) -> tuple:
+    """Corrections a token runs through with ``deltas``: (at decode, at
+    prefill), counting the compressed leaves of each block. An attn layer
+    runs its attention's and its MLP's, an ssm layer its mixer's, a rec
+    layer its mixer's and its MLP's; a vlm cross block wq, wo and its MLP's
+    at decode, wk, wv too at prefill; an encdec decoder layer's cross
+    block wq, wo (wk, wv at prefill) and, at prefill, the encoder's."""
+    def n(stack, names):
+        node = deltas
+        for k in stack.split("/"):
+            node = node.get(k) if isinstance(node, dict) else None
+        return sum(isinstance(node, dict) and node.get(k) is not None for k in names)
+
+    qkvo = ("wq", "wk", "wv", "wo")
+    mlp = n("mlp", ("wi", "wg", "wo"))
+    per = {"attn": n("attn", qkvo) + mlp, "ssm": n("ssm", ("wz", "wx", "wbc", "wdt", "wout")),
+           "rec": n("rec", ("linear_x", "linear_y", "linear_out")) + mlp}
+    dec = pre = sum(per[k] for k in cfg.layer_kinds)
+    if cfg.family == "vlm":
+        nc = len(range(cfg.cross_attn_every - 1, cfg.n_layers, cfg.cross_attn_every))
+        q_o, k_v = n("cross", ("wq", "wo")), n("cross", ("wk", "wv"))
+        dec, pre = dec + nc * (q_o + mlp), pre + nc * (q_o + k_v + mlp)
+    if cfg.family == "encdec":
+        q_o, k_v = n("dec_cross", ("wq", "wo")), n("dec_cross", ("wk", "wv"))
+        enc = n("enc/attn", qkvo) + n("enc/mlp", ("wi", "wg", "wo"))
+        dec = dec + cfg.n_layers * q_o
+        pre = pre + cfg.n_layers * (q_o + k_v) + cfg.n_enc_layers * enc
+    return dec, pre
+
+
+def _family_kernels(torch, ops, fb, cfg, fleet, gen, recurrent: bool) -> tuple:
+    """Both serving kernels at the config's sites new to them (delta_spmm
+    at FAMILY_KERNEL_T and a memory-side site's T; for the recurrent
+    configs, whose continuous engine runs it, the segments kernel at the
+    mixed decode layout and the chunk layout), held to their plain
+    versions and timed against their bound and torch.matmul on the dense
+    delta. -> (times, worst error by kernel)."""
+    import numpy as np
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.serve.scheduler import tenant_segments
+    worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0}
+    times = []
+    mem_T = FAMILY_B * (FAMILY_ENC_LEN if cfg.family == "encdec" else cfg.n_frontend_tokens)
+    for path, extra in FAMILY_SITES[cfg.name]:
+        leaves = [_leaf(deltas, path) for _, deltas, _ in fleet]
+        n_l = leaves[0].stack_shape()[0]
+        d0 = leaves[0].index(0)
+        Ts = FAMILY_KERNEL_T + ((mem_T,) if extra == "memory" else ())
+        for T in Ts:
+            x = torch.randn((T, d0.h_in), generator=gen, device=DEVICE)
+            got, want = ops.delta_spmm(x, d0), fb.correction(x, d0)
+            err = (got - want).abs().max().item()
+            worst["delta_spmm"] = max(worst["delta_spmm"], err)
+            if not torch.allclose(got, want, **KERNEL_TOL):
+                fail(f"[families] {cfg.name} {path} delta_spmm T={T}: {err:.3e} from the "
+                     f"plain version")
+        if recurrent:
+            stack = stack_tenant_deltas([{"w": leaves[t].index(layer)} for t, layer in
+                                         ((0, 0), (1, 0), (2, 0), (0, 1 % n_l))])["w"]
+            seg = tenant_segments(np.asarray(MIXED_SLOT_ROWS, np.int32)).to(DEVICE)
+            for T, layout in ((len(MIXED_SLOT_ROWS), "mixed"), (ENGINE_CHUNK, "chunk")):
+                x = torch.randn((T, d0.h_in), generator=gen, device=DEVICE)
+                if layout == "chunk":
+                    xs, (sr, so) = x, _chunk_segments(T)
+                else:
+                    xs, sr, so = x.index_select(0, seg.order), seg.seg_rows, seg.seg_offsets
+                got = ops.delta_spmm_segments(xs, stack, sr, so)
+                want = _plain_segments(torch, fb, xs, stack, sr, so)
+                err = (got - want).abs().max().item()
+                worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], err)
+                if not torch.allclose(got, want, **KERNEL_TOL):
+                    fail(f"[families] {cfg.name} {path} segments {layout} T={T}: {err:.3e} "
+                         f"from the plain version")
+            del stack
+        ring = [leaves[i % 3].index((i // 3) % n_l) for i in range(8)]
+        dense = [reconstruct_dense(d) for d in ring]
+        for T in (8, 128) + ((mem_T,) if extra == "memory" else ()):
+            times.append(_time_spmm(torch, ops, fb, ring, dense, gen, path, T, None))
+        del dense
+        if recurrent:
+            times.append(_time_segments(torch, ops, fb, ring, gen, path, "mixed", 8))
+        del ring
+        log(f"[families] {cfg.name} {path} ({d0.h_in} x {d0.h_out}, h_g {d0.h_g}, keep "
+            f"{d0.keep}): delta_spmm within {KERNEL_TOL} of its plain version at T={Ts}"
+            + (", the segments kernel at the mixed and chunk layouts" if recurrent else ""))
+    for t in times:
+        t["arch"] = cfg.name
+    torch.cuda.empty_cache()
+    return times, worst
+
+
+def _family_logits(torch, lm, ops, fb, cfg, base, deltas, extra) -> dict:
+    """Tenant0's first-token logits on one FAMILY_S-token prompt through
+    the kernels against the same tenant with the plain correction
+    (``ops.delta_spmm`` replaced by ``fallback.correction_nd``), within
+    FAMILY_LOGIT_REL_TOL of max|logit|; a control (the kernels, with the
+    FAMILY_CONTROL site's correction dropped in every layer) must exceed
+    that bound; and the gap to the base. seamless runs on an f32 copy of
+    its weights (FAMILY_LOGIT_REL_TOL)."""
+    import numpy as np
+    if cfg.family == "encdec":     # an f32 copy: see FAMILY_LOGIT_REL_TOL
+        from repro_torch.utils import map_with_paths
+        cfg = cfg.replace(param_dtype="float32")
+        base = map_with_paths(lambda _p, w: w.float(), base)
+    tok = torch.as_tensor(np.random.default_rng(18).integers(0, cfg.vocab, (1, FAMILY_S)),
+                          dtype=torch.int64, device=DEVICE)
+    batch = {"tokens": tok, **{k: v[:1] for k, v in extra.items()}}
+    enc_len = extra["enc_feats"].shape[1] if "enc_feats" in extra else 0
+
+    def first(d):
+        cache = lm.init_cache(cfg, 1, FAMILY_S + 8, enc_len, device=DEVICE)
+        return lm.prefill(cfg, base, batch, cache, deltas=d)[0][0]
+
+    got = first(deltas)
+    real = ops.delta_spmm
+    ops.delta_spmm = lambda x, d: fb.correction_nd(x.to(torch.float32), d)
+    try:
+        want = first(deltas)
+    finally:
+        ops.delta_spmm = real
+    site = FAMILY_CONTROL[cfg.name]
+    ctl_deltas = dict(deltas)
+    node, *rest = site.split("/")
+    sub = ctl_deltas[node] = dict(deltas[node])
+    for k in rest[:-1]:
+        sub[k] = dict(sub[k])
+        sub = sub[k]
+    sub[rest[-1]] = None
+    ctl = (first(ctl_deltas) - want).abs().max().item()
+    base_lg = first(None)
+    tol = FAMILY_LOGIT_REL_TOL
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    gap = (want - base_lg).abs().max().item()
+    log(f"[families] {cfg.name} tenant0 first-token logits, kernels vs the plain "
+        f"correction: max|diff| {err:.4e}, max|logit| {scale:.3e} (rel {err / scale:.3e}, "
+        f"bound {tol}); control without {site}'s correction: max|diff| {ctl:.4e} (rel "
+        f"{ctl / scale:.3e}, must exceed the bound); tenant-vs-base gap {gap:.3e}; argmax "
+        f"{int(got.argmax())} vs {int(want.argmax())}")
+    if not err <= tol * scale or not err < 0.1 * gap:
+        fail(f"[families] {cfg.name}: the kernels' logits differ from the plain correction's")
+    if not ctl > tol * scale:
+        fail(f"[families] {cfg.name}: the logit bound does not see {site}'s correction missing")
+    return {"max_abs": err, "rel": err / scale, "control_site": site,
+            "control_rel": ctl / scale, "gap": gap, "bound_rel": tol}
+
+
+def _family_fleet(cfg, base, synth_tenants, spec) -> tuple:
+    """3 tenants of ``cfg`` at ``spec`` from ``synth_tenants``, with the
+    compressible leaves whose h_in no group size of the spec divides left
+    out of the compression and None in the trees. -> (fleet, their paths)."""
+    from repro_torch.core.codecs import _pick_hg
+    from repro_torch.core.compress import is_compressible
+    from repro_torch.utils import iter_leaves
+    dropped = []
+    for path, leaf in iter_leaves(base):
+        if is_compressible(path, leaf):
+            try:
+                _pick_hg(leaf.shape[-2], spec)
+            except ValueError:
+                dropped.append(path)
+
+    def prune(tree, prefix=""):
+        return {k: prune(v, f"{prefix}{k}/") if isinstance(v, dict) else v
+                for k, v in tree.items() if f"{prefix}{k}" not in dropped}
+
+    fleet = synth_tenants(cfg, prune(base), 3, spec, seed=0)
+    for _, deltas, _ in fleet:
+        for path in dropped:
+            *parents, name = path.split("/")
+            node = deltas
+            for k in parents:
+                node = node[k]
+            node[name] = None
+    return fleet, dropped
+
+
+def _family_extra(torch, cfg) -> dict:
+    """The cross blocks' inputs for FAMILY_B rows, from a seeded generator."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(FAMILY_SEED)
+    if cfg.family == "encdec":
+        return {"enc_feats": torch.randn((FAMILY_B, FAMILY_ENC_LEN, cfg.d_model),
+                                         generator=gen, device=DEVICE)}
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.randn((FAMILY_B, cfg.n_frontend_tokens, cfg.d_model),
+                                            generator=gen, device=DEVICE)}
+    return {}
+
+
+def _family_generate(torch, kern, cfg, base, fleet, extra) -> dict:
+    """Engine.generate, FAMILY_B prompts of FAMILY_S tokens and FAMILY_NEW
+    new, with the frontend inputs, for the base and each tenant (counts
+    read just after: one prefill and FAMILY_NEW - 1 decode steps a
+    tenant); every tenant's tokens differ from the base's; the continuous
+    engine refuses the config with the reference's error."""
+    import numpy as np
+    from repro_torch.serve import ContinuousEngine, Engine
+    eng = Engine(cfg, base, max_seq=FAMILY_S + FAMILY_NEW)
+    for name, d, rep in fleet:
+        eng.register_tenant(name, d, rep)
+    names = [None] + [n for n, _, _ in fleet]
+    prompts = np.random.default_rng(FAMILY_SEED).integers(
+        0, cfg.vocab, (FAMILY_B, FAMILY_S)).astype(np.int32)
+    outputs, walls = {}, {}
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    for name in names:
+        lg = []
+        t0 = time.perf_counter()
+        outputs[name] = eng.generate(name, prompts, max_new_tokens=FAMILY_NEW,
+                                     extra_inputs=extra, logits_out=lg)
+        torch.cuda.synchronize()
+        walls[str(name)] = time.perf_counter() - t0
+        if outputs[name].shape != (FAMILY_B, FAMILY_NEW) or not all(
+                bool(torch.isfinite(x).all()) for x in lg):
+            fail(f"[families] {cfg.name} generate {name}: shape {outputs[name].shape} or "
+                 f"non-finite logits")
+    launches, routes = dict(kern.LAUNCHES), dict(kern.ROUTES)
+    dec, pre = _family_sites(cfg, fleet[0][1])
+    n_t = len(fleet)
+    want = {"delta_spmm": n_t * (pre + (FAMILY_NEW - 1) * dec), "delta_spmm_segments": 0,
+            "fused_base_delta": 0, "dequant": 0}
+    log(f"[families] {cfg.name} Engine.generate base + {n_t} tenants, B={FAMILY_B} "
+        f"S={FAMILY_S} new={FAMILY_NEW}, inputs {[tuple(v.shape) for v in extra.values()]}: "
+        f"{sum(walls.values()):.2f} s ({walls}); {FAMILY_B * FAMILY_NEW / walls[names[1]]:.1f} "
+        f"tokens per wall s a tenant; launches {launches}, routes {routes} (expected {want}: "
+        f"{pre} sites at prefill, {dec} at decode)")
+    if launches != want:
+        fail(f"[families] {cfg.name} generate launches {launches}, expected {want}")
+    for name in names[1:]:
+        if np.array_equal(outputs[name], outputs[None]):
+            fail(f"[families] {cfg.name} {name} generated the base model's tokens")
+    try:
+        ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ)
+    except ValueError as e:
+        if "continuous batching does not support" not in str(e):
+            fail(f"[families] {cfg.name}: the continuous engine refused with {e}")
+        refusal = str(e)
+    else:
+        fail(f"[families] {cfg.name}: the continuous engine did not refuse the config")
+    log(f"[families] {cfg.name} ContinuousEngine refuses: {refusal}")
+    return {"launches": launches, "routes": routes, "wall_s": walls, "refusal": refusal,
+            "tokens": {str(k): v.tolist() for k, v in outputs.items()}}
+
+
+def _family_engine(torch, kern, lm, cfg, base, fleet) -> tuple:
+    """The [engine] stream through ContinuousEngine(n_slots=8, max_seq=256)
+    whole-prompt and chunked (ENGINE_CHUNK, exact tail chunks): mixed ==
+    alone in both modes; whole-prompt == Engine.generate (B=1) on every
+    request by the tie rule; the requests whose chunked tokens differ from
+    the whole-prompt engine's are counted (the conv rings are stored in
+    bf16 between chunks and the SSD chunk length changes with the chunk).
+    -> (the row, launches by mode)."""
+    from repro_torch.serve import Engine
+    stream = _engine_stream(cfg)
+    ref = Engine(cfg, base, max_seq=ENGINE_MAX_SEQ)
+    for name, d, rep in fleet:
+        ref.register_tenant(name, d, rep)
+    dec, _ = _family_sites(cfg, fleet[0][1])
+    row, by_mode, runs = {}, {}, {}
+    for chunked in (False, True):
+        mode = "chunked" if chunked else "whole"
+        run = _arch_engine(torch, kern, cfg, base, ref, stream, ENGINE_MAX_SEQ, ENGINE_CHUNK,
+                           chunked, f"{cfg.name} {mode}", sites=dec)
+        runs[mode] = run
+        by_mode[mode] = run["launches"]
+        row[mode] = {k: run[k] for k in ("wall_s", "decode_steps", "ms_per_step",
+                                         "tokens_per_s", "launches")}
+    rows = _arch_generate(torch, ref, stream, runs["whole"], range(len(stream)), cfg.name)
+    row["generate"] = rows
+    row["generate_equal"] = sum(r["first_mismatch"] is None for r in rows)
+    differ = [i for i in range(len(stream)) if _first_mismatch(
+        runs["chunked"]["tokens"][i], runs["whole"]["tokens"][i]) is not None]
+    row["chunked_vs_whole_differ"] = differ
+    log(f"[families] {cfg.name}: chunked (chunk {ENGINE_CHUNK}) vs whole-prompt engine: "
+        f"{len(stream) - len(differ)}/{len(stream)} requests equal in full; differ: {differ}")
+    row["stream"] = {"prompt_lengths": [len(p) for _, p, _ in stream],
+                     "max_seq": ENGINE_MAX_SEQ, "chunk": ENGINE_CHUNK}
+    del ref
+    return row, by_mode
+
+
+def phase_families(torch, kern, report: dict) -> tuple:
+    """mamba2-370m, recurrentgemma-9b, seamless-m4t-medium and
+    llama-3.2-vision-11b at full width and depth, one after the other
+    (each freed before the next): random init from seed 0 (the vlm's cross
+    gates set to VLM_GATE), 3 tenants at the 128x spec compressed on the
+    card, the correction kernels at each config's new sites, tenant0's
+    logits against the plain correction; the recurrent configs through the
+    continuous engine (whole-prompt and chunked), the cross-attention
+    configs through Engine.generate with their frontend inputs.
+    -> (launches by path, worst error by kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_bytes
+
+    out, by_path = {}, {}
+    worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0}
+    for arch in FAMILY_SITES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        base = lm.init_params(cfg, 0, device=DEVICE)
+        if cfg.family == "vlm":
+            base["cross"]["gate_attn"].fill_(VLM_GATE)
+            base["cross"]["gate_mlp"].fill_(VLM_GATE)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_arch
+        t0 = time.perf_counter()
+        fleet, dropped = _family_fleet(cfg, base, synth_tenants, RATIO_SPECS[128])
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+        mem = {"params_gb": tree_bytes(base) / 1e9,
+               "tenants_gb": [tree_bytes(d) / 1e9 for _, d, _ in fleet]}
+        if dropped:
+            log(f"[families] {arch}: {dropped} pass the reference's compressible rule, but no "
+                f"group size of the 128x spec divides their h_in: the reference's compress "
+                f"raises on a full-depth tenant, as the port's does; the block never applies "
+                f"them, so the tenants are compressed without them")
+        log(f"[families] {arch} ({cfg.family}): {cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab}; {mem['params_gb']:.2f} GB params, init "
+            f"{t_init:.1f} s; 3 tenants {[round(g, 3) for g in mem['tenants_gb']]} GB packed "
+            f"({fleet[0][2].summary()}), synthesized and compressed in {t_comp:.1f} s")
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(41)
+        recurrent = cfg.family in ("ssm", "hybrid")
+        row = {"family": cfg.family, "memory": mem, "init_s": t_init, "compress_s": t_comp}
+        row["times"], w = _family_kernels(torch, ops, fb, cfg, fleet, gen, recurrent)
+        for k, v in w.items():
+            worst[k] = max(worst[k], v)
+        extra = _family_extra(torch, cfg)
+        row["logits"] = _family_logits(torch, lm, ops, fb, cfg, base, fleet[0][1], extra)
+        mem0 = torch.cuda.memory_allocated()
+        if recurrent:
+            eng_row, by_mode = _family_engine(torch, kern, lm, cfg, base, fleet)
+            row.update(eng_row)
+            for mode, launches in by_mode.items():
+                by_path[f"families:{arch}:{mode}"] = launches
+        else:
+            row["generate"] = _family_generate(torch, kern, cfg, base, fleet, extra)
+            by_path[f"families:{arch}:generate"] = row["generate"]["launches"]
+        mem.update(engine_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        row["wall_s"] = time.perf_counter() - t_arch
+        log(f"[families] {arch} memory: params {mem['params_gb']:.2f} GB, tenants "
+            f"{sum(mem['tenants_gb']):.3f} GB, serving up to {mem['engine_gb']:.2f} GB more, "
+            f"peak {mem['peak_gb']:.2f} GB; {row['wall_s']:.1f} s")
+        out[arch] = row
+        del fleet, base, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["families"] = out
+    return by_path, worst
+
+
 def kernel_times(torch) -> list:
     """``--kernel-times``: device times of the decode-side correction
     kernels alone (delta_spmm at DECODE_T, the three segments layouts) at
@@ -2772,6 +3183,14 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
                                    *keys) if k in a}
                 for r in report["archs"].values() for a in r["kernels"]["times"]
                 if a["kernel"] == name]
+        if name in ("delta_spmm", "delta_spmm_segments"):   # [families]' new sites
+            extra["family_sites"] = [
+                {k: a[k] for k in ("arch", "site", "h_in", "h_out", "T", "layout", "tb",
+                                   *keys) if k in a}
+                for r in report["families"].values() for a in r["times"]
+                if a["kernel"] == name]
+            extra["family_launches"] = {p: l[name] for p, l in by_path.items()
+                                        if p.startswith("families:")}
         if name == "delta_spmm":   # qwen3's attention sites, [moe]
             extra["arch_sites"] += [
                 {k: a[k] for k in ("arch", "site", "h_in", "h_out", "T", "tb", *keys)}
@@ -2888,10 +3307,12 @@ def main(argv: list) -> int:
             phase_done("archs")
             moe_launches = phase_moe(torch, kern, report)
             phase_done("moe")
+            families_launches, families_worst = phase_families(torch, kern, report)
+            phase_done("families")
     finally:
         _write_report(report, t_start)
 
-    for k, v in codec_worst.items():
+    for k, v in list(codec_worst.items()) + list(families_worst.items()):
         worst[k] = max(worst[k], v)
     worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], report["moe"]["worst"])
     entries = kernel_entries(report, worst, {
@@ -2902,7 +3323,7 @@ def main(argv: list) -> int:
         "storage": storage_launches, "generate": main_launches,
         "mixed_step": mixed_launches, "merge": merge_launches,
         "quickstart": quickstart_launches, "demo": demo_launches, **arch_launches,
-        **moe_launches})
+        **moe_launches, **families_launches})
     report["kernels"] = entries
     _write_report(report, t_start)
     log(f"[done] {report['wall_s']:.1f} s")

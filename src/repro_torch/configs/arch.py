@@ -1,9 +1,9 @@
 """Architecture configuration system (copy of ``repro/configs/arch.py``).
 
 Every supported model is described by one frozen :class:`ArchConfig`.
-The port registers the configs it serves so far (the dense and MoE
-families); each config file also exposes a ``smoke()``-sized reduced
-config of the same family for CPU tests.
+The port registers every config the reference serves; each config file
+also exposes a ``smoke()``-sized reduced config of the same family for
+CPU tests.
 """
 from __future__ import annotations
 
@@ -174,14 +174,17 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    # import every config module for its register() side effect (the
-    # dense and MoE configs the port serves so far)
+    # import every config module for its register() side effect
     from repro_torch.configs import (  # noqa: F401
         gemma3_1b,
         gemma_7b,
         llama4_scout_17b_a16e,
         llama32_1b,
+        llama32_vision_11b,
+        mamba2_370m,
         phi3_medium_14b,
         qwen3_moe_30b_a3b,
+        recurrentgemma_9b,
+        seamless_m4t_medium,
         wizard_llama2_7b,
     )

@@ -1,7 +1,7 @@
 """Carry weights and codec leaves across from numpy.
 
-The JAX package's parameters and codec leaves (``PackedDelta``,
-``BitDeltaLeaf``, ``LowRankLeaf``) reach the port as
+The JAX package's parameters, codec leaves (``PackedDelta``,
+``BitDeltaLeaf``, ``LowRankLeaf``) and serving caches reach the port as
 numpy arrays (the conversion *from* JAX arrays lives with the tests: the
 port never imports jax). bf16 arrives as its raw uint16 bits, the way
 ``repro/checkpoint/ckpt.py:48-52`` stores it, with the dtype named in a
@@ -82,3 +82,25 @@ def lowrank_leaf_from_numpy(arrays: Mapping[str, np.ndarray], meta: Mapping[str,
         v=tensor_from_numpy(np.asarray(arrays["v"], np.float32), device=dev),
         h_in=int(meta["h_in"]), h_out=int(meta["h_out"]),
         k_bits=int(meta["k_bits"]), rank=int(meta["rank"]))
+
+
+def cache_from_numpy(cfg, entries: list, bit_dtypes: Optional[Mapping[str, str]] = None,
+                     device=None) -> list:
+    """A serving cache (``models.lm.init_cache``'s layout) from numpy:
+    ``entries`` holds one ``{field: array}`` per cache entry, in order —
+    the decoder layers' (k/v/pos for attention, the SsmState / RecState
+    fields for ssm / rec layers), then the cross caches' k/v. ``bit_dtypes``
+    is keyed ``"<entry index>/<field>"``."""
+    from repro_torch.models.lm import layer_plan
+    from repro_torch.models.rglru import RecState
+    from repro_torch.models.ssm import SsmState
+    bit_dtypes = bit_dtypes or {}
+    kinds = [kind for kind, _, _ in layer_plan(cfg)]
+    out = []
+    for i, fields in enumerate(entries):
+        t = {k: tensor_from_numpy(a, bit_dtypes.get(f"{i}/{k}"), device)
+             for k, a in fields.items()}
+        kind = kinds[i] if i < len(kinds) else "cross"
+        out.append(SsmState(**t) if kind == "ssm" else RecState(**t) if kind == "rec"
+                   else t)
+    return out

@@ -1,4 +1,4 @@
-"""Shared layers for the dense model family (port of ``repro/models/layers.py``).
+"""Shared layers of the model zoo (port of ``repro/models/layers.py``).
 
 All matmuls route through :func:`repro_torch.core.apply.apply_linear` so
 every linear site supports the paper's separate-computation delta
@@ -84,6 +84,14 @@ def _attend(q, k, v, q_pos, k_pos, window: int, causal: bool, cap):
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def cross_attention(q, k, v, cap=None):
+    """Unmasked attention over a fixed memory (frontend embeddings or the
+    encoder's output): every position 0, no causal mask, no window."""
+    q_pos = torch.zeros(q.shape[1], dtype=torch.int64, device=q.device)
+    k_pos = torch.zeros(k.shape[1], dtype=torch.int64, device=q.device)
+    return _attend(q, k, v, q_pos, k_pos, 0, False, cap)
+
+
 def attention(q, k, v, q_pos, k_pos, *, window: int = 0, causal: bool = True,
               cap=None, block_q: int = 1024):
     """GQA attention, blocked over the query dim to bound live memory."""
@@ -127,3 +135,24 @@ def glu_mlp(x, p, d, act: str):
     up = apply_linear(x, p["wi"], dget(d, "wi"))
     h = (F.silu(gate) if act == "silu" else _gelu_tanh(gate)) * up
     return apply_linear(h, p["wo"], dget(d, "wo"))
+
+
+def depthwise_conv1d(x, w, state=None):
+    """Causal depthwise conv. x [B,S,C], w [W,C]; state [B,W-1,C] or None.
+
+    The taps are summed in f32 in tap order, each output element on its
+    own (no reduction whose order depends on the batch). Returns (y
+    [B,S,C] in x's dtype, new_state [B,W-1,C] in the dtype of the
+    concatenated input, as ``jnp.concatenate`` promotes it).
+    """
+    W = w.shape[0]
+    B, S, C = x.shape
+    if state is None:
+        state = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    dt = torch.promote_types(state.dtype, x.dtype)
+    xp = torch.cat([state.to(dt), x.to(dt)], dim=1)      # [B, S+W-1, C]
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(W):
+        y = y + xp[:, i:i + S].to(torch.float32) * w[i].to(torch.float32)
+    new_state = xp[:, -(W - 1):] if W > 1 else state
+    return y.to(x.dtype), new_state

@@ -12,8 +12,12 @@ share that model:
   once through the tenant-stacked packed deltas (``core.apply.SlotDelta``)
   — on the card, the ``delta_spmm_segments`` kernel. Tenants whose
   packings differ form codec groups, one stack each. Prompt lengths are
-  bucketed and left-padded; ``chunked_prefill=`` streams prompts in
-  fixed-size chunks inside the decode step instead. ``tenant_capacity=``
+  bucketed and left-padded (exact lengths for archs with ssm or rec
+  layers, whose carried state a pad would pollute); ``chunked_prefill=``
+  streams prompts in fixed-size chunks inside the decode step instead
+  (exact-length tail chunks for those archs). encdec and vlm archs are
+  refused, as in the reference: their per-request encoder inputs go
+  through ``Engine.generate(extra_inputs=)``. ``tenant_capacity=``
   pre-allocates a :class:`TenantTable` so tenants register, roll out and
   retire as in-place row writes. ``residency_budget_bytes=`` builds the
   :class:`DeltaResidency` tier of pre-decoded tenant values.
@@ -25,7 +29,7 @@ share that model:
 
 The reference jits each step; the port runs eagerly and updates the KV
 cache and the tenant table in place. What waits for later slices raises:
-``mesh=``, ``data > 1`` and non-dense families.
+``mesh=`` and ``data > 1``.
 """
 from __future__ import annotations
 
@@ -499,7 +503,8 @@ class ContinuousEngine:
 
     Runs on the device of ``base_params``. Every step is eager: one
     whole-prompt prefill per admitted request (batch 1, left-padded to
-    its length bucket, base requests on the all-zero delta tree) and one
+    its length bucket — exact for ssm/rec archs — base requests on the
+    all-zero delta tree) and one
     decode call over all ``n_slots`` rows, whose tenant rows are sorted
     into segments (``slot_dispatch="segments"``) or gathered per row
     (``"per_row"``). The step's one device-to-host copy is the
@@ -513,8 +518,8 @@ class ContinuousEngine:
     through the same tenant-segment delta dispatch. ``chunk_share`` is
     the SLO knob (:class:`~repro_torch.serve.scheduler.ChunkBudget`).
     Rows that are free or mid-prefill are decoded with the rest and get
-    their ring entry back afterwards (``SlotKVCache.restore_entries``),
-    bit for bit.
+    their ring entry and ssm/rec state back afterwards
+    (``SlotKVCache.restore_entries``), bit for bit.
 
     Tenants of any codec register: each tree is lowered to the
     PackedDelta runtime layout once, at registration. Tenants whose
@@ -559,6 +564,10 @@ class ContinuousEngine:
                  chunked_prefill: bool = False, chunk_size: int = 16,
                  chunk_share: float = 1.0,
                  trace=None, slo=None, telemetry=None):
+        if cfg.family in ("encdec", "vlm"):
+            raise ValueError(
+                f"continuous batching does not support family={cfg.family!r} "
+                "(per-request encoder inputs); use Engine.generate")
         lm._check_family(cfg)
         if mesh is not None:
             raise NotImplementedError(
@@ -594,9 +603,11 @@ class ContinuousEngine:
         self._table: Optional[TenantTable] = None
         self._retiring: set = set()      # rolled-out rows awaiting drain
         self.restacks = 0                # dynamic re-stacks of the tenant rows
-        # dense attention only: left-padding is safe, so lengths bucket
+        # ssm/rec mixers carry sequence state, so left-padding would
+        # pollute it: bucket those archs by exact prompt length instead
+        exact = any(k in ("ssm", "rec") for k in cfg.layer_kinds)
         self.buckets = LengthBuckets(min_bucket=min_bucket,
-                                     max_bucket=max_seq, exact=False)
+                                     max_bucket=max_seq, exact=exact)
         self.chunked = bool(chunked_prefill)
         self.chunk_size = int(chunk_size)
         self.chunk_share = float(chunk_share)
@@ -609,6 +620,11 @@ class ContinuousEngine:
                 raise ValueError(
                     f"chunk_size={chunk_size} must be in [1, {min_ring}] "
                     f"(the smallest attention ring of this arch/max_seq)")
+        # ssm/rec mixers cannot consume right-padded tail chunks (pad
+        # tokens would pollute the carried state): exact archs get
+        # exact-length tail chunks, attention-only archs pad every chunk
+        # to chunk_size (pad K/V writes never reach the ring)
+        self._chunk_pad = not exact
         self._chunks = ChunkQueue(self.chunk_size)
         self._chunk_budget = ChunkBudget(self.chunk_share)
         self._chunk_t0: dict[int, float] = {}    # rid -> admit time
@@ -1064,7 +1080,7 @@ class ContinuousEngine:
         tok_d, pos_d, act_d = dev[0][:, None], dev[1], dev[2].bool()
         if task is not None:
             req = task.request
-            C = self.chunk_size
+            C = self.chunk_size if self._chunk_pad else task.length
             host = np.zeros((3, C), np.int64)
             host[0, :task.length] = req.prompt[task.start:
                                                task.start + task.length]
@@ -1091,8 +1107,7 @@ class ContinuousEngine:
             if task is not None:
                 # the chunk row is prefilled against its restored, clean
                 # ring, through views of the shared cache
-                row = [{k: c[k][task.slot:task.slot + 1]
-                        for k in ("k", "v", "pos")} for c in cache]
+                row = lm.cache_rows(cache, task.slot, task.slot + 1)
                 clog, _ = lm.prefill_chunk(
                     self.cfg, self.base,
                     {"tokens": chunk[0:1], "positions": chunk[1:2],
@@ -1102,7 +1117,7 @@ class ContinuousEngine:
             sig = ("decode_masked", len(self._groups), bool(res_used))
             site = "decode_masked"
         else:
-            sig = ("combined", self.chunk_size, len(self._groups), bool(res_used))
+            sig = ("combined", chunk.shape[1], len(self._groups), bool(res_used))
             site = "combined"
         path_notes, recompiled = self._record_path(sig, self._group_shapes(), site,
                                                    notes, now)
@@ -1349,20 +1364,30 @@ class Engine:
     @torch.inference_mode()
     def generate(self, tenant: Optional[str], prompts: np.ndarray,
                  max_new_tokens: int = 16, stop_token: Optional[int] = None,
+                 extra_inputs: Optional[dict] = None,
                  logits_out: Optional[list] = None) -> np.ndarray:
         """Greedy decode for one tenant group. prompts [B, S] int.
 
-        tenant=None serves the raw base model (control arm). When
-        ``logits_out`` is a list, the logits that chose each generated
-        token ([B, V] f32, on the engine's device) are appended to it.
+        tenant=None serves the raw base model (control arm).
+        ``extra_inputs`` carries the cross blocks' inputs (``enc_feats``
+        [B, S_enc, d] for encdec, which sizes the cache's encoder rows, or
+        ``image_embeds`` [B, n_frontend_tokens, d] for vlm; arrays or
+        tensors). When ``logits_out`` is a list, the logits that chose each
+        generated token ([B, V] f32, on the engine's device) are appended
+        to it.
         """
         deltas = self.store.get(tenant).deltas if tenant else None
         B, S = prompts.shape
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
-                                 device=self.device)
-        cache = lm.init_cache(self.cfg, B, self.max_seq, device=self.device)
-        logits, cache = lm.prefill(self.cfg, self.base, {"tokens": tokens},
-                                   cache, deltas=deltas)
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                                           device=self.device)}
+        enc_len = 0
+        if extra_inputs:
+            batch.update({k: torch.as_tensor(v).to(self.device)
+                          for k, v in extra_inputs.items()})
+            if "enc_feats" in batch:
+                enc_len = batch["enc_feats"].shape[1]
+        cache = lm.init_cache(self.cfg, B, self.max_seq, enc_len, device=self.device)
+        logits, cache = lm.prefill(self.cfg, self.base, batch, cache, deltas=deltas)
         out = []
         for t in range(max_new_tokens):
             if logits_out is not None:
@@ -1393,14 +1418,17 @@ class Engine:
         Thin shim over :class:`ContinuousEngine`; falls back to the
         per-tenant static grouping where slot dispatch cannot apply to
         the registered tenants (packed deltas at MoE expert sites, trees
-        of different structure).
+        of different structure) or to the arch (encdec/vlm, which the
+        continuous engine refuses). As in the reference, the grouped path
+        passes no encoder inputs, so an encdec or vlm batch fails there
+        (``repro/serve/engine.py:1620-1634``).
         """
         try:
             eng = self._continuous()
             eng._refresh_stacked()   # raises for non-stackable tenant sets
         except (ValueError, NotImplementedError):
             # slot dispatch inapplicable (MoE expert deltas, trees of
-            # different structure): per-tenant grouping serves
+            # different structure, encdec/vlm): per-tenant grouping serves
             return self._serve_batch_grouped(requests, max_new_tokens)
         for tenant, prompt in requests:
             # capacity errors must NOT fall back: the grouped path would

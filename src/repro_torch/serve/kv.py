@@ -6,9 +6,12 @@ slot mid-flight without touching the other rows; a finished sequence
 just releases its slot index — no device work, the row is garbage until
 the next insert overwrites it.
 
-The port's cache is the list of per-layer ``{"k", "v", "pos"}`` dicts of
-``models.lm`` and is updated in place: ``insert`` copies one batch-1 row
-into row ``slot``, ``reset`` writes the ``init_cache`` values into it.
+The port's cache is the list of ``models.lm.init_cache`` entries — an
+attention layer's ``{"k", "v", "pos"}`` ring, an ssm layer's
+``SsmState`` (conv rings and SSD state), a rec layer's ``RecState`` —
+and is updated in place: ``insert`` copies every leaf of one batch-1 row
+into row ``slot``, ``reset`` writes the ``init_cache`` values into every
+leaf of it (the reference's template insert, ``repro/serve/kv.py:111-130``).
 Sharded caches (``shardings=``) come with the mesh; ``data_shards`` is
 accounted at 1 only.
 """
@@ -65,23 +68,25 @@ class SlotKVCache:
 
     # -- device ops ---------------------------------------------------------
     def insert(self, slot: int, row_cache: Any) -> None:
-        """Copy a batch-1 cache into row ``slot`` of the shared cache
-        (cast to the ring's dtype, as decode's own writes are)."""
+        """Copy every leaf of a batch-1 cache into row ``slot`` of the
+        shared cache (cast to the leaf's dtype, as decode's own writes
+        are)."""
         for g, r in zip(self.cache, row_cache):
-            for k in ("k", "v", "pos"):
-                g[k][slot].copy_(r[k][0])
+            rf = lm.cache_fields(r)
+            for k, t in lm.cache_fields(g).items():
+                t[slot].copy_(rf[k][0])
 
     def reset(self, slot: int) -> None:
-        """Reset row ``slot`` to the ``init_cache`` values (k, v zero;
-        pos -1, invalid).
+        """Reset row ``slot`` to the ``init_cache`` values (every leaf
+        zero, ``pos`` -1: invalid).
 
         Whole-prompt prefill overwrites the entire row at insert time;
         chunked prefill instead APPENDS into the claimed row, so the
-        previous occupant's valid ``pos`` markers would be attended."""
+        previous occupant's valid ``pos`` markers would be attended and
+        its ssm/rec states carried into the new sequence."""
         for g in self.cache:
-            g["k"][slot].zero_()
-            g["v"][slot].zero_()
-            g["pos"][slot].fill_(-1)
+            for k, t in lm.cache_fields(g).items():
+                t[slot].fill_(-1 if k == "pos" else 0)
 
     def update(self, new_cache: Any) -> None:
         """Swap in the post-step cache (the in-place steps return the
@@ -90,11 +95,15 @@ class SlotKVCache:
 
     # -- masked decode (chunked mode) ----------------------------------------
     def ring_entries(self, pos: torch.Tensor) -> list:
-        """Copies of the ring entry each row's decode step writes
-        (``pos % S_c`` per row and layer): k, v and pos."""
+        """Copies of what a decode step writes in each row: an attention
+        layer's ring entry at ``pos % S_c`` per row (k, v and pos), an
+        ssm/rec layer's whole state (every leaf, every row)."""
         out = []
         bi = torch.arange(self.n_slots, device=pos.device)
         for g in self.cache:
+            if isinstance(g, tuple):
+                out.append(tuple(t.clone() for t in g))
+                continue
             slot = pos % g["k"].shape[1]
             out.append(tuple(g[k][bi, slot].clone() for k in ("k", "v", "pos")))
         return out
@@ -105,9 +114,14 @@ class SlotKVCache:
         back into every row where ``keep`` [n_slots] bool is False — the
         in-place counterpart of the reference's whole-cache
         ``jnp.where(act, new, old)``: rows that did not really decode get
-        their pre-step entries back bit for bit."""
+        their pre-step entries and states back bit for bit."""
         bi = torch.arange(self.n_slots, device=pos.device)
         for g, old in zip(self.cache, saved):
+            if isinstance(g, tuple):
+                for t, o in zip(g, old):
+                    m = keep.reshape(keep.shape + (1,) * (t.ndim - 1))
+                    t.copy_(torch.where(m, t, o))
+                continue
             slot = pos % g["k"].shape[1]
             for k, o in zip(("k", "v", "pos"), old):
                 new = g[k][bi, slot]

@@ -837,3 +837,89 @@ def test_moe_model_on_card_matches_cpu(cuda):
     assert "experts-cuda" in forms and not forms & {"experts-torch", "experts-dense",
                                                     "plain-out-of-envelope"}
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# the model families' linear sites new to the kernels (h_in, h_out): mamba2's
+# wdt (32 output columns), wbc and wout; recurrentgemma's linear_x and MQA
+# wk; seamless's encoder and cross sites; the vlm's cross wk
+FAMILY_SITES = [(1024, 32), (1024, 256), (2048, 1024), (4096, 4096), (4096, 256),
+                (1024, 1024), (4096, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [2, 8, 128])
+@pytest.mark.parametrize("h_in,h_out", FAMILY_SITES)
+def test_delta_spmm_at_family_sites(cuda, T, h_in, h_out):
+    """delta_spmm at the 128x packing of each new site, on the route ops
+    takes: within TOL of the plain version, every row the bits of the
+    kernel-order oracle."""
+    d = _pack(h_in, h_out, 16, 8, 4, h_out + T, cuda)
+    x = _x(T, h_in, T, cuda)
+    got = ops.delta_spmm(x, d)
+    torch.testing.assert_close(got, fb.correction(x, d), **TOL)
+    assert _bits_equal(got, ref.correction_kernel_order(x, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,h_in,h_out", [(512, 1024, 1024), (3200, 4096, 1024)])
+def test_delta_spmm_at_memory_rows(cuda, T, h_in, h_out):
+    """The memory-side sites' row counts: seamless's B * 256 encoder
+    frames and the vlm's B * 1600 image tokens, on the prefill route."""
+    d = _pack(h_in, h_out, 16, 8, 4, 90, cuda)
+    x = _x(T, h_in, 91, cuda)
+    assert ops.spmm_row_tile(T, d) not in kern.ROW_TILES
+    got = ops.delta_spmm(x, d)
+    torch.testing.assert_close(got, fb.correction(x, d), **TOL)
+    assert _bits_equal(got[:8], ops.delta_spmm(x[:8], d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["mixed", "chunk"])
+def test_segments_kernel_at_32_columns(cuda, layout):
+    """The segments kernel at mamba2's wdt (1024 x 32): the mixed decode
+    layout of 8 slots and one 16-row chunk segment, bit for bit."""
+    tenants = [_pack(1024, 32, 16, 8, 4, 120 + t, cuda) for t in range(3)]
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    if layout == "mixed":
+        seg = tenant_segments(np.asarray([0, 1, 2, 1, 0, 2, 2, 1], np.int32)).to(cuda)
+        xs = _x(8, 1024, 121, cuda).index_select(0, seg.order)
+        rows, offs = seg.seg_rows.to(torch.int32), seg.seg_offsets.to(torch.int32)
+    else:
+        xs = _x(16, 1024, 122, cuda)
+        rows = torch.tensor([1], dtype=torch.int32, device=cuda)
+        offs = torch.tensor([0, 16], dtype=torch.int32, device=cuda)
+    got = ops.delta_spmm_segments(xs, stack, rows, offs)
+    assert _bits_equal(got, ref.segments_kernel_order(xs, stack, rows, offs))
+    torch.testing.assert_close(got, fb.segment_correction(xs, stack, rows, offs), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
+def test_family_model_on_card_matches_cpu(cuda, name):
+    """Each new family's smoke model with a tenant: logits on the card
+    (delta_spmm at every site) against the CPU's (the plain versions),
+    with the frontend inputs of the cross-attention families."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.utils import map_with_paths
+    cfg = dataclasses.replace(get_smoke_config(name), param_dtype="float32")
+    base = lm.init_params(cfg, 0, device="cpu")
+    [(_, deltas, _)] = synth_tenants(cfg, base, 1, RATIO_SPECS[128], seed=0)
+    to = lambda t: map_with_paths(lambda _p, a: None if a is None else a.to(cuda), t)  # noqa: E731
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))}
+    if cfg.family == "encdec":
+        batch["enc_feats"] = torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model))
+                                              .astype(np.float32))
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    want = lm.forward(cfg, base, batch, deltas=deltas)
+    kern.reset_launches()
+    got = lm.forward(cfg, to(base), {k: v.to(cuda) for k, v in batch.items()},
+                     deltas=to(deltas))
+    assert kern.LAUNCHES["delta_spmm"] > 0
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

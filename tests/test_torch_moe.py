@@ -37,7 +37,6 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.serve import ContinuousEngine, Engine, VirtualClock  # noqa: E402
 from repro_torch.serve.trace import attribution  # noqa: E402
-from repro_torch.utils import map_with_paths  # noqa: E402
 
 import torch_bridge as br  # noqa: E402
 
@@ -48,11 +47,6 @@ CF_CONSISTENT = 8.0
 
 j_moe_ffn = jax.jit(jmoe.moe_ffn, static_argnums=(3, 4))
 j_apply_batched = jax.jit(japply.apply_linear_batched)
-
-
-def _to_jax(tree):
-    """The port's deltas tree -> the reference's (PackedDelta leaves)."""
-    return map_with_paths(lambda _p, d: None if d is None else br.packed_to_jax(d), tree)
 
 
 def _cf(cfg, cf):
@@ -69,7 +63,7 @@ def _model(name, dtype="float32", cf=None):
     tcfg = _cf(dataclasses.replace(get_smoke_config(name), param_dtype=dtype), cf)
     tbase = br.params_to_port(base)
     [(_, tdeltas, _)] = synth_tenants(tcfg, tbase, 1, RATIO_SPECS[128], seed=0)
-    return jcfg, base, _to_jax(tdeltas), tcfg, tbase, tdeltas
+    return jcfg, base, br.deltas_to_jax(tdeltas), tcfg, tbase, tdeltas
 
 
 def _jax_dispatch(eidx, E, C):
@@ -270,9 +264,9 @@ def test_moe_family_registered_and_counted():
     assert 28e9 <= q.n_params() <= 32e9
     assert 2e9 <= q.n_active_params() <= 5e9
     assert 95e9 <= get_config("llama4-scout-17b-a16e").n_params() <= 120e9
-    ssm = get_smoke_config("wizard-llama2-7b").replace(family="ssm", layer_kinds=("ssm",) * 2)
-    with pytest.raises(NotImplementedError, match="ssm, hybrid, encdec, vlm"):
-        tlm.param_shapes(ssm)
+    other = get_smoke_config("wizard-llama2-7b").replace(family="retention")
+    with pytest.raises(NotImplementedError, match="dense, moe, ssm, hybrid, encdec, vlm"):
+        tlm.param_shapes(other)
 
 
 # ---------------------------------------------------------------------------
