@@ -17,7 +17,7 @@ the continuous-batching engine (``serve.ContinuousEngine``: a mixed
 request, and the chunked-prefill engine on the same stream against B=1
 chunked decode), the codec family (``[codecs]``: a DeltaDQ/BitDelta
 fleet in one engine, two codec groups, against each tenant alone; on a
-depth-cut copy a LowRank tenant and ``compress(codec="auto")``), the
+1-layer copy ``compress(codec="auto")``), the
 tenant lifecycle (``[lifecycle]``: a tenant table and a
 ``DeltaRegistry`` registering, rolling out, retiring, evicting and
 promoting tenants mid-traffic, against engines built up front), the
@@ -29,7 +29,8 @@ group-size search and the baselines (``[groupsearch]``: the card against
 the CPU), the quickstart (``launch/quickstart.py``: compress, serve
 separately and merged), the kernels demo (``launch/kernels_demo.py``: the
 four kernels' entry points), the other dense configs at full width
-and depth (``[archs]``: gemma3-1b, gemma-7b and phi3-medium-14b, each
+(``[archs]``: gemma3-1b at 6 of its 26 layers, gemma-7b and
+phi3-medium-14b at full depth, each
 with 3 tenants, both correction kernels at its site new to them, and the
 engine, mixed == alone; gemma3's prompts wrap its 512-token rings, whole
 and chunked) and, last, the MoE family
@@ -44,7 +45,12 @@ seamless-m4t-medium and llama-3.2-vision-11b at full width and depth with
 logits against the plain correction; the recurrent configs through the
 continuous engine whole-prompt and chunked, mixed == alone and against
 ``Engine.generate``; the cross-attention configs through
-``Engine.generate`` with encoder frames or image embeddings). The
+``Engine.generate`` with encoder frames or image embeddings), and,
+outside inference mode, training (``[train]``: llama3.2-1b at full width
+and depth through ``launch/train.py``, the gradient of
+``loss_fn(deltas=)`` through the kernels against the plain correction's
+autograd, the 3m lifecycle of ``launch/train_sft_delta.py`` and a
+bit-exact crash-restart). The
 correction kernels are also held to their
 plain versions on the codec packings (BitDelta and LowRank lowerings,
 keep = h_g = 128). It checks the outputs, that each path launched
@@ -133,13 +139,16 @@ ENGINE_GAP, ENGINE_TICK, ENGINE_SEED, ENGINE_CHUNK = 0.002, 1e-3, 15, 16
 CODEC_T = (1, 8, 16, 64, 128)
 CODEC_TIME_SITES = ("wi", "mlp_wo")
 CODEC_TIME_T = (8, 128)
-# the LowRank tenant and compress(codec="auto") run on a copy of the model
-# cut to 1 layer at full width: LowRank's f32 runtime values are 32.4 GB a
-# tenant at full depth, beyond one card beside the base, and its factors
-# come from numpy's SVD on the host, which took 116.7 s for one layer's 7
-# matrices (H100 80GB HBM3 host, 700.00 W card; PERF.md) — more than the
-# script can spend on a second layer. [codecs] logs each leaf's host time
+# the LowRank tenant beside a DeltaDQ one and compress(codec="auto") run
+# on a copy of the model cut to 1 layer at full width: LowRank's f32
+# runtime values are 32.4 GB a tenant at full depth, beyond one card beside
+# the base. Its factors come from numpy's SVD on the host, 138.9 and 190.9 s
+# for one layer's 7 matrices in two runs (H100 80GB HBM3 hosts, 700.00 W
+# cards; PERF.md §6), so LowRank compresses one attention and one MLP leaf
+# (4096 x 4096 and 11008 x 4096: 15.65 and 24.84 s in the first run) and
+# the tenant's other leaves are DeltaDQ 128x of the same fine-tune
 LOWRANK_LAYERS = 1
+LOWRANK_LEAVES = ("attn/wq", "mlp/wo")
 LIFECYCLE_CAPACITY = 4
 # [residency]: the tier's budget in rows of f32 values (3.24 GB a row at
 # full wizard-llama2-7b width); [storage]: host threads for the m-part
@@ -153,6 +162,11 @@ GROUPSEARCH_REL_TOL = 1e-4
 # wk (1152 x 256), gemma-7b's MLP wo (h_in 24576), phi3's wi (5120 x 17920)
 ARCH_SITES = {"gemma3-1b": ("attn", "wk"), "gemma-7b": ("mlp", "wo"),
               "phi3-medium-14b": ("mlp", "wi")}
+# depth cut (ROADMAP's cut order, first in line): gemma3-1b runs one
+# period of its 5:1 local:global pattern, 6 of its 26 layers, since the
+# script with [train] measured 1062.4 s on an H100 (PERF.md §6); its
+# width, windows and prompt stream are unchanged
+ARCH_DEPTH = {"gemma3-1b": 6}
 # gemma3-1b's stream: prompts longer than its 512-token local window
 WINDOW_REQUESTS, WINDOW_MIN, WINDOW_MAX, WINDOW_SEED, WINDOW_CHUNK = 12, 520, 900, 17, 64
 # [moe]: qwen3-moe-30b-a3b at its published width and full depth with 2
@@ -214,6 +228,27 @@ VLM_GATE = 1.0
 FAMILY_LOGIT_REL_TOL = 1e-3
 FAMILY_CONTROL = {"mamba2-370m": "ssm/wdt", "recurrentgemma-9b": "rec/linear_x",
                   "seamless-m4t-medium": "enc/attn/wq", "llama-3.2-vision-11b": "cross/wk"}
+# [train]: llama3.2-1b ([hf:meta-llama/Llama-3.2-1B]) at published width and
+# depth through repro_torch.launch.train (remat on, AdamW with the
+# launcher's cosine warmup); its 8 x 128 batch is the T = 1024 rows the
+# correction kernels get at its sites (TRAIN_SITES, timed there). The
+# gradient of loss_fn(deltas=) through the kernels (delta_spmm forward,
+# dequant backward) against native autograd through the plain correction,
+# per leaf relative to that leaf's max|g|: the stacks' grads are bf16 in
+# both, and a last-bit f32 difference moves a bf16 rounding by one
+# spacing, at most 2^-7 of the value; the bound is two such spacings. A
+# control without every layer's mlp/wi correction must exceed it.
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_ARGS = ["--full", "--arch", TRAIN_ARCH, "--steps", "6", "--batch", "8", "--seq", "128",
+              "--log-every", "1"]
+TRAIN_B, TRAIN_S = 8, 128
+TRAIN_SITES = {"wq": (2048, 2048), "wk": (2048, 512), "wi": (2048, 8192)}
+TRAIN_GRAD_REL_TOL = 2.0 ** -6
+TRAIN_CONTROL = ("mlp", "wi")
+# the lifecycle's gates: tests/test_system.py:92-96
+SFT_FT_MIN, SFT_BASE_MAX, SFT_TENANT_SHARE = 0.85, 0.6, 0.8
+# crash-restart (tests/test_checkpoint.py:25-46) at the smoke config
+RESTART_STEPS, RESTART_SEQ, RESTART_BATCH = 3, 16, 4
 DEQUANT_LIBRARY_NOTE = "no single PyTorch call decodes the packed codes"
 REPLACED_NOTE = ("the kernel this one replaced is gone from this checkout; it is timed "
                  "by the parent commit's chip_smoke.py in the same chip call (PERF.md)")
@@ -1522,12 +1557,14 @@ def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
     (tenant0 and tenant2 DeltaDQ 128x, tenant1 BitDelta; the [engine]
     stream), then a LowRank tenant beside a DeltaDQ one and
     ``compress(codec="auto", budget_bits=2.0)`` on a copy cut to
-    LOWRANK_LAYERS layers."""
+    LOWRANK_LAYERS layers. The LowRank tenant is LowRank at LOWRANK_LEAVES
+    and DeltaDQ 128x at its other sites, so its codec group is
+    ('deltadq', 'lowrank')."""
     from repro_torch.core.codecs import BitDeltaSpec, LowRankSpec, runtime_delta_tree
     from repro_torch.core.compress import compress
     from repro_torch.launch.serve import RATIO_SPECS, synth_ft, synth_tenants
     from repro_torch.models import lm
-    from repro_torch.utils import tree_bytes
+    from repro_torch.utils import map_with_paths, tree_bytes
 
     cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
     stream = _engine_stream(cfg)
@@ -1563,23 +1600,37 @@ def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
             leaf_s[path] = round(now - t_leaf[0], 2)
         t_leaf[0] = now
 
+    def only(tree):
+        """The LOWRANK_LEAVES of ``tree``, at their paths in the whole tree."""
+        out = {}
+        for path in LOWRANK_LEAVES:
+            block, leaf = path.split("/")
+            out.setdefault(block, {})[leaf] = tree[block][leaf]
+        return out
+
     lr_ft = synth_ft(cbase, 7)
+    lr_dq, _ = compress(cbase, lr_ft, RATIO_SPECS[128])
     torch.cuda.synchronize()
     t0 = t_leaf[0] = time.perf_counter()
-    lr, lr_rep = compress(cbase, lr_ft, LowRankSpec(), progress=leaf_done)
+    lr, lr_rep = compress(only(cbase), only(lr_ft), LowRankSpec(), progress=leaf_done)
     lr_s = time.perf_counter() - t0
+    mixed = map_with_paths(lambda path, d: lr[path.split("/")[0]][path.split("/")[1]]
+                           if path in LOWRANK_LEAVES else d, lr_dq)
     _, dq, _ = synth_tenants(ccfg, cbase, 1, [RATIO_SPECS[128]], seed=1)[0]        # noise 8
-    lr_rt = runtime_delta_tree(lr)
+    lr_rt = runtime_delta_tree(mixed)
     log(f"[codecs] LowRank host time a leaf (one numpy SVD each, nothing else timed "
         f"meanwhile): {leaf_s}")
-    log(f"[codecs] LowRank tenant ({depth} layers): compressed in {lr_s:.1f} s, "
-        f"{tree_bytes(lr) / 1e9:.3f} GB packed, {tree_bytes(lr_rt) / 1e9:.3f} GB runtime "
-        f"(f32 values; {tree_bytes(lr_rt) / 1e9 * cfg.n_layers / depth:.1f} GB at "
-        f"{cfg.n_layers} layers); {lr_rep.summary()}")
+    log(f"[codecs] LowRank tenant ({depth} layers; LowRank at {list(LOWRANK_LEAVES)}, "
+        f"DeltaDQ 128x elsewhere): LowRank compressed in {lr_s:.1f} s, "
+        f"{tree_bytes(mixed) / 1e9:.3f} GB packed, {tree_bytes(lr_rt) / 1e9:.3f} GB runtime "
+        f"(LowRank as f32 values); {lr_rep.summary()}")
     cstream = [(t if t != "tenant2" else None, p, a_) for t, p, a_ in stream]
     cut = _mixed_vs_alone(torch, kern, ccfg, cbase, [("tenant0", lr_rt), ("tenant1", dq)],
                           cstream, f"{depth}-layer")
-    del lr, lr_rt, lr_ft, dq
+    codecs = [g["codecs"] for g in cut["whole"]["memory"]["groups"]]
+    if ("deltadq", "lowrank") not in codecs:
+        fail(f"[codecs] {depth}-layer: no ('deltadq', 'lowrank') codec group in {codecs}")
+    del lr, lr_dq, mixed, lr_rt, lr_ft, dq
     gc.collect()
     torch.cuda.empty_cache()
     ft = synth_ft(cbase, 9)
@@ -1603,7 +1654,8 @@ def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
     report["codecs"] = {
         "bitdelta_compress_s": compress_s, "bitdelta_lower_s": lower_s,
         "full_depth": {m: summary(r) for m, r in full.items()},
-        "lowrank_depth": depth, "lowrank_compress_s": lr_s, "lowrank_leaf_s": leaf_s,
+        "lowrank_depth": depth, "lowrank_leaves": list(LOWRANK_LEAVES),
+        "lowrank_compress_s": lr_s, "lowrank_leaf_s": leaf_s,
         "lowrank_cut": {m: summary(r) for m, r in cut.items()},
         "auto": {"wall_s": auto_s, "budget_met": auto.budget_met, "picks": picks}}
     return full["whole"]["launches"]
@@ -2259,8 +2311,9 @@ def _window_chunked_checks(torch, lm, cfg, base, ref, stream, chunked, max_seq) 
 
 
 def phase_archs(torch, kern, report: dict) -> dict:
-    """gemma3-1b, gemma-7b and phi3-medium-14b at full width and depth, one
-    after the other (each freed before the next): random init from seed 0,
+    """gemma3-1b (at the depth ARCH_DEPTH cuts it to), gemma-7b and
+    phi3-medium-14b at full width and depth, one after the other (each
+    freed before the next): random init from seed 0,
     3 tenants at the 128x spec compressed on the card, both correction
     kernels at the site new to them, and the engine: gemma-7b and phi3 on
     the [engine] stream, whole-prompt, two requests against
@@ -2284,6 +2337,10 @@ def phase_archs(torch, kern, report: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t_arch = time.perf_counter()
         cfg = get_config(arch)
+        if arch in ARCH_DEPTH:
+            n = ARCH_DEPTH[arch]
+            cfg = cfg.replace(n_layers=n, layer_kinds=cfg.layer_kinds[:n],
+                              layer_windows=cfg.layer_windows[:n])
         base = lm.init_params(cfg, 0, device=DEVICE)
         fleet = synth_tenants(cfg, base, 3, RATIO_SPECS[128], seed=0)
         torch.cuda.synchronize()
@@ -3120,6 +3177,267 @@ def phase_families(torch, kern, report: dict) -> tuple:
     return by_path, worst
 
 
+def _bits_equal(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().reshape(-1).view(torch.uint8), b.detach().reshape(-1).view(torch.uint8))
+
+
+def _train_full(torch) -> dict:
+    """llama3.2-1b at published width and depth through the training
+    launcher: per-step ms (synchronized), tokens/s, peak memory; every
+    loss finite and the last below the first."""
+    import math
+    from repro_torch.launch import train as train_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_cli.main(TRAIN_ARGS + ["--device", DEVICE])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, step_ms = out["losses"], out["step_ms"]
+    steady = statistics.median(step_ms[1:])
+    tok_s = TRAIN_B * TRAIN_S / (steady / 1e3)
+    log(f"[train] {TRAIN_ARCH} full width and depth, {TRAIN_B}x{TRAIN_S} tokens a step, "
+        f"remat, AdamW: losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]} (first includes warm-up), steady median "
+        f"{steady:.1f} ms = {tok_s:.0f} tokens/s; the launcher's tok/s over the run "
+        f"{out['tokens_per_s']:.0f}; peak memory {peak:.2f} GB; {wall:.1f} s")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"[train] {TRAIN_ARCH}: losses {losses} are not finite and falling")
+    return {"losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+            "tokens_per_s": tok_s, "launcher_tokens_per_s": out["tokens_per_s"],
+            "peak_gb": peak, "wall_s": wall}
+
+
+def _train_grads(torch, kern) -> tuple:
+    """The gradient of loss_fn(deltas=) for one llama3.2-1b tenant at the
+    128x spec on one 8 x 128 batch, remat on: through the kernels
+    (delta_spmm forward and recompute, dequant backward) against native
+    autograd through the plain correction (ops.delta_spmm replaced by
+    fallback.correction_nd); a control without every layer's mlp/wi
+    correction. -> (row, launches of the kernel run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PretrainMixture
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import batch_to_device
+    from repro_torch.utils import iter_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    sites = 7 * cfg.n_layers
+    base = lm.init_params(cfg, 0, device=DEVICE)
+    [(_, deltas, rep)] = synth_tenants(cfg, base, 1, RATIO_SPECS[128], seed=0)
+    batch = batch_to_device(PretrainMixture(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                            batch=TRAIN_B).batch_at(0), DEVICE)
+
+    def grads(d):
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), base)
+        kern.reset_launches()
+        loss, _ = lm.loss_fn(cfg, ps, batch, deltas=d, remat=True)
+        fwd = dict(kern.LAUNCHES)
+        paths, xs = zip(*iter_leaves(ps))
+        gs = torch.autograd.grad(loss, xs)
+        torch.cuda.synchronize()
+        return loss.item(), dict(zip(paths, gs)), fwd, dict(kern.LAUNCHES)
+
+    real = ops.delta_spmm
+    ops.delta_spmm = lambda x, d: fb.correction_nd(x.to(torch.float32), d)
+    try:
+        plain_loss, want, _, plain_launches = grads(deltas)
+    finally:
+        ops.delta_spmm = real
+    if any(plain_launches.values()):
+        fail(f"[train] the plain correction launched kernels: {plain_launches}")
+    scale = {k: w.abs().max().float().item() for k, w in want.items()}
+
+    def rel(got):
+        return {k: (got[k].float() - w.float()).abs().max().item() / max(scale[k], 1e-30)
+                for k, w in want.items()}
+
+    t0 = time.perf_counter()
+    loss, got, fwd, launches = grads(deltas)
+    kern_s = time.perf_counter() - t0
+    err = rel(got)
+    del got
+    ctl_deltas = {**deltas, TRAIN_CONTROL[0]: {**deltas[TRAIN_CONTROL[0]],
+                                               TRAIN_CONTROL[1]: None}}
+    _, ctl, _, _ = grads(ctl_deltas)
+    ctl_err = rel(ctl)
+    del ctl
+    worst = max(err, key=err.get)
+    ctl_worst = max(ctl_err, key=ctl_err.get)
+    log(f"[train] {TRAIN_ARCH} tenant at {rep.summary()}: loss through the kernels "
+        f"{loss:.6f}, plain {plain_loss:.6f}; grads through the kernels vs the plain "
+        f"correction's autograd, per leaf max|diff| / max|g|: worst {err[worst]:.3e} at "
+        f"{worst} (bound {TRAIN_GRAD_REL_TOL:.3e}); control without every layer's "
+        f"{'/'.join(TRAIN_CONTROL)} correction: {ctl_err[ctl_worst]:.3e} at {ctl_worst} "
+        f"(must exceed the bound); launches: forward {fwd['delta_spmm']} delta_spmm, "
+        f"forward + backward (remat recomputes each block up to its wo) "
+        f"LAUNCHES['delta_spmm'] "
+        f"{launches['delta_spmm']}, LAUNCHES['dequant'] {launches['dequant']} "
+        f"({sites} sites); kernel run {kern_s:.2f} s")
+    if err[worst] > TRAIN_GRAD_REL_TOL:
+        fail(f"[train] grads through the kernels differ from the plain correction's at "
+             f"{worst}: {err[worst]:.3e}")
+    if not ctl_err[ctl_worst] > TRAIN_GRAD_REL_TOL:
+        fail("[train] the gradient bound does not see the mlp/wi correction missing")
+    # remat recomputes each block in backward up to the last tensor backward
+    # needs (torch.utils.checkpoint stops early there), so the two output
+    # projections' corrections, attention's and the MLP's wo, are not run
+    # again: nothing after them is saved
+    recomputed = sites - 2 * cfg.n_layers
+    if fwd["delta_spmm"] != sites or launches["delta_spmm"] != sites + recomputed or \
+            launches["dequant"] != sites:
+        fail(f"[train] launches {fwd} / {launches}, expected {sites} delta_spmm forward, "
+             f"{sites + recomputed} with the recompute and {sites} dequant")
+    del base, deltas, want
+    return ({"rel_err": err, "worst_leaf": worst, "control_rel": ctl_err[ctl_worst],
+             "control_leaf": ctl_worst, "bound_rel": TRAIN_GRAD_REL_TOL, "loss": loss,
+             "plain_loss": plain_loss, "forward_launches": fwd, "launches": launches},
+            launches)
+
+
+def _train_kernel_times(torch) -> list:
+    """delta_spmm at llama3.2-1b's wq, wk and wi for the training batch's
+    T = 1024 rows, and dequant at wi (the correction's backward, with the
+    whole backward g @ dequant(d)^T as context)."""
+    from repro_torch.core import dropout
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(51)
+    T = TRAIN_B * TRAIN_S
+    rows = []
+    for site, (h_in, h_out) in TRAIN_SITES.items():
+        ring = [_rand_packed(torch, dropout, h_in, h_out, 4, gen) for _ in range(8)]
+        dense = [fb.dequant(d) for d in ring]
+        t = _time_spmm(torch, ops, fb, ring, dense, gen, site, T, None)
+        rows.append({**t, "arch": TRAIN_ARCH})
+        if site == "wi":
+            nnz, dbytes = ring[0].nnz, packed_bytes(ring[0])
+            ms = time_ms(torch, [lambda d=d: ops.dequant(d) for d in ring])
+            plain = time_ms(torch, [lambda d=d: fb.dequant(d) for d in ring], iters=8,
+                            reps=3, eager=True)
+            g = torch.randn((T, h_out), generator=gen, device=DEVICE)
+            bwd = time_ms(torch, [lambda d=d: g @ ops.dequant(d).T for d in ring])
+            b_ms, b_by = bound_ms(0, dbytes, h_in * h_out * 4, 2.0 * nnz)
+            rows.append({"kernel": "dequant", "arch": TRAIN_ARCH, "site": site, "h_in": h_in,
+                         "h_out": h_out, "T": None, "ms": ms, "plain_ms": plain,
+                         "library_ms": None, "library_note": DEQUANT_LIBRARY_NOTE,
+                         "backward_ms": bwd, "bound_ms": b_ms, "bound_by": b_by})
+            log(f"[time] {'dequant':20s} {site:6s} {TRAIN_ARCH}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}); the whole "
+                f"correction backward at T={T} (dequant + g @ D^T) {bwd:.4f} ms")
+        del ring, dense
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_lifecycle(torch, kern) -> tuple:
+    """``launch/train_sft_delta.py`` at the 3m preset: pretrain, SFT,
+    compress at 16x/64x/128x, serve through Engine.generate; the gates of
+    tests/test_system.py:92-96."""
+    from repro_torch.launch import train_sft_delta
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    out = train_sft_delta.main(["--preset", "3m", "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    acc, mem = out["accuracy"], out["memory"]
+    log(f"[train] lifecycle (3m preset): fine-tuned {acc['fine_tuned']:.3f}, base "
+        f"{acc['base']:.3f}, tenants 16x {acc['16x']:.3f}, 64x {acc['64x']:.3f}, 128x "
+        f"{acc['128x']:.3f}; memory: base {mem['base_bytes'] / 1e6:.1f} MB, "
+        f"{mem['n_tenants']} tenants {mem['delta_bytes_total'] / 1e6:.2f} MB; launches "
+        f"{launches}; {wall:.1f} s")
+    if not (acc["fine_tuned"] > SFT_FT_MIN and acc["base"] < SFT_BASE_MAX and
+            acc["16x"] > SFT_TENANT_SHARE * acc["fine_tuned"]):
+        fail(f"[train] the lifecycle misses its gates: {acc}")
+    if launches["delta_spmm"] == 0:
+        fail("[train] the lifecycle's tenants did not run the delta_spmm kernel")
+    return {"accuracy": acc, "memory": mem, "launches": launches, "wall_s": wall}, launches
+
+
+def _train_restart(torch) -> dict:
+    """Crash-restart at the llama3.2-1b smoke config on the card, as
+    tests/test_checkpoint.py:25-46: 6 steps against 3, save, drop, restore,
+    3 more; params and optimizer state equal to the bit. Runs under
+    torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG is set
+    before the script's first cuBLAS call, in main)."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import PretrainMixture
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.utils import flatten_with_paths
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    data = PretrainMixture(vocab=cfg.vocab, seq_len=RESTART_SEQ, batch=RESTART_BATCH)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    d = os.path.join(HERE, "build", "train_restart")
+    shutil.rmtree(d, ignore_errors=True)
+
+    def fresh():
+        p = lm.init_params(cfg, 0, device=DEVICE)
+        return p, adamw.init(p)
+
+    def run(p, o, start, n):
+        for i in range(start, start + n):
+            p, o, _ = step_fn(p, o, data.batch_at(i), i)
+        return p, o
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = dict(zip(("params", "opt"), run(*fresh(), 0, 2 * RESTART_STEPS)))
+        ck = Checkpointer(d)
+        p1, o1 = run(*fresh(), 0, RESTART_STEPS)
+        ck.save(RESTART_STEPS, {"params": p1, "opt": o1},
+                extra={"data_step": RESTART_STEPS})
+        del p1, o1
+        p0, o0 = fresh()
+        state, man = ck.restore({"params": p0, "opt": o0})
+        got = dict(zip(("params", "opt"),
+                       run(state["params"], state["opt"], man["extra"]["data_step"],
+                           RESTART_STEPS)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(d, ignore_errors=True)
+    flat_ref, flat_got = flatten_with_paths(ref), flatten_with_paths(got)
+    bad = [k for k in flat_ref if not _bits_equal(torch, flat_got[k], flat_ref[k])]
+    log(f"[train] crash-restart at the {TRAIN_ARCH} smoke config on the card, under "
+        f"deterministic algorithms: {2 * RESTART_STEPS} steps vs {RESTART_STEPS} + save + "
+        f"restore + {RESTART_STEPS}: {len(flat_ref) - len(bad)}/{len(flat_ref)} leaves of "
+        f"params and optimizer state equal to the bit")
+    if bad:
+        fail(f"[train] crash-restart is not bit-exact at {bad[:4]}")
+    return {"leaves": len(flat_ref), "bit_equal": len(flat_ref) - len(bad)}
+
+
+def phase_train(torch, kern, report: dict) -> dict:
+    """Training and the paper's lifecycle, outside inference mode: the full
+    llama3.2-1b through the training launcher, gradients through the
+    correction kernels at full width, the kernels at the training batch's
+    shapes, the 3m lifecycle, crash-restart. -> launches by path."""
+    out = {"full": _train_full(torch)}
+    out["grads"], grad_launches = _train_grads(torch, kern)
+    out["times"] = _train_kernel_times(torch)
+    out["lifecycle"], lc_launches = _train_lifecycle(torch, kern)
+    out["restart"] = _train_restart(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train"] = out
+    return {"train:grads": grad_launches, "train:lifecycle": lc_launches}
+
+
 def kernel_times(torch) -> list:
     """``--kernel-times``: device times of the decode-side correction
     kernels alone (delta_spmm at DECODE_T, the three segments layouts) at
@@ -3203,6 +3521,13 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
                 for e in report["moe"]["kernels"]]
             extra["expert_launches"] = {p: l[name] for p, l in by_path.items()
                                         if p.startswith("moe:")}
+        if name in ("delta_spmm", "dequant"):   # [train]'s sites at T = 1024
+            extra["train_sites"] = [
+                {k: a[k] for k in ("arch", "site", "h_in", "h_out", "T", "tb", "backward_ms",
+                                   *keys) if k in a}
+                for a in report["train"]["times"] if a["kernel"] == name]
+            extra["train_launches"] = {p: l[name] for p, l in by_path.items()
+                                       if p.startswith("train:")}
         if name == "delta_spmm_segments":   # the chunked engine's prompt chunks
             c = by[(name, "wi", ENGINE_CHUNK, "chunk")]
             extra["chunk_layout"] = {
@@ -3249,6 +3574,9 @@ def main(argv: list) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
         return 1
+    # before the first cuBLAS call: [train]'s crash-restart runs under
+    # torch.use_deterministic_algorithms, which needs a fixed workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.abspath(src))
     from repro_torch.kernels import delta_spmm as kern
 
@@ -3309,6 +3637,9 @@ def main(argv: list) -> int:
             phase_done("moe")
             families_launches, families_worst = phase_families(torch, kern, report)
             phase_done("families")
+        # training needs autograd: outside inference mode
+        train_launches = phase_train(torch, kern, report)
+        phase_done("train")
     finally:
         _write_report(report, t_start)
 
@@ -3323,7 +3654,7 @@ def main(argv: list) -> int:
         "storage": storage_launches, "generate": main_launches,
         "mixed_step": mixed_launches, "merge": merge_launches,
         "quickstart": quickstart_launches, "demo": demo_launches, **arch_launches,
-        **moe_launches, **families_launches})
+        **moe_launches, **families_launches, **train_launches})
     report["kernels"] = entries
     _write_report(report, t_start)
     log(f"[done] {report['wall_s']:.1f} s")

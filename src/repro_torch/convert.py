@@ -1,6 +1,6 @@
 """Carry weights and codec leaves across from numpy.
 
-The JAX package's parameters, codec leaves (``PackedDelta``,
+The JAX package's parameters, optimizer state, codec leaves (``PackedDelta``,
 ``BitDeltaLeaf``, ``LowRankLeaf``) and serving caches reach the port as
 numpy arrays (the conversion *from* JAX arrays lives with the tests: the
 port never imports jax). bf16 arrives as its raw uint16 bits, the way
@@ -35,12 +35,51 @@ def tensor_from_numpy(arr: np.ndarray, bit_dtype: Optional[str] = None,
     return bits.view(_BIT_DTYPES[bit_dtype]).to(dev)
 
 
+def tensor_to_numpy(t: torch.Tensor) -> tuple[np.ndarray, Optional[str]]:
+    """One tensor -> (host array, bit_dtype): bf16 and f16 come back as
+    their raw uint16 bits with the dtype's name, as the reference's
+    checkpointer stores them."""
+    t = t.detach().cpu()
+    for name, dt in _BIT_DTYPES.items():
+        if t.dtype == dt:
+            return t.view(torch.int16).numpy().view(np.uint16), name
+    return t.numpy(), None
+
+
 def params_from_numpy(tree: Any, bit_dtypes: Optional[Mapping[str, str]] = None,
                       device=None) -> Any:
     """A nested dict of numpy arrays -> the same dict of tensors."""
     bit_dtypes = bit_dtypes or {}
     return map_with_paths(
         lambda path, a: tensor_from_numpy(a, bit_dtypes.get(path), device), tree)
+
+
+def params_to_numpy(tree: Any) -> tuple[Any, dict]:
+    """A dict tree of tensors -> (the same tree of numpy arrays,
+    ``bit_dtypes`` keyed by leaf path)."""
+    bits = {}
+
+    def host(path, t):
+        arr, bd = tensor_to_numpy(t)
+        if bd is not None:
+            bits[path] = bd
+        return arr
+
+    return map_with_paths(host, tree), bits
+
+
+def opt_state_from_numpy(state: Mapping[str, Any], device=None) -> dict:
+    """AdamW's state (``optim/adamw.py``: ``m``, ``v``, ``master`` trees
+    of f32 and the int32 ``step``) from numpy."""
+    return {**{k: params_from_numpy(state[k], device=device)
+               for k in ("m", "v", "master")},
+            "step": tensor_from_numpy(np.asarray(state["step"], np.int32), device=device)}
+
+
+def opt_state_to_numpy(state: Mapping[str, Any]) -> dict:
+    """AdamW's state -> numpy (every leaf f32 or int32: no bit dtypes)."""
+    return {**{k: params_to_numpy(state[k])[0] for k in ("m", "v", "master")},
+            "step": tensor_to_numpy(state["step"])[0]}
 
 
 def packed_delta_from_numpy(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],

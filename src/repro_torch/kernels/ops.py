@@ -17,6 +17,16 @@ counterpart there (the reference reconstructs the dense expert stack):
 it is the MoE expert sites' route onto the segments kernel, an expert
 buffer being E segments of one stacked delta.
 
+Gradients: ``delta_spmm`` and ``delta_spmm_experts`` are autograd
+Functions whenever grad mode is on and ``x.requires_grad``, on every
+device: the forward takes the route above, the backward is
+``dx = g @ dequant(d)^T`` through :func:`dequant` (the dequant kernel on
+the card), the dense product the reference differentiates
+(``repro/kernels/ops.py``'s XLA formulation). ``delta_spmm_segments``,
+``delta_spmm_slots`` and ``fused_base_delta`` have no backward: on a
+CUDA tensor autograd tracks they raise rather than return a detached
+correction.
+
 Tiles: the kernels take every T and h_out as they are (they mask the
 ragged edges themselves), so the reference's row padding and column
 padding have no counterpart. On the decode route and in the segments
@@ -132,8 +142,54 @@ def _device_kind(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _refuse_grad(site: str, x: torch.Tensor) -> None:
+    """A CUDA route without a backward refuses an input autograd tracks:
+    the kernel's output would come back detached, and ``backward`` would
+    drop the correction's share of the input's gradient without a word."""
+    if _needs_grad(x) and _device_kind(x) == "cuda":
+        raise RuntimeError(
+            f"{site}: this CUDA route has no backward; call it under "
+            "torch.no_grad() or on an input that does not require grad "
+            "(training takes delta_spmm or delta_spmm_experts)")
+
+
+class _Correction(torch.autograd.Function):
+    """``x @ dequant(d)`` with a gradient for ``x``.
+
+    forward: the route :func:`_delta_spmm` takes (the kernel on the card,
+    the plain version on the CPU). backward: ``dx = g @ dequant(d)^T``
+    through :func:`dequant` (the dequant kernel on the card), a dense
+    product as the reference differentiates its XLA formulation. The
+    packed delta is integer data and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, d):
+        ctx.d, ctx.x_dtype = d, x.dtype
+        return _delta_spmm(x, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.d
+        dx = g.to(torch.float32).reshape(-1, d.h_out) @ dequant(d).T
+        return dx.reshape(*g.shape[:-1], d.h_in).to(ctx.x_dtype), None
+
+
 def delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
-    """y = x @ dequant(d). x [..., h_in] -> [..., h_out] (f32)."""
+    """y = x @ dequant(d). x [..., h_in] -> [..., h_out] (f32).
+
+    With grad mode on and ``x.requires_grad`` the product is an autograd
+    Function (:class:`_Correction`), on every device; its backward runs
+    :func:`dequant`."""
+    if _needs_grad(x):
+        return _Correction.apply(x, d)
+    return _delta_spmm(x, d)
+
+
+def _delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     gmax = _gather_max_t(d)
     if _out_of_envelope("delta_spmm", d, x):
         return fallback.correction_nd(x, d, gather_max_t=gmax)
@@ -176,6 +232,7 @@ def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
     is chosen from it instead of from all T rows (every tile gives a row
     the same bits).
     """
+    _refuse_grad("delta_spmm_segments", x_sorted)
     if values is not None:
         if _device_kind(x_sorted) != "cpu":
             raise ValueError(
@@ -237,7 +294,8 @@ def delta_spmm_experts(x: torch.Tensor, d: PackedDelta,
     not read at all. A zero row's correction is +0.0 in the kernel and its
     plain version, so ``counts`` leave every bit as the all-C layout gives
     it. The row tile is chosen from the longest segment, C rows, not from
-    the E * C rows of the buffer.
+    the E * C rows of the buffer. With grad mode on and ``x.requires_grad``
+    it is an autograd Function (:class:`_ExpertCorrection`).
     """
     E, C, h_in = x.shape
     if d.stack_shape() != (E,):
@@ -245,6 +303,37 @@ def delta_spmm_experts(x: torch.Tensor, d: PackedDelta,
                          f"equal ({E},), the experts of x {tuple(x.shape)}")
     if _device_kind(x) == "cuda":   # refuse outside the envelope under this name
         _out_of_envelope("delta_spmm_experts", d.index(0), x)
+    if _needs_grad(x):
+        return _ExpertCorrection.apply(x, d, counts)
+    return _delta_spmm_experts(x, d, counts)
+
+
+class _ExpertCorrection(torch.autograd.Function):
+    """:func:`delta_spmm_experts` with a gradient for ``x``: expert by
+    expert ``dx[e] = g[e] @ dequant(d[e])^T`` (:func:`dequant` refuses a
+    stacked leaf on the card), zero in the rows past ``counts[e]``, whose
+    output the forward zero-fills whatever x holds there."""
+
+    @staticmethod
+    def forward(ctx, x, d, counts):
+        ctx.d, ctx.counts, ctx.x_dtype = d, counts, x.dtype
+        return _delta_spmm_experts(x, d, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, counts = ctx.d, ctx.counts
+        g = g.to(torch.float32)
+        dx = torch.stack([g[e] @ dequant(d.index(e)).T for e in range(g.shape[0])])
+        if counts is not None:
+            live = torch.arange(g.shape[1], device=g.device)[None, :] < \
+                counts.to(g.device)[:, None]
+            dx = dx * live[..., None]
+        return dx.to(ctx.x_dtype), None, None
+
+
+def _delta_spmm_experts(x: torch.Tensor, d: PackedDelta,
+                        counts: torch.Tensor | None) -> torch.Tensor:
+    E, C, h_in = x.shape
     seg_rows, seg_offsets = expert_segments(E, C, counts, x.device)
     y = delta_spmm_segments(x.reshape(E * C, h_in), d, seg_rows, seg_offsets, max_rows=C)
     where = "torch" if _device_kind(x) == "cpu" else "cuda"
@@ -261,6 +350,7 @@ def delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     vmaps its per-matrix kernel over rows); on the CPU by the per-row
     gather formulation.
     """
+    _refuse_grad("delta_spmm_slots", x)
     B = x.shape[0]
     if d.stack_shape() != (B,):
         raise ValueError(
@@ -283,6 +373,7 @@ def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.
     """y = x @ (w + dequant(d)); reads x once (separate computation, fused).
     x [..., h_in], w [h_in, h_out] -> [..., h_out] f32 (inside the
     envelope)."""
+    _refuse_grad("fused_base_delta", x)
     if _out_of_envelope("fused_base_delta", d, x):
         dt = torch.promote_types(x.dtype, w.dtype)
         return (x.to(dt) @ w.to(dt)) + delta_spmm(x, d).to(w.dtype)

@@ -37,7 +37,8 @@ decode, SlotDelta leaves).
 
 Entry points
     init_params(cfg, seed, device=)                 -> params
-    forward(cfg, params, batch, deltas)             -> logits  [B,S,V]
+    forward(cfg, params, batch, deltas, remat)      -> logits  [B,S,V]
+    loss_fn(cfg, params, batch, deltas, remat)      -> (loss, {"loss", "tokens"})
     encode(cfg, params, feats, deltas)              -> memory  [B,S,d]
     init_cache(cfg, batch, max_seq, enc_len, device=) -> cache
     prefill(cfg, params, batch, cache, deltas)      -> (last logits, cache)
@@ -62,6 +63,7 @@ import math
 from typing import Any, Optional, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.core.apply import apply_linear, dget, dindex
@@ -490,13 +492,26 @@ def encode(cfg: ArchConfig, params, feats: torch.Tensor, deltas=None) -> torch.T
 # ---------------------------------------------------------------------------
 # Layer walk
 # ---------------------------------------------------------------------------
+def _remat(fn):
+    """``jax.checkpoint`` of the reference's ``_walk``: the block's
+    activations are recomputed in backward instead of kept."""
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return run
+
+
 def _walk(cfg: ArchConfig, params, x, positions, deltas=None, caches=None,
-          memory=None, decode_pos=None, chunk=False, chunk_valid=None):
+          memory=None, decode_pos=None, chunk=False, chunk_valid=None,
+          remat=False):
     """Python loop over the layers (train, prefill, chunk and decode
     paths). A layer's attention is row ``_attn_index`` of the attention
     stack, its MLP row ``_mlp_index`` of the mlp stack; a moe, ssm or rec
     layer's block is row ``j`` of its own kind's stack. The cross caches
-    sit after the ``n_layers`` self-layer entries."""
+    sit after the ``n_layers`` self-layer entries. ``remat`` (training,
+    no cache) checkpoints each self block as the reference's ``mr`` does
+    (``repro/models/lm.py:503-504``)."""
+    mr = _remat if remat else (lambda fn: fn)
     decode = decode_pos is not None
     cross_after = _cross_after(cfg)
     ci = cfg.n_layers
@@ -515,19 +530,27 @@ def _walk(cfg: ArchConfig, params, x, positions, deltas=None, caches=None,
             elif cache_l is not None:
                 x = _attn_block_prefill(cfg, p_a, d_a, x, positions, window, cache_l)
             else:
-                x = _attn_block_train(cfg, p_a, d_a, x, positions, window)
+                # bind the layer's window now: remat calls the block again
+                # in backward, after the loop has moved on
+                x = mr(lambda x, p, d, w=window: _attn_block_train(
+                    cfg, p, d, x, positions, w))(x, p_a, d_a)
         else:
             mod = ssm_mod.mamba_block if kind == "ssm" else rec_mod.rglru_block
-            out, new_st = mod(x, _slice(params[kind], j), dindex(dget(deltas, kind), j),
-                              cfg, state=cache_l, decode=decode)
-            x = x + out
-            if cache_l is not None:
+            p_s, d_s = _slice(params[kind], j), dindex(dget(deltas, kind), j)
+            if cache_l is None:
+                out = mr(lambda x, p, d, mod=mod: mod(x, p, d, cfg, state=None,
+                                                      decode=False)[0])(x, p_s, d_s)
+            else:
+                out, new_st = mod(x, p_s, d_s, cfg, state=cache_l, decode=decode)
                 _write_state(cache_l, new_st)
+            x = x + out
         if kind == "moe":
-            x = _moe_block(cfg, _slice(params["moe"], j), dindex(dget(deltas, "moe"), j), x)
+            x = mr(lambda x, p, d: _moe_block(cfg, p, d, x))(
+                x, _slice(params["moe"], j), dindex(dget(deltas, "moe"), j))
         elif kind in ("attn", "rec"):
             mi = _mlp_index(cfg, li)
-            x = _mlp_block(cfg, _slice(params["mlp"], mi), dindex(dget(deltas, "mlp"), mi), x)
+            x = mr(lambda x, p, d: _mlp_block(cfg, p, d, x))(
+                x, _slice(params["mlp"], mi), dindex(dget(deltas, "mlp"), mi))
 
         if li in cross_after:        # vlm: the gated cross block and its MLP
             p_c = _slice(params["cross"], cross_i)
@@ -581,15 +604,41 @@ def _memory(cfg, params, batch: dict, x: torch.Tensor, deltas):
     return None
 
 
-def forward(cfg: ArchConfig, params, batch: dict, deltas=None) -> torch.Tensor:
-    """Scoring forward: full-sequence causal logits [B,S,V]."""
+def forward(cfg: ArchConfig, params, batch: dict, deltas=None,
+            remat: bool = False) -> torch.Tensor:
+    """Training/scoring forward: full-sequence causal logits [B,S,V].
+    ``remat`` recomputes each block in backward (training)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h = _walk(cfg, params, x, positions, deltas=deltas,
-              memory=_memory(cfg, params, batch, x, deltas))
+              memory=_memory(cfg, params, batch, x, deltas), remat=remat)
     return unembed(cfg, params, h, deltas)
+
+
+def loss_fn(cfg: ArchConfig, params, batch: dict, deltas=None, remat: bool = False):
+    """Mean next-token cross-entropy (``repro/models/lm.py:679-692``):
+    default labels are the tokens shifted left with a 0 pad, the last
+    position masked; ``loss_mask`` weighs positions. -> (loss, {"loss",
+    "tokens"}), f32 scalars."""
+    logits = forward(cfg, params, batch, deltas, remat=remat)
+    labels = batch.get("labels")
+    mask = batch.get("loss_mask")
+    if labels is None:
+        tokens = batch["tokens"]
+        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1), value=0)
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+            mask[:, -1] = 0.0
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    mask = mask.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = (logz - ll) * mask
+    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss, {"loss": loss, "tokens": torch.sum(mask)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, enc_len: int = 0, *,

@@ -8,6 +8,7 @@ terminal.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Iterator
 
 import torch
@@ -20,6 +21,12 @@ def iter_leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
             yield from iter_leaves(v, f"{prefix}/{k}" if prefix else str(k))
     else:
         yield prefix, tree
+
+
+def flatten_with_paths(tree: Any) -> dict[str, Any]:
+    """Flatten a dict tree into {path: leaf} (``repro/utils/pytree.py:39``;
+    insertion order, where the reference sorts dict keys)."""
+    return dict(iter_leaves(tree))
 
 
 def map_with_paths(fn: Callable[..., Any], tree: Any, *rest: Any,
@@ -53,6 +60,18 @@ def tree_bytes(tree: Any) -> int:
             total += leaf.nbytes()
         else:
             total += tensor_bytes(leaf)
+    return total
+
+
+def tree_params(tree: Any) -> int:
+    """Total element count of all tensor leaves (``(shape, dtype)`` spec
+    leaves count their shape)."""
+    total = 0
+    for _, leaf in iter_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel()
+        elif isinstance(leaf, tuple) and leaf and isinstance(leaf[0], (tuple, torch.Size)):
+            total += math.prod(leaf[0])
     return total
 
 

@@ -923,3 +923,76 @@ def test_family_model_on_card_matches_cpu(cuda, name):
                      deltas=to(deltas))
     assert kern.LAUNCHES["delta_spmm"] > 0
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# gradients through the correction kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 256])   # the decode and the prefill route forward
+def test_correction_backward_matches_native_autograd(cuda, T):
+    """ops.delta_spmm under grad at a wizard site (wi 4096 x 11008, 128x
+    spec): the kernel forward and the dequant kernel's g @ D^T backward
+    against native autograd through the plain correction."""
+    d = _pack(4096, 11008, 16, 8, 4, 31, cuda)
+    x = _x(T, 4096, 32, cuda).requires_grad_()
+    gy = _x(T, 11008, 33, cuda)
+    kern.reset_launches()
+    y = ops.delta_spmm(x, d)
+    got, = torch.autograd.grad(y, x, gy)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["delta_spmm"] == 1 and kern.LAUNCHES["dequant"] == 1
+    x2 = x.detach().clone().requires_grad_()
+    y2 = fb.correction_nd(x2, d)
+    want, = torch.autograd.grad(y2, x2, gy)
+    torch.testing.assert_close(y, y2, **TOL)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+def test_expert_correction_backward_matches_native_autograd(cuda):
+    """ops.delta_spmm_experts under grad at a qwen3 expert stack (128
+    experts of 2048 x 768) with per-expert counts: each expert's live
+    rows get g @ D_e^T (dequantized expert by expert), the rows past its
+    count zero, as the forward zero-fills them."""
+    E, C = 128, 6
+    d = stack_tenant_deltas([{"w": _pack(2048, 768, 16, 8, 4, 40 + e, cuda)}
+                             for e in range(E)])["w"]
+    counts = torch.from_numpy(np.random.default_rng(5).integers(0, C + 1, E)).to(cuda)
+    live = (torch.arange(C, device=cuda)[None, :] < counts[:, None])[..., None]
+    x = (torch.randn(E, C, 2048, device=cuda) * live).requires_grad_()
+    gy = torch.randn(E, C, 768, device=cuda)
+    kern.reset_launches()
+    y = ops.delta_spmm_experts(x, d, counts)
+    got, = torch.autograd.grad(y, x, gy)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["delta_spmm_segments"] == 1 and kern.LAUNCHES["dequant"] == E
+    x2 = x.detach().clone().requires_grad_()
+    y2 = x2 @ reconstruct_dense(d)
+    want, = torch.autograd.grad(y2, x2, gy)
+    torch.testing.assert_close(y, y2 * live, **TOL)
+    torch.testing.assert_close(got, want * live, **TOL)
+    assert not got[~live.expand_as(got)].any()
+
+
+@pytest.mark.gpu
+def test_routes_without_backward_raise_under_grad(cuda):
+    """delta_spmm_segments, delta_spmm_slots and fused_base_delta have no
+    backward: under grad on the card they raise, naming the route; without
+    grad they run."""
+    tenants = [_pack(256, 128, 16, 8, 4, 50 + t, cuda) for t in range(2)]
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    x = _x(4, 256, 51, cuda).requires_grad_()
+    rows = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    offs = torch.tensor([0, 2, 4], dtype=torch.int32, device=cuda)
+    w = _x(256, 128, 52, cuda)
+    calls = {
+        "delta_spmm_segments": lambda: ops.delta_spmm_segments(x, stack, rows, offs),
+        "delta_spmm_slots": lambda: ops.delta_spmm_slots(x[:2, None], stack),
+        "fused_base_delta": lambda: ops.fused_base_delta(x, w, tenants[0]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: this CUDA route has no backward"):
+            call()
+        with torch.no_grad():
+            assert call().grad_fn is None
