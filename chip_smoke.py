@@ -34,13 +34,15 @@ phi3-medium-14b at full depth, each
 with 3 tenants, both correction kernels at its site new to them, and the
 engine, mixed == alone; gemma3's prompts wrap its 512-token rings, whole
 and chunked) and, last, the MoE family
-(``[moe]``: qwen3-moe-30b-a3b at full width and depth with 2 tenants, the
-expert-stacked route onto the segments kernel against its plain version
-and ``torch.bmm``, a tenant's logits against the plain expert correction,
-``Engine.generate`` and ``serve_batch``'s grouped fallback, the
-continuous engine with attention-only tenants, mixed == alone) and the
-remaining families (``[families]``: mamba2-370m, recurrentgemma-9b,
-seamless-m4t-medium and llama-3.2-vision-11b at full width and depth with
+(``[moe]``: qwen3-moe-30b-a3b at full width and 36 of its 48 layers,
+then llama4-scout-17b-a16e at full width and 8 of its 48 layers, 2
+tenants each, the expert-stacked route onto the segments kernel against
+its plain version and ``torch.bmm``, a tenant's logits against the plain
+expert correction, ``Engine.generate`` and ``serve_batch``'s grouped
+fallback, the continuous engine without the routed experts' deltas,
+mixed == alone) and the remaining families (``[families]``: mamba2-370m,
+recurrentgemma-9b, seamless-m4t-medium and llama-3.2-vision-11b at full
+width, at the depths ``ARCH_DEPTH`` sets, with
 3 tenants each, the correction kernels at their new sites, a tenant's
 logits against the plain correction; the recurrent configs through the
 continuous engine whole-prompt and chunked, mixed == alone and against
@@ -75,16 +77,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 ARCH = "wizard-llama2-7b"     # served at its full published width
 SRC = os.path.join(HERE, "src")
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s without
-# tensor cores — the correction kernels multiply and add in f32 on CUDA
-# cores, in a fixed order that tensor cores cannot keep — and dense TF32
-# tensor-core FLOP/s, the fused kernel's unit (3xTF32: three tf32
-# products per f32 product, so the kernel can reach at most ~1/3 of it;
-# the bound counts the function's 2*T*h_in*O operations once)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
 
 # full-width wizard-llama2-7b sites (h_in, h_out) and the 128x packing
 SITES = {"wq": (4096, 4096), "wi": (4096, 11008), "mlp_wo": (11008, 4096)}
@@ -162,15 +154,25 @@ GROUPSEARCH_REL_TOL = 1e-4
 # wk (1152 x 256), gemma-7b's MLP wo (h_in 24576), phi3's wi (5120 x 17920)
 ARCH_SITES = {"gemma3-1b": ("attn", "wk"), "gemma-7b": ("mlp", "wo"),
               "phi3-medium-14b": ("mlp", "wi")}
-# depth cut (ROADMAP's cut order, first in line): gemma3-1b runs one
-# period of its 5:1 local:global pattern, 6 of its 26 layers, since the
-# script with [train] measured 1062.4 s on an H100 (PERF.md §6); its
-# width, windows and prompt stream are unchanged
-ARCH_DEPTH = {"gemma3-1b": 6}
+# depth cuts (ROADMAP's cut order), widths, windows and streams unchanged:
+# gemma3-1b runs one period of its 5:1 local:global pattern, 6 of its 26
+# layers, since the script with [train] measured 1062.4 s on an H100
+# (PERF.md §6); to pay for llama4-scout in [moe], [families] runs
+# mamba2-370m at 12 of its 48 SSD layers, recurrentgemma-9b at two periods
+# of its 2 RG-LRU : 1 attention pattern (6 of 38 layers; its gate stacks
+# are then [4, 4096], not compressible, so no leaf is left out of its
+# tenants) and llama-3.2-vision-11b at 10 of its 40 self layers, which
+# hold two of its gated cross blocks, and, next in the order after a
+# measured 1006.6 s with [families] cut alone, qwen3-moe-30b-a3b runs 36
+# of its 48 layers; llama4-scout-17b-a16e (215.5 GB in bf16) runs 8 of 48
+ARCH_DEPTH = {"gemma3-1b": 6, "mamba2-370m": 12, "recurrentgemma-9b": 6,
+              "llama-3.2-vision-11b": 10, "qwen3-moe-30b-a3b": 36,
+              "llama4-scout-17b-a16e": 8}
 # gemma3-1b's stream: prompts longer than its 512-token local window
 WINDOW_REQUESTS, WINDOW_MIN, WINDOW_MAX, WINDOW_SEED, WINDOW_CHUNK = 12, 520, 900, 17, 64
-# [moe]: qwen3-moe-30b-a3b at its published width and full depth with 2
-# tenants at 128x (a third does not fit beside the 62.3 GB base). The
+# [moe]: qwen3-moe-30b-a3b at its published width (36 of its 48 layers,
+# ARCH_DEPTH) with 2 tenants at 128x (at full depth a third did not fit
+# beside the 62.3 GB base). The
 # expert route is checked and timed at (routed tokens T, capacity C) in
 # MOE_CASES: C = 1 at T = 2 (Engine.generate's B=2 decode) and T = 8,
 # C = 10 at T = 128 (a 128-token prefill), all three at cf 1.25, and
@@ -181,7 +183,10 @@ WINDOW_REQUESTS, WINDOW_MIN, WINDOW_MAX, WINDOW_SEED, WINDOW_CHUNK = 12, 520, 90
 # alone token for token (the reference's cf 8.0 gives C = 2T at its smoke
 # size, C = T / 2 here); one more pass at cf 8.0 counts the requests
 # whose tokens change with the batch they were routed in.
-MOE_ARCH, MOE_TENANTS = "qwen3-moe-30b-a3b", 2
+# llama4-scout-17b-a16e ([hf:meta-llama/Llama-4-Scout-17B-16E]: 16 experts
+# top-1 and a shared expert, d_model 5120, GQA 40/8) runs the same checks
+# after qwen3's objects are freed, at full width and ARCH_DEPTH's 8 layers
+MOE_ARCHS, MOE_TENANTS = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"), 2
 MOE_CASES = ((2, 1), (8, 1), (128, 10), (128, 64))
 MOE_CF_DROPS = 8.0
 MOE_RING = 8
@@ -189,8 +194,10 @@ MOE_SITES = ("wi", "wg", "wo")
 # first-token logits of a tenant through the kernels against the same
 # tenant with the plain expert correction (dense reconstruction and a
 # batched product, the reference's formulation): summation order only,
-# through 48 routed layers. An H100 read 6.3e-7 of max|logit|; the bound
-# is 16x that, and a control with one expert's correction zeroed
+# through qwen3's 36 routed layers. An H100 read 6.3e-7 of max|logit|
+# through all 48 (6.15e-7 through 24; 2.5e-6 through llama4-scout's 8); the
+# bound is 16x the first, and a control with
+# one expert's correction zeroed
 # (MOE_CONTROL_EXPERT, in every layer) must exceed it
 MOE_LOGIT_REL_TOL = 1e-5
 MOE_CONTROL_EXPERT = 0
@@ -245,6 +252,9 @@ TRAIN_B, TRAIN_S = 8, 128
 TRAIN_SITES = {"wq": (2048, 2048), "wk": (2048, 512), "wi": (2048, 8192)}
 TRAIN_GRAD_REL_TOL = 2.0 ** -6
 TRAIN_CONTROL = ("mlp", "wi")
+# the segments and fused routes' backward at the wi site: two sequences'
+# rows (the plain segments version holds [T, G, K, O] per-row copies)
+TRAIN_ROUTE_T = 2 * TRAIN_S
 # the lifecycle's gates: tests/test_system.py:92-96
 SFT_FT_MIN, SFT_BASE_MAX, SFT_TENANT_SHARE = 0.85, 0.6, 0.8
 # crash-restart (tests/test_checkpoint.py:25-46) at the smoke config
@@ -310,15 +320,40 @@ def time_ms(torch, fns, iters: int = 20, reps: int = 5, eager: bool = False) -> 
     return statistics.median(per)
 
 
-def packed_bytes(d) -> int:
-    return sum(t.numel() * t.element_size() for t in (d.idx, d.codes, d.scale, d.zero))
+def _at_depth(cfg):
+    """``cfg`` cut to ARCH_DEPTH's layers (the first n, with their kinds
+    and windows), or as it is."""
+    n = ARCH_DEPTH.get(cfg.name)
+    if n is None:
+        return cfg
+    return cfg.replace(n_layers=n, layer_kinds=cfg.layer_kinds[:n],
+                       layer_windows=cfg.layer_windows[:n])
 
 
-def bound_ms(x_bytes: int, delta_bytes: int, y_bytes: int, flops: float,
-             flop_per_s: float = F32_FLOP_PER_S) -> tuple:
-    t_bytes = (x_bytes + delta_bytes + y_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _dryrun_bytes(tag: str, cfg, base, fleet, spec, dropped=()) -> dict:
+    """The dry run's predicted params and tenant bytes
+    (``launch/dryrun.py``'s specs on the ``meta`` device) beside the built
+    trees' bytes; a mismatch fails. ``dropped``: leaves left out of the
+    tenants (None in their trees)."""
+    from repro_torch.core.compress import delta_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.utils import materialize, tree_bytes
+
+    def prune(tree, prefix=""):
+        return {k: prune(v, f"{prefix}{k}/") if isinstance(v, dict) else v
+                for k, v in tree.items() if f"{prefix}{k}" not in dropped}
+
+    p_specs = dryrun.param_specs(cfg)
+    want = {"params": tree_bytes(materialize(p_specs)),
+            "tenant": tree_bytes(materialize(delta_specs(prune(p_specs), spec)))}
+    got = {"params": tree_bytes(base), "tenants": [tree_bytes(d) for _, d, _ in fleet]}
+    log(f"[dryrun] {tag} {cfg.name} ({cfg.n_layers} layers): params predicted "
+        f"{want['params']} B, built {got['params']} B; a tenant predicted "
+        f"{want['tenant']} B, built {got['tenants']} B")
+    if got["params"] != want["params"] or any(t != want["tenant"] for t in got["tenants"]):
+        fail(f"[dryrun] {tag} {cfg.name}: the dry run's bytes {want} differ from the built "
+             f"trees' {got}")
+    return {"predicted": want, "built": got}
 
 
 # ---------------------------------------------------------------------------
@@ -619,8 +654,8 @@ def _time_spmm(torch, ops, fb, ring, dense, gen, site, T, route, full=True) -> d
         plain = time_ms(torch, [lambda d=d: fb.correction(x, d) for d in ring], iters=8,
                         reps=3, eager=True)
         lib = time_ms(torch, [lambda w=w: torch.matmul(x, w) for w in dense])
-    b_ms, b_by = bound_ms(T * h_in * 4, packed_bytes(ring[0]), T * h_out * 4,
-                          2.0 * T * ring[0].nnz)
+    from repro_torch.roofline import analysis as rl
+    b_ms, b_by = rl.bound_ms(*rl.delta_spmm_work(T, ring[0]))
     from repro_torch.kernels import delta_spmm as kern
     route_tb = ops.spmm_row_tile(T, ring[0])
     t = {"kernel": "delta_spmm", "site": site, "h_in": h_in, "h_out": h_out, "T": T,
@@ -683,8 +718,8 @@ def _time_segments(torch, ops, fb, ring, gen, site, layout, T, full=True) -> dic
             lib = _bmm_library_ms(torch, xs, stacks[0], rows.tolist(),
                                   ops.delta_spmm_segments(xs, stacks[0], seg_rows,
                                                           seg_offsets))
-    b_ms, b_by = bound_ms(T * h_in * 4, n_deltas * packed_bytes(ring[0]), T * h_out * 4,
-                          2.0 * T * ring[0].nnz)
+    from repro_torch.roofline import analysis as rl
+    b_ms, b_by = rl.bound_ms(*rl.segments_work(T, ring[0], n_deltas))
     t = {"kernel": "delta_spmm_segments", "layout": layout, "site": site, "h_in": h_in,
          "h_out": h_out, "T": T, "codec": ring[0].codec, "ms": ms, "plain_ms": plain, "library_ms": lib,
          "bound_ms": b_ms, "bound_by": b_by}
@@ -725,7 +760,7 @@ def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
     from repro_torch.kernels import fallback as fb
     from repro_torch.kernels import ops
 
-    nnz, dbytes = ring[0].nnz, packed_bytes(ring[0])
+    from repro_torch.roofline import analysis as rl
     out = []
     # dequant: no single PyTorch call decodes the packed codes. Partial
     # yardstick, the write half only: zero fill + one scatter_ of values
@@ -742,7 +777,7 @@ def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
     plain = time_ms(torch, [lambda d=d: fb.dequant(d) for d in ring], iters=8, reps=3,
                     eager=True)
     part = time_ms(torch, [lambda p=p: scatter(*p) for p in pre])
-    b_ms, b_by = bound_ms(0, dbytes, h_in * h_out * 4, 2.0 * nnz)
+    b_ms, b_by = rl.bound_ms(*rl.dequant_work(ring[0]))
     out.append({"kernel": "dequant", "site": site, "h_in": h_in, "h_out": h_out,
                 "T": None, "ms": ms, "plain_ms": plain, "library_ms": None,
                 "library_note": DEQUANT_LIBRARY_NOTE, "scatter_partial_ms": part,
@@ -769,8 +804,7 @@ def _time_merge_kernels(torch, ring, dense, gen, site, h_in, h_out) -> list:
         lib = time_ms(torch, [lambda m=m: torch.matmul(x, m) for _, _, m in case])
         unfused = time_ms(torch, [lambda w=w, d=d: apply_linear(x, w, d)
                                   for w, d, _ in case])
-        b_ms, b_by = bound_ms(T * h_in * 4, h_in * h_out * 2 + dbytes, T * h_out * 4,
-                              2.0 * T * h_in * h_out, TF32_FLOP_PER_S)
+        b_ms, b_by = rl.bound_ms(*rl.fused_base_delta_work(T, ring[0], ws[0].element_size()))
         out.append({"kernel": "fused_base_delta", "site": site, "h_in": h_in,
                     "h_out": h_out, "T": T, "ms": ms, "plain_ms": plain,
                     "library_ms": lib, "apply_linear_ms": unfused, "bound_ms": b_ms,
@@ -831,6 +865,7 @@ def phase_main_path(torch, kern, report: dict) -> dict:
             f"{rep.summary()}")
     log(f"[main] synthesized + compressed 3 tenants in "
         f"{time.perf_counter() - t0:.1f} s")
+    report["dryrun"] = {"main": _dryrun_bytes("[main]", cfg, base, fleet, RATIO_SPECS[128])}
 
     eng = Engine(cfg, base, max_seq=96)
     for name, deltas, rep in fleet:
@@ -1183,10 +1218,17 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
     if launches != want or routes != want_routes:
         fail(f"[engine] launches {launches} routes {routes}, expected {want} {want_routes}")
 
-    # each tenant's requests, and the base's, alone through the same engine
+    # each tenant's requests, and the base's, alone through the same engine,
+    # warm from the mixed run: under a strict CompileGuard no entry may meet
+    # a new signature, and a retrace raises where it happens
+    from repro_torch.analysis import CompileGuard
+    guard = CompileGuard(ce, strict=True, label="engine",
+                         max_new={k: 0 for k in ("decode", "prefill")}).attach()
     alone_bad, alone_wall = [], {}
     for name in (None, "tenant0", "tenant1", "tenant2"):
+        guard.detach()              # reset_metrics rebuilds the event bus
         ce.reset_metrics()
+        guard.attach()
         idx = [i for i, (t, _, _) in enumerate(stream) if t == name]
         run = _engine_run(torch, kern, ce, stream, idx, f"alone {name or 'base'}")
         alone_wall[str(name)] = run["wall_s"]
@@ -1194,6 +1236,10 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
             j = _first_mismatch(run["tokens"][i], mixed["tokens"][i])
             if j is not None:
                 alone_bad.append({"request": i, "tenant": name, "step": j})
+    guard.detach()
+    guard_report = guard.check()
+    log(f"[engine] CompileGuard (strict, after the mixed run's warm-up), entries' "
+        f"signatures: {guard_report}; retraces {len(guard.retraces)}")
     log(f"[engine] mixed == alone, token for token: "
         f"{len(stream) - len(alone_bad)}/{len(stream)} requests"
         + (f"; differ: {alone_bad}" if alone_bad else ""))
@@ -1317,6 +1363,7 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
         "memory": mem,
         "mixed": {**summary(mixed), "report": rep},
         "alone_wall_s": alone_wall, "alone_mismatches": alone_bad,
+        "compile_guard": guard_report,
         "generate": {"wall_s": gen_wall, "full_match": gen_full, "rows": gen_rows},
         "chunked": {**summary(chunked), "report": crep, "segment_rows": got_c,
                     "full_match_b1_chunked": chunk_full, "full_match_whole": whole_full,
@@ -1670,7 +1717,8 @@ def phase_lifecycle(torch, kern, ctx: dict, report: dict) -> dict:
     evicted to the warm tier and promoted back by a request. Every
     request must equal an engine built up front with the tenant version
     that served it; no re-stack and no decode-step jit_trace after
-    warm-up. Then ms per row write against one dynamic re-stack."""
+    warm-up, under a strict CompileGuard. Then ms per row write against
+    one dynamic re-stack."""
     from repro_torch.core.compress import compress
     from repro_torch.launch.serve import RATIO_SPECS, synth_ft
     from repro_torch.serve import ContinuousEngine, DeltaRegistry, VirtualClock
@@ -1704,7 +1752,12 @@ def phase_lifecycle(torch, kern, ctx: dict, report: dict) -> dict:
                "tenant0" if i in by["tenant0"] else None)
     for _ in range(2):
         eng.step(eng._now())                    # warm-up: decode in flight
-    traces0, restacks0 = eng.decode_traces, eng.restacks
+    # from here the decode step must meet no new signature (a retrace in
+    # the reference): strict, so one raises at the call that made it
+    from repro_torch.analysis import CompileGuard
+    guard = CompileGuard(eng, max_new={"decode": 0}, strict=True,
+                         label="lifecycle").attach()
+    restacks0 = eng.restacks
     ft1 = synth_ft(base, 8)                     # tenant1 as a fine-tuned model
     rec1 = reg.ingest("tenant1", ft1)
     del ft1
@@ -1735,7 +1788,9 @@ def phase_lifecycle(torch, kern, ctx: dict, report: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kern.LAUNCHES)
-    retraces, restacks = eng.decode_traces - traces0, eng.restacks - restacks0
+    guard.detach()
+    guard_report = guard.check()
+    retraces, restacks = guard.new_compiles("decode"), eng.restacks - restacks0
     rep = eng.metrics.report()
     log(f"[lifecycle] {len(served)} requests, {rep['total_tokens']} tokens in {wall:.2f} s "
         f"wall; tenant1 ingested as a model, compressed on the card in "
@@ -1743,8 +1798,9 @@ def phase_lifecycle(torch, kern, ctx: dict, report: dict) -> dict:
         f"{ {n: round(1e3 * r.register_s, 2) for n, r in reg._records.items()} }; rollout "
         f"left rows {retiring} draining; tenant2 evicted to {evicted} and promoted; "
         f"events {rep['tenant_lifecycle']}; launches {launches}")
-    log(f"[lifecycle] after warm-up: {retraces} decode-step jit_trace events, {restacks} "
-        f"re-stacks; table rows free {eng._table.n_free}/{LIFECYCLE_CAPACITY}")
+    log(f"[lifecycle] after warm-up: {retraces} new decode signatures, {restacks} "
+        f"re-stacks; table rows free {eng._table.n_free}/{LIFECYCLE_CAPACITY}; "
+        f"CompileGuard (strict) {guard_report}, retraces {len(guard.retraces)}")
     if retraces or restacks:
         fail(f"[lifecycle] {retraces} jit_trace events and {restacks} re-stacks after warm-up")
     if any(r.state == "failed" for r in reg._records.values()):
@@ -1804,6 +1860,7 @@ def phase_lifecycle(torch, kern, ctx: dict, report: dict) -> dict:
     report["lifecycle"] = {"wall_s": wall, "requests": len(served),
                            "tokens": rep["total_tokens"], "events": rep["tenant_lifecycle"],
                            "launches": launches, "decode_traces_after_warmup": retraces,
+                           "compile_guard": guard_report,
                            "restacks_after_warmup": restacks,
                            "tenant1_compress_s": rec1.compress_s, "v2_compress_s": t_v2,
                            "register_ms": register_ms,
@@ -1972,6 +2029,7 @@ def _storage_roundtrip(torch, d):
     card: (storage bits of its parts, packed bytes), or None where a
     reloaded array differs from the packing's."""
     from repro_torch.core.pack import from_storage_parts, to_storage_parts
+    from repro_torch.roofline.analysis import packed_bytes
     parts = to_storage_parts(d)
     d2 = from_storage_parts(parts, h_in=d.h_in, h_out=d.h_out, h_g=d.h_g, keep=d.keep,
                             alpha=d.alpha, k_bits=d.k_bits, scale=d.scale, zero=d.zero,
@@ -2336,14 +2394,11 @@ def phase_archs(torch, kern, report: dict) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t_arch = time.perf_counter()
-        cfg = get_config(arch)
-        if arch in ARCH_DEPTH:
-            n = ARCH_DEPTH[arch]
-            cfg = cfg.replace(n_layers=n, layer_kinds=cfg.layer_kinds[:n],
-                              layer_windows=cfg.layer_windows[:n])
+        cfg = _at_depth(get_config(arch))
         base = lm.init_params(cfg, 0, device=DEVICE)
         fleet = synth_tenants(cfg, base, 3, RATIO_SPECS[128], seed=0)
         torch.cuda.synchronize()
+        report["dryrun"][arch] = _dryrun_bytes("[archs]", cfg, base, fleet, RATIO_SPECS[128])
         t_init = time.perf_counter() - t_arch
         mem = {"params_gb": tree_bytes(base) / 1e9,
                "tenants_gb": sum(tree_bytes(d) for _, d, _ in fleet) / 1e9}
@@ -2423,6 +2478,7 @@ def _moe_kernels(torch, ops, fb, cfg, fleet, gen) -> tuple:
     dense f32 expert stack, beside the layout ops.expert_counts_pay takes
     for that T and C. -> (rows, worst error)."""
     from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.roofline import analysis as rl
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     rows, worst = [], 0.0
     for site in MOE_SITES:
@@ -2431,7 +2487,6 @@ def _moe_kernels(torch, ops, fb, cfg, fleet, gen) -> tuple:
                 for i in range(MOE_RING)]
         d0 = ring[0]
         h_in, h_out = d0.h_in, d0.h_out
-        per_expert = packed_bytes(d0.index(0))
         for T, C in MOE_CASES:
             x = torch.randn((E, C, h_in), generator=gen, device=DEVICE)
             seg_rows, offs = ops.expert_segments(E, C, None, DEVICE)
@@ -2474,18 +2529,17 @@ def _moe_kernels(torch, ops, fb, cfg, fleet, gen) -> tuple:
             lib = time_ms(torch, [lambda: torch.bmm(xr, dense)])
             del dense, lib_y
             torch.cuda.empty_cache()
-            b_ms, b_by = bound_ms(live * h_in * 4, read * per_expert, E * C * h_out * 4,
-                                  2.0 * live * d0.index(0).nnz)
+            b_ms, b_by = rl.bound_ms(*rl.experts_work(d0.index(0), live, read, E, C))
             t = {"kernel": "delta_spmm_segments", "layout": "experts", "site": f"moe/{site}",
                  "h_in": h_in, "h_out": h_out, "T": E * C, "C": C, "E": E,
                  "routed_tokens": T, "live_rows": live, "experts_read": read,
                  "tb": ops.row_tile(C), "ops_layout": takes, "ms": ms,
                  "counts_ms": counts_ms, "all_c_ms": full_ms, "plain_ms": plain,
                  "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                 "all_experts_bound_ms": bound_ms(E * C * h_in * 4, E * per_expert,
-                                                  E * C * h_out * 4,
-                                                  2.0 * E * C * d0.index(0).nnz)[0]}
-            log(f"[moe] delta_spmm_experts moe/{site} ({h_in} x {h_out}) T={T:3d} C={C:2d} "
+                 "all_experts_bound_ms": rl.bound_ms(*rl.experts_work(
+                     d0.index(0), E * C, E, E, C))[0]}
+            log(f"[moe] {cfg.name} delta_spmm_experts moe/{site} ({h_in} x {h_out}) T={T:3d} "
+                f"C={C:2d} "
                 f"({live} live rows, {read} of {E} experts read): counts layout "
                 f"{counts_ms:.4f} ms, all {E * C} rows {full_ms:.4f} ms, ops takes {takes} "
                 f"(T*K/(E*C) = {T * K / (E * C):.3f}); plain {plain:.4f} ms, library "
@@ -2498,11 +2552,11 @@ def _moe_kernels(torch, ops, fb, cfg, fleet, gen) -> tuple:
 
 
 def _moe_attention_times(torch, ops, fb, cfg, fleet, gen) -> list:
-    """delta_spmm at qwen3's widest attention sites, wq (2048 x 4096) and
-    wo (4096 x 2048), at the shapes Engine.generate gives it (T=2 decode,
-    T=128 prefill): held to the plain version, timed on a ring of
-    MOE_RING layer slices against its bound and torch.matmul on the dense
-    delta."""
+    """delta_spmm at the config's attention sites wq and wo (qwen3: 2048 x
+    4096 and 4096 x 2048; llama4-scout: 5120 x 5120 both), at the shapes
+    Engine.generate gives it (T=2 decode, T=128 prefill): held to the
+    plain version, timed on a ring of MOE_RING layer slices against its
+    bound and torch.matmul on the dense delta."""
     from repro_torch.core.pack import reconstruct_dense
     out = []
     for site in ("wq", "wo"):
@@ -2518,11 +2572,18 @@ def _moe_attention_times(torch, ops, fb, cfg, fleet, gen) -> list:
         dense = [reconstruct_dense(d) for d in ring]
         for T in (2, 128):
             t = _time_spmm(torch, ops, fb, ring, dense, gen, f"attn/{site}", T, None)
-            t["arch"] = MOE_ARCH
+            t["arch"] = cfg.name
             out.append(t)
         del dense, ring
     torch.cuda.empty_cache()
     return out
+
+
+def _moe_dense_sites(cfg) -> int:
+    """delta_spmm sites of a MoE layer: attention's four and, with a
+    shared expert, its GLU's three (the routed experts take the expert
+    route)."""
+    return 4 + (3 if cfg.moe.shared_expert else 0)
 
 
 def _expert_notes_ok(notes: list, where: str) -> int:
@@ -2581,7 +2642,8 @@ def _moe_logits(torch, lm, ops, cfg, base, deltas) -> dict:
     err = (got - want).abs().max().item()
     ctl = (runs["control"] - want).abs().max().item()
     gap = (want - base_lg).abs().max().item()
-    log(f"[moe] tenant0 first-token logits, kernels vs the plain expert correction: "
+    log(f"[moe] {cfg.name} tenant0 first-token logits, kernels vs the plain expert "
+        f"correction: "
         f"max|diff| {err:.4e}, max|logit| {scale:.3e} (rel {err / scale:.3e}, bound "
         f"{MOE_LOGIT_REL_TOL}); control with expert {MOE_CONTROL_EXPERT}'s correction "
         f"zeroed: max|diff| {ctl:.4e} (rel {ctl / scale:.3e}, must exceed the bound); "
@@ -2624,17 +2686,17 @@ def _moe_grouped(torch, kern, cfg, base, fleet) -> dict:
                 fail(f"[moe] generate {name}: shape {outputs[name].shape} or non-finite")
     launches, routes = dict(kern.LAUNCHES), dict(kern.ROUTES)
     n_notes = _expert_notes_ok(notes, "Engine.generate")
-    n_t = len(fleet)
-    want = {"delta_spmm": n_t * NEW * 4 * L, "delta_spmm_segments": n_t * NEW * 3 * L,
+    n_t, dense = len(fleet), _moe_dense_sites(cfg)
+    want = {"delta_spmm": n_t * NEW * dense * L, "delta_spmm_segments": n_t * NEW * 3 * L,
             "fused_base_delta": 0, "dequant": 0}
-    want_routes = {"delta_spmm_prefill": n_t * 4 * L,
-                   "delta_spmm_decode": n_t * (NEW - 1) * 4 * L}
-    log(f"[moe] Engine.generate base + {n_t} tenants, B={B} S={S} new={NEW}, cf "
+    want_routes = {"delta_spmm_prefill": n_t * dense * L,
+                   "delta_spmm_decode": n_t * (NEW - 1) * dense * L}
+    log(f"[moe] {cfg.name} Engine.generate base + {n_t} tenants, B={B} S={S} new={NEW}, cf "
         f"{cfg.moe.capacity_factor}: {sum(walls.values()):.2f} s ({walls}); "
         f"{B * NEW / walls[str(names[1])]:.1f} tokens per wall s a tenant; launches "
-        f"{launches}, routes {routes} (expected {want}, {want_routes}: 4 attention sites "
-        f"and 3 expert sites x {L} layers x {NEW} calls x {n_t} tenants); expert sites "
-        f"noted {n_notes} distinct calls, all experts-cuda")
+        f"{launches}, routes {routes} (expected {want}, {want_routes}: {dense} attention "
+        f"and shared-expert sites and 3 expert sites x {L} layers x {NEW} calls x {n_t} "
+        f"tenants); expert sites noted {n_notes} distinct calls, all experts-cuda")
     if launches != want or routes != want_routes:
         fail(f"[moe] generate launches {launches} routes {routes}, expected {want} "
              f"{want_routes}")
@@ -2681,17 +2743,18 @@ def _moe_grouped(torch, kern, cfg, base, fleet) -> dict:
 def _moe_stream_run(torch, kern, cfg, base, fleet, stream, cf: float) -> tuple:
     """ContinuousEngine(n_slots=8, max_seq=256) at capacity factor ``cf``
     on ``stream`` (launch counts and the envelope checked), each tenant
-    with its moe subtree pruned; then each tenant's requests alone
-    through the same engine. -> (the mixed run, the requests whose
-    tokens differ from serving alone)."""
+    with its routed experts' deltas left out (a shared expert's stay: its
+    sites are dense sites); then each tenant's requests alone through the
+    same engine. -> (the mixed run, the requests whose tokens differ from
+    serving alone)."""
     from repro_torch.serve import ContinuousEngine, VirtualClock
     ccfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
     names = [None] + [n for n, _, _ in fleet]
-    sites = 4 * cfg.n_layers
+    sites = _moe_dense_sites(cfg) * cfg.n_layers
     ce = ContinuousEngine(ccfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
                           clock=VirtualClock(tick=ENGINE_TICK))
     for name, d, rep in fleet:
-        ce.register_tenant(name, dict(d, moe=None), rep)
+        ce.register_tenant(name, dict(d, moe=dict(d["moe"], wi=None, wg=None, wo=None)), rep)
     mixed = _engine_run(torch, kern, ce, stream, list(range(len(stream))),
                         f"[moe] mixed, cf {cf}")
     want = {"delta_spmm": sites * len(stream),
@@ -2719,10 +2782,10 @@ def _moe_stream_run(torch, kern, cfg, base, fleet, stream, cf: float) -> tuple:
 
 def _moe_continuous(torch, kern, cfg, base, fleet) -> dict:
     """The continuous engine on the [engine] stream's prompts round-robin
-    over {base, tenants} (attention deltas only: slot dispatch refuses
-    expert deltas) at cf = E / K, where mixed must equal each tenant
-    alone token for token; then at MOE_CF_DROPS, where capacity drops
-    depend on the batch, the requests that differ are counted."""
+    over {base, tenants} (no routed experts' deltas: slot dispatch refuses
+    them) at cf = E / K, where mixed must equal each tenant alone token
+    for token; then at MOE_CF_DROPS, where capacity drops depend on the
+    batch, the requests that differ are counted."""
     names = [None] + [n for n, _, _ in fleet]
     stream = _engine_stream(cfg, tuple(names))
     cf = cfg.moe.n_experts / cfg.moe.top_k
@@ -2748,13 +2811,14 @@ def _moe_continuous(torch, kern, cfg, base, fleet) -> dict:
                                                "requests": len(stream), "differ": differ}}
 
 
-def phase_moe(torch, kern, report: dict) -> dict:
-    """qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts
-    top-8), random init from seed 0, MOE_TENANTS tenants at 128x
-    compressed on the card one matrix at a time: the expert route's
-    kernels, a tenant's logits against the plain expert correction,
-    grouped serving (Engine.generate, serve_batch's fallback) and the
-    continuous engine with attention-only tenants. -> launches by path."""
+def _moe_config(torch, kern, arch: str, report: dict) -> dict:
+    """One MoE config at full width and ARCH_DEPTH's depth, random init
+    from seed 0, MOE_TENANTS tenants at 128x compressed on the card one
+    matrix at a time: the dry run's bytes, the expert route's kernels, the
+    attention sites, a tenant's logits against the plain expert
+    correction, grouped serving (Engine.generate, serve_batch's fallback)
+    and the continuous engine without the routed experts' deltas. The
+    config's objects are freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import fallback as fb
     from repro_torch.kernels import ops
@@ -2766,7 +2830,7 @@ def phase_moe(torch, kern, report: dict) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    cfg = get_config(MOE_ARCH)
+    cfg = _at_depth(get_config(arch))
     m = cfg.moe
     base = lm.init_params(cfg, 0, device=DEVICE)
     torch.cuda.synchronize()
@@ -2779,14 +2843,16 @@ def phase_moe(torch, kern, report: dict) -> dict:
            "tenant_gb": [tree_bytes(d) / 1e9 for _, d, _ in fleet],
            "after_init_gb": torch.cuda.memory_allocated() / 1e9}
     log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, GQA "
-        f"{cfg.n_heads}/{cfg.n_kv}, {m.n_experts} experts top-{m.top_k}, d_expert "
-        f"{m.d_expert}, vocab {cfg.vocab}; {mem['params_gb']:.2f} GB params, init "
-        f"{t_init:.1f} s; {MOE_TENANTS} tenants {[round(g, 3) for g in mem['tenant_gb']]} "
-        f"GB packed ({fleet[0][2].summary()}), synthesized and compressed in "
-        f"{t_comp:.1f} s; {mem['after_init_gb']:.2f} GB allocated")
+        f"{cfg.n_heads}/{cfg.n_kv}, {m.n_experts} experts top-{m.top_k}"
+        f"{' + a shared expert' if m.shared_expert else ''}, d_expert {m.d_expert}, vocab "
+        f"{cfg.vocab}; {mem['params_gb']:.2f} GB params, init {t_init:.1f} s; {MOE_TENANTS} "
+        f"tenants {[round(g, 3) for g in mem['tenant_gb']]} GB packed "
+        f"({fleet[0][2].summary()}), synthesized and compressed in {t_comp:.1f} s; "
+        f"{mem['after_init_gb']:.2f} GB allocated")
+    report["dryrun"][arch] = _dryrun_bytes("[moe]", cfg, base, fleet, RATIO_SPECS[128])
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(18)
-    out = {"init_s": t_init, "compress_s": t_comp}
+    out = {"n_layers": cfg.n_layers, "init_s": t_init, "compress_s": t_comp}
     out["kernels"], worst = _moe_kernels(torch, ops, fb, cfg, fleet, gen)
     out["attention_times"] = _moe_attention_times(torch, ops, fb, cfg, fleet, gen)
     out["logits"] = _moe_logits(torch, lm, ops, cfg, base, fleet[0][1])
@@ -2796,16 +2862,28 @@ def phase_moe(torch, kern, report: dict) -> dict:
     out["memory"] = mem
     out["wall_s"] = time.perf_counter() - t_phase
     out["worst"] = worst
-    log(f"[moe] memory: params {mem['params_gb']:.2f} GB, tenants "
-        f"{sum(mem['tenant_gb']):.3f} GB, peak {mem['peak_gb']:.2f} GB; phase "
+    log(f"[moe] {cfg.name} memory: params {mem['params_gb']:.2f} GB, tenants "
+        f"{sum(mem['tenant_gb']):.3f} GB, peak {mem['peak_gb']:.2f} GB; "
         f"{out['wall_s']:.1f} s")
-    report["moe"] = out
     del fleet, base
     gc.collect()
     torch.cuda.empty_cache()
-    return {"moe:generate": out["grouped"]["launches"],
-            "moe:serve_batch": out["grouped"]["serve_batch"]["launches"],
-            "moe:continuous": out["continuous"]["launches"]}
+    return out
+
+
+def phase_moe(torch, kern, report: dict) -> dict:
+    """qwen3-moe-30b-a3b at full width and 36 of its 48 layers (128
+    experts top-8), then llama4-scout-17b-a16e at full width and 8 of its
+    48 layers (16 experts top-1 and a shared expert), each freed before
+    the next (:func:`_moe_config`). -> launches by path."""
+    report["moe"] = {}
+    by_path = {}
+    for arch in MOE_ARCHS:
+        out = report["moe"][arch] = _moe_config(torch, kern, arch, report)
+        by_path.update({f"moe:{arch}:generate": out["grouped"]["launches"],
+                        f"moe:{arch}:serve_batch": out["grouped"]["serve_batch"]["launches"],
+                        f"moe:{arch}:continuous": out["continuous"]["launches"]})
+    return by_path
 
 
 def _leaf(tree, path: str):
@@ -3100,7 +3178,8 @@ def _family_engine(torch, kern, lm, cfg, base, fleet) -> tuple:
 
 def phase_families(torch, kern, report: dict) -> tuple:
     """mamba2-370m, recurrentgemma-9b, seamless-m4t-medium and
-    llama-3.2-vision-11b at full width and depth, one after the other
+    llama-3.2-vision-11b at full width, at the depths ARCH_DEPTH cuts the
+    first, second and last to, one after the other
     (each freed before the next): random init from seed 0 (the vlm's cross
     gates set to VLM_GATE), 3 tenants at the 128x spec compressed on the
     card, the correction kernels at each config's new sites, tenant0's
@@ -3122,7 +3201,7 @@ def phase_families(torch, kern, report: dict) -> tuple:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t_arch = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = _at_depth(get_config(arch))
         base = lm.init_params(cfg, 0, device=DEVICE)
         if cfg.family == "vlm":
             base["cross"]["gate_attn"].fill_(VLM_GATE)
@@ -3133,6 +3212,8 @@ def phase_families(torch, kern, report: dict) -> tuple:
         fleet, dropped = _family_fleet(cfg, base, synth_tenants, RATIO_SPECS[128])
         torch.cuda.synchronize()
         t_comp = time.perf_counter() - t0
+        report["dryrun"][arch] = _dryrun_bytes("[families]", cfg, base, fleet,
+                                               RATIO_SPECS[128], dropped)
         mem = {"params_gb": tree_bytes(base) / 1e9,
                "tenants_gb": [tree_bytes(d) / 1e9 for _, d, _ in fleet]}
         if dropped:
@@ -3302,6 +3383,78 @@ def _train_grads(torch, kern) -> tuple:
             launches)
 
 
+def _train_route_grads(torch, kern) -> tuple:
+    """Input gradients through the segments and fused kernels at
+    llama3.2-1b's wi site (2048 x 8192, 128x spec), TRAIN_ROUTE_T rows:
+    ``delta_spmm_segments`` with two tenants' rows (the kernel
+    forward, one dequant a tenant backward) and ``fused_base_delta`` with
+    a bf16 weight that requires grad (x's and W's gradients), each against
+    native autograd through its plain version, per input max|diff| /
+    max|g| under TRAIN_GRAD_REL_TOL; a control (one tenant's correction
+    dropped; the fused product without its delta) must exceed it.
+    -> (row, launches)."""
+    from repro_torch.core import dropout
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(53)
+    h_in, h_out = TRAIN_SITES["wi"]
+    T = TRAIN_ROUTE_T
+    tenants = [_rand_packed(torch, dropout, h_in, h_out, 4, gen) for _ in range(2)]
+    stack = stack_tenant_deltas([{"w": d} for d in tenants])["w"]
+    rows = torch.tensor([1, 0], dtype=torch.int32, device=DEVICE)
+    offs = torch.tensor([0, T // 2, T], dtype=torch.int32, device=DEVICE)
+    x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+    w = (torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+    gy = torch.randn((T, h_out), generator=gen, device=DEVICE)
+
+    def grads(fn, *inputs):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, gy)
+
+    def rel(got, want):
+        return max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                   for a, b in zip(got, want))
+
+    cases = {
+        "delta_spmm_segments": (
+            lambda x: ops.delta_spmm_segments(x, stack, rows, offs),
+            lambda x: fb.segment_correction(x, stack, rows, offs),
+            lambda x: fb.segment_correction(x, stack, rows[:1], offs[:2]), (x,)),
+        "fused_base_delta": (
+            lambda x, w: ops.fused_base_delta(x, w, tenants[0]),
+            lambda x, w: fb.fused_base_delta(x, w, tenants[0]),
+            lambda x, w: x @ w.float(), (x, w)),
+    }
+    out, launches = {}, {}
+    for name, (kernel, plain, control, inputs) in cases.items():
+        kern.reset_launches()
+        got = grads(kernel, *inputs)
+        torch.cuda.synchronize()
+        launched = dict(kern.LAUNCHES)
+        want = grads(plain, *inputs)
+        err, ctl = rel(got, want), rel(grads(control, *inputs), want)
+        want_launches = {"delta_spmm_segments": {"delta_spmm_segments": 1, "dequant": 2},
+                         "fused_base_delta": {"fused_base_delta": 1, "dequant": 1}}[name]
+        log(f"[train] {name} backward at {TRAIN_ARCH} wi ({h_in} x {h_out}), T={T}: input "
+            f"grads vs native autograd through the plain version, max|diff| / max|g| "
+            f"{err:.3e} (bound {TRAIN_GRAD_REL_TOL:.3e}); control {ctl:.3e} (must exceed); "
+            f"launches {launched}")
+        if err > TRAIN_GRAD_REL_TOL or not ctl > TRAIN_GRAD_REL_TOL:
+            fail(f"[train] {name}'s backward: {err:.3e} from the plain autograd, control "
+                 f"{ctl:.3e}, bound {TRAIN_GRAD_REL_TOL}")
+        if any(launched[k] != v for k, v in want_launches.items()):
+            fail(f"[train] {name} under grad launched {launched}, expected {want_launches}")
+        out[name] = {"rel_err": err, "control_rel": ctl, "launches": launched}
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+    del tenants, stack, x, w, gy
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def _train_kernel_times(torch) -> list:
     """delta_spmm at llama3.2-1b's wq, wk and wi for the training batch's
     T = 1024 rows, and dequant at wi (the correction's backward, with the
@@ -3309,6 +3462,7 @@ def _train_kernel_times(torch) -> list:
     from repro_torch.core import dropout
     from repro_torch.kernels import fallback as fb
     from repro_torch.kernels import ops
+    from repro_torch.roofline import analysis as rl
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(51)
@@ -3320,13 +3474,12 @@ def _train_kernel_times(torch) -> list:
         t = _time_spmm(torch, ops, fb, ring, dense, gen, site, T, None)
         rows.append({**t, "arch": TRAIN_ARCH})
         if site == "wi":
-            nnz, dbytes = ring[0].nnz, packed_bytes(ring[0])
             ms = time_ms(torch, [lambda d=d: ops.dequant(d) for d in ring])
             plain = time_ms(torch, [lambda d=d: fb.dequant(d) for d in ring], iters=8,
                             reps=3, eager=True)
             g = torch.randn((T, h_out), generator=gen, device=DEVICE)
             bwd = time_ms(torch, [lambda d=d: g @ ops.dequant(d).T for d in ring])
-            b_ms, b_by = bound_ms(0, dbytes, h_in * h_out * 4, 2.0 * nnz)
+            b_ms, b_by = rl.bound_ms(*rl.dequant_work(ring[0]))
             rows.append({"kernel": "dequant", "arch": TRAIN_ARCH, "site": site, "h_in": h_in,
                          "h_out": h_out, "T": None, "ms": ms, "plain_ms": plain,
                          "library_ms": None, "library_note": DEQUANT_LIBRARY_NOTE,
@@ -3429,13 +3582,15 @@ def phase_train(torch, kern, report: dict) -> dict:
     shapes, the 3m lifecycle, crash-restart. -> launches by path."""
     out = {"full": _train_full(torch)}
     out["grads"], grad_launches = _train_grads(torch, kern)
+    out["route_grads"], route_launches = _train_route_grads(torch, kern)
     out["times"] = _train_kernel_times(torch)
     out["lifecycle"], lc_launches = _train_lifecycle(torch, kern)
     out["restart"] = _train_restart(torch)
     gc.collect()
     torch.cuda.empty_cache()
     report["train"] = out
-    return {"train:grads": grad_launches, "train:lifecycle": lc_launches}
+    return {"train:grads": grad_launches, "train:route_grads": route_launches,
+            "train:lifecycle": lc_launches}
 
 
 def kernel_times(torch) -> list:
@@ -3509,16 +3664,16 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
                 if a["kernel"] == name]
             extra["family_launches"] = {p: l[name] for p, l in by_path.items()
                                         if p.startswith("families:")}
-        if name == "delta_spmm":   # qwen3's attention sites, [moe]
+        if name == "delta_spmm":   # the MoE configs' attention sites, [moe]
             extra["arch_sites"] += [
                 {k: a[k] for k in ("arch", "site", "h_in", "h_out", "T", "tb", *keys)}
-                for a in report["moe"]["attention_times"]]
+                for r in report["moe"].values() for a in r["attention_times"]]
         if name == "delta_spmm_segments":   # the MoE expert stacks, [moe]
             extra["expert_sites"] = [
-                {k: e[k] for k in ("site", "h_in", "h_out", "E", "C", "T", "routed_tokens",
-                                   "live_rows", "experts_read", "tb", "ops_layout",
-                                   "counts_ms", "all_c_ms", *keys)}
-                for e in report["moe"]["kernels"]]
+                {"arch": arch, **{k: e[k] for k in (
+                    "site", "h_in", "h_out", "E", "C", "T", "routed_tokens", "live_rows",
+                    "experts_read", "tb", "ops_layout", "counts_ms", "all_c_ms", *keys)}}
+                for arch, r in report["moe"].items() for e in r["kernels"]]
             extra["expert_launches"] = {p: l[name] for p, l in by_path.items()
                                         if p.startswith("moe:")}
         if name in ("delta_spmm", "dequant"):   # [train]'s sites at T = 1024
@@ -3645,7 +3800,8 @@ def main(argv: list) -> int:
 
     for k, v in list(codec_worst.items()) + list(families_worst.items()):
         worst[k] = max(worst[k], v)
-    worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"], report["moe"]["worst"])
+    worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"],
+                                       *(r["worst"] for r in report["moe"].values()))
     entries = kernel_entries(report, worst, {
         "delta_spmm": engine_launches, "delta_spmm_segments": engine_launches,
         "fused_base_delta": demo_launches, "dequant": merge_launches}, {

@@ -48,8 +48,8 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     bf16 weight multiplies in f32, as the reference does)."""
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
-        return x.to(dt) @ w.to(dt)
-    return x @ w
+        return x.to(dt) @ w.to(dt)  # deltalint: allow[DL001] base GEMM, not the correction
+    return x @ w  # deltalint: allow[DL001] base GEMM, not the correction
 
 
 @dataclass
@@ -244,6 +244,7 @@ def apply_linear_batched(x: torch.Tensor, w: torch.Tensor, d=None,
     if d is not None:
         if ops._device_kind(x3) == "cpu":
             _note("apply_linear_batched", formulation="experts-dense", codec=d.codec)
+            # deltalint: allow[DL001] the reference's dense expert correction (its einsum)
             c = x3 @ reconstruct_dense(d, dtype=x3.dtype)
         else:
             c = ops.delta_spmm_experts(x3, d, counts)

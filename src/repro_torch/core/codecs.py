@@ -35,7 +35,13 @@ Registered codecs:
 A leaf with leading stack dims (layers) is lowered and compressed one
 matrix at a time: the per-tensor scales are per matrix either way, and a
 full-width ``[32, 4096, 11008]`` leaf never needs its int32 temporaries
-at once. The dry-run twins (``leaf_spec``/``leaf_axes``) are not ported.
+at once.
+
+``leaf_spec`` is the dry run's shape-only twin of ``compress_leaf``: the
+codec leaf whose array fields are ``(shape, dtype)`` pairs, the port's
+stand-in for ``jax.ShapeDtypeStruct`` (``utils.materialize`` allocates
+them, on the ``meta`` device for the dry run). ``leaf_axes`` (the
+sharding twin) waits for the mesh.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.dropout import groupwise_dropout_pack
+from repro_torch.core.dropout import groupwise_dropout_pack, keep_count
 from repro_torch.core.pack import PackedDelta
 from repro_torch.core import pack as pack_lib
 from repro_torch.utils import resolve_device, tree_map
@@ -155,6 +161,12 @@ def _per_matrix(leaf, fn: Callable[[Any], torch.Tensor]) -> torch.Tensor:
     for i in range(1, out.shape[0]):
         out[i] = fn(flat.index(i))
     return out.reshape(*lead, *first.shape)
+
+
+def _shape_of(leaf) -> tuple:
+    """The shape of a weight given as a tensor or a ``(shape, dtype)``
+    spec."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf[0])
 
 
 def _check_unstacked(leaf) -> None:
@@ -284,6 +296,12 @@ class DeltaCodec:
         (``cuda`` unless the caller names another)."""
         raise NotImplementedError
 
+    def leaf_spec(self, leaf, spec):
+        """The codec leaf that compressing a weight shaped like ``leaf``
+        (a tensor or a ``(shape, dtype)`` spec) with ``spec`` gives, with
+        ``(shape, dtype)`` pairs for its arrays: nothing is compressed."""
+        raise NotImplementedError
+
     def planned_total_bits(self, shape: tuple, spec) -> Optional[float]:
         """``storage_bits(...)["total_bits"]`` of the leaf that compressing
         a weight of ``shape`` with ``spec`` would give, where the shapes
@@ -356,6 +374,24 @@ class DeltaDQCodec(DeltaCodec):
             keep=meta["keep"], alpha=meta["alpha"], k_bits=meta["k_bits"],
             scale=meta["scale"], zero=meta["zero"], device=dev)
 
+    def leaf_spec(self, leaf, spec: DeltaDQSpec) -> PackedDelta:
+        shape = _shape_of(leaf)
+        lead, (h_in, h_out) = shape[:-2], shape[-2:]
+        hg = _pick_hg(h_in, spec)
+        # the helpers real packing uses (dropout.keep_count, quant.packed_len):
+        # shape-only specs cannot drift from what packing produces
+        keep = keep_count(hg, spec.alpha)
+        G = h_in // hg
+        if spec.k_bits is None:
+            codes = ((*lead, G, keep, h_out), torch.float32)
+        else:
+            codes = ((*lead, G, quant.packed_len(keep, spec.k_bits), h_out), torch.uint8)
+        return PackedDelta(
+            idx=((*lead, G, keep, h_out), torch.uint8 if hg <= 256 else torch.int32),
+            codes=codes, scale=(lead, torch.float32), zero=(lead, torch.int32),
+            h_in=h_in, h_out=h_out, h_g=hg, keep=keep, alpha=float(spec.alpha),
+            k_bits=spec.k_bits, m=spec.m)
+
 
 # ---------------------------------------------------------------------------
 # BitDelta: sign bitmap + per-tensor scale (arXiv 2402.10193)
@@ -421,6 +457,12 @@ class BitDeltaCodec(DeltaCodec):
             sign=torch.from_numpy(np.asarray(parts["sign"], np.uint8)).to(dev),
             scale=pack_lib.scalar_tensor(meta["scale"], torch.float32, dev),
             h_in=meta["h_in"], h_out=meta["h_out"])
+
+    def leaf_spec(self, leaf, spec: BitDeltaSpec) -> BitDeltaLeaf:
+        shape = _shape_of(leaf)
+        lead, (h_in, h_out) = shape[:-2], shape[-2:]
+        return BitDeltaLeaf(sign=((*lead, quant.packed_len(h_in, 1), h_out), torch.uint8),
+                            scale=(lead, torch.float32), h_in=h_in, h_out=h_out)
 
 
 # ---------------------------------------------------------------------------
@@ -508,6 +550,16 @@ class LowRankCodec(DeltaCodec):
             v=torch.from_numpy(np.asarray(parts["v"], np.float32)).to(dev),
             h_in=meta["h_in"], h_out=meta["h_out"],
             k_bits=meta["k_bits"], rank=meta["rank"])
+
+    def leaf_spec(self, leaf, spec: LowRankSpec) -> LowRankLeaf:
+        shape = _shape_of(leaf)
+        lead, (h_in, h_out) = shape[:-2], shape[-2:]
+        return LowRankLeaf(
+            codes=((*lead, quant.packed_len(h_in, spec.k_bits), h_out), torch.uint8),
+            scale=(lead, torch.float32), zero=(lead, torch.int32),
+            u=((*lead, h_in, spec.rank), torch.float32),
+            v=((*lead, spec.rank, h_out), torch.float32),
+            h_in=h_in, h_out=h_out, k_bits=spec.k_bits, rank=spec.rank)
 
     def planned_total_bits(self, shape: tuple, spec: LowRankSpec) -> float:
         return self._bits(shape[-2], shape[-1], spec.k_bits, spec.rank,

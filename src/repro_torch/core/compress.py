@@ -44,7 +44,7 @@ from repro_torch.core.codecs import (
     codec_names,
     get_codec,
 )
-from repro_torch.utils import map_with_paths
+from repro_torch.utils import map_with_paths, materialize
 
 _EXCLUDE_TOKENS = (
     "embed", "unembed", "norm", "ln1", "ln2", "ln", "scale", "bias",
@@ -325,3 +325,22 @@ def decompress(base_params: Any, deltas: Any) -> Any:
     """Reconstruct approximate fine-tuned params (reference/eval path)."""
     from repro_torch.core.apply import merge_delta
     return merge_delta(base_params, deltas)
+
+
+# ---------------------------------------------------------------------------
+# Shape-only twin for the dry run (no compression computed)
+# ---------------------------------------------------------------------------
+def delta_specs(param_specs: Any, spec: Any) -> Any:
+    """``(shape, dtype)`` deltas tree mirroring a params tree of tensors
+    or ``(shape, dtype)`` specs, for any registered codec's spec: each
+    compressible leaf's ``codec.leaf_spec``, None elsewhere, as
+    :func:`compress` leaves it. The sharding twin (``delta_axes``) waits
+    for the mesh."""
+    c = codec_for_spec(spec)
+
+    def fn(path: str, leaf):
+        if not is_compressible(path, materialize(leaf)):
+            return None
+        return c.leaf_spec(leaf, spec)
+
+    return map_with_paths(fn, param_specs)

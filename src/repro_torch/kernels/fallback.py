@@ -50,6 +50,7 @@ def _flat_gather_idx(d: PackedDelta, idx: torch.Tensor) -> torch.Tensor:
 
 def dense_correction(x2: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     """x2 [T, h_in] @ dense(delta) -> [T, h_out] f32 (reconstruct path)."""
+    # deltalint: allow[DL001] the reference's reconstruct path at prefill counts
     return x2.to(torch.float32) @ reconstruct_dense(d)
 
 
@@ -72,6 +73,7 @@ def fused_base_delta(x2: torch.Tensor, w: torch.Tensor,
                      d: PackedDelta) -> torch.Tensor:
     """x2 [T, h_in] @ (w + dense(delta)) -> [T, h_out] f32: the merged
     weight is formed in f32 (one rounding per element), then one matmul."""
+    # deltalint: allow[DL001] the fused kernel's plain version: one merged-weight product
     return x2.to(torch.float32) @ (w.to(torch.float32) + reconstruct_dense(d))
 
 

@@ -17,15 +17,16 @@ counterpart there (the reference reconstructs the dense expert stack):
 it is the MoE expert sites' route onto the segments kernel, an expert
 buffer being E segments of one stacked delta.
 
-Gradients: ``delta_spmm`` and ``delta_spmm_experts`` are autograd
-Functions whenever grad mode is on and ``x.requires_grad``, on every
-device: the forward takes the route above, the backward is
+Gradients: every entry point but ``dequant`` is an autograd Function
+whenever grad mode is on and an input requires grad, on every device:
+the forward takes the route above, the backward is
 ``dx = g @ dequant(d)^T`` through :func:`dequant` (the dequant kernel on
 the card), the dense product the reference differentiates
-(``repro/kernels/ops.py``'s XLA formulation). ``delta_spmm_segments``,
-``delta_spmm_slots`` and ``fused_base_delta`` have no backward: on a
-CUDA tensor autograd tracks they raise rather than return a detached
-correction.
+(``repro/kernels/ops.py``'s XLA formulation) — per segment or row for
+``delta_spmm_segments``/``delta_spmm_slots`` (rows outside every
+segment get a zero gradient, as their output is zero-filled), and
+``dx = g @ (w + dequant(d))^T``, ``dw = x^T g`` for
+``fused_base_delta``. No kernel is added for a backward.
 
 Tiles: the kernels take every T and h_out as they are (they mask the
 ragged edges themselves), so the reference's row padding and column
@@ -146,17 +147,6 @@ def _needs_grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def _refuse_grad(site: str, x: torch.Tensor) -> None:
-    """A CUDA route without a backward refuses an input autograd tracks:
-    the kernel's output would come back detached, and ``backward`` would
-    drop the correction's share of the input's gradient without a word."""
-    if _needs_grad(x) and _device_kind(x) == "cuda":
-        raise RuntimeError(
-            f"{site}: this CUDA route has no backward; call it under "
-            "torch.no_grad() or on an input that does not require grad "
-            "(training takes delta_spmm or delta_spmm_experts)")
-
-
 class _Correction(torch.autograd.Function):
     """``x @ dequant(d)`` with a gradient for ``x``.
 
@@ -231,8 +221,53 @@ def delta_spmm_segments(x_sorted: torch.Tensor, d: PackedDelta,
     ``max_rows`` (optional) bounds every segment's length, so the row tile
     is chosen from it instead of from all T rows (every tile gives a row
     the same bits).
+
+    With grad mode on and ``x_sorted.requires_grad`` the packed route is
+    an autograd Function (:class:`_SegmentCorrection`).
     """
-    _refuse_grad("delta_spmm_segments", x_sorted)
+    if values is None and _needs_grad(x_sorted):
+        return _SegmentCorrection.apply(x_sorted, d, seg_rows, seg_offsets, max_rows)
+    return _delta_spmm_segments(x_sorted, d, seg_rows, seg_offsets, values, res_map,
+                                max_rows)
+
+
+def _segments_grad(g: torch.Tensor, d: PackedDelta, seg_rows: torch.Tensor,
+                   seg_offsets: torch.Tensor) -> torch.Tensor:
+    """``dx`` of a segmented correction: each segment's rows
+    ``g @ dequant(d[row])^T`` (one :func:`dequant` per tenant row),
+    zero outside every segment and in a segment whose row is outside
+    the stack, whose output the forward zero-fills."""
+    g = g.to(torch.float32)
+    dx = torch.zeros((g.shape[0], d.h_in), dtype=torch.float32, device=g.device)
+    rows = seg_rows.tolist()
+    offs = seg_offsets.tolist()
+    dense: dict = {}
+    for r, lo, hi in zip(rows, offs[:-1], offs[1:]):
+        if hi <= lo or not 0 <= r < d.stack_shape()[0]:
+            continue
+        if r not in dense:
+            dense[r] = dequant(d.index(r))
+        dx[lo:hi] = g[lo:hi] @ dense[r].T
+    return dx
+
+
+class _SegmentCorrection(torch.autograd.Function):
+    """:func:`delta_spmm_segments` with a gradient for ``x_sorted``
+    (:func:`_segments_grad`)."""
+
+    @staticmethod
+    def forward(ctx, x, d, seg_rows, seg_offsets, max_rows):
+        ctx.d, ctx.x_dtype = d, x.dtype
+        ctx.seg = (seg_rows, seg_offsets)
+        return _delta_spmm_segments(x, d, seg_rows, seg_offsets, None, None, max_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _segments_grad(g, ctx.d, *ctx.seg)
+        return dx.to(ctx.x_dtype), None, None, None, None
+
+
+def _delta_spmm_segments(x_sorted, d, seg_rows, seg_offsets, values, res_map, max_rows):
     if values is not None:
         if _device_kind(x_sorted) != "cpu":
             raise ValueError(
@@ -348,14 +383,41 @@ def delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     Row b computes ``x[b] @ dequant(d[b])``. On the card the rows are
     served as one-row segments of the segments kernel (the reference
     vmaps its per-matrix kernel over rows); on the CPU by the per-row
-    gather formulation.
+    gather formulation. With grad mode on and ``x.requires_grad`` it is
+    an autograd Function (:class:`_SlotsCorrection`).
     """
-    _refuse_grad("delta_spmm_slots", x)
     B = x.shape[0]
     if d.stack_shape() != (B,):
         raise ValueError(
             f"stacked delta stack_shape={d.stack_shape()} must equal "
             f"({B},) — one delta row per slot row of x {tuple(x.shape)}")
+    if _needs_grad(x):
+        return _SlotsCorrection.apply(x, d)
+    return _delta_spmm_slots(x, d)
+
+
+class _SlotsCorrection(torch.autograd.Function):
+    """:func:`delta_spmm_slots` with a gradient for ``x``: row by row
+    ``dx[b] = g[b] @ dequant(d[b])^T``."""
+
+    @staticmethod
+    def forward(ctx, x, d):
+        ctx.d, ctx.x_dtype = d, x.dtype
+        return _delta_spmm_slots(x, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.d
+        B = g.shape[0]
+        per_row = g.numel() // (B * d.h_out)
+        rows = torch.arange(B, dtype=torch.int32)
+        offsets = torch.arange(B + 1, dtype=torch.int32) * per_row
+        dx = _segments_grad(g.reshape(B * per_row, d.h_out), d, rows, offsets)
+        return dx.reshape(*g.shape[:-1], d.h_in).to(ctx.x_dtype), None
+
+
+def _delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
+    B = x.shape[0]
     if _out_of_envelope("delta_spmm_slots", d.index(0), x) or _device_kind(x) == "cpu":
         _note("delta_spmm_slots", formulation="per-row-gather",
               codec=d.codec, B=int(B))
@@ -372,8 +434,41 @@ def delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
 def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     """y = x @ (w + dequant(d)); reads x once (separate computation, fused).
     x [..., h_in], w [h_in, h_out] -> [..., h_out] f32 (inside the
-    envelope)."""
-    _refuse_grad("fused_base_delta", x)
+    envelope).
+
+    With grad mode on and ``x`` or ``w`` requiring grad it is an autograd
+    Function (:class:`_FusedCorrection`)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _FusedCorrection.apply(x, w, d)
+    return _fused_base_delta(x, w, d)
+
+
+class _FusedCorrection(torch.autograd.Function):
+    """:func:`fused_base_delta` with gradients: ``dx = g @ (w +
+    dequant(d))^T`` (:func:`dequant`, the dequant kernel on the card) and
+    ``dw = x^T g``, each only where its input requires grad."""
+
+    @staticmethod
+    def forward(ctx, x, w, d):
+        ctx.d = d
+        ctx.save_for_backward(x, w)
+        return _fused_base_delta(x, w, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        d = ctx.d
+        g2 = g.to(torch.float32).reshape(-1, d.h_out)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            merged = w.to(torch.float32) + dequant(d)
+            dx = (g2 @ merged.T).reshape(*g.shape[:-1], d.h_in).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.to(torch.float32).reshape(-1, d.h_in).T @ g2).to(w.dtype)
+        return dx, dw, None
+
+
+def _fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     if _out_of_envelope("fused_base_delta", d, x):
         dt = torch.promote_types(x.dtype, w.dtype)
         return (x.to(dt) @ w.to(dt)) + delta_spmm(x, d).to(w.dtype)

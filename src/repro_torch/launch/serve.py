@@ -12,7 +12,7 @@ process, with per-tenant metrics.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --tenants 3 --codec mixed --check-identity
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --tenants 3 --lifecycle --check-identity
+        --tenants 3 --lifecycle --check-identity --strict-compile
 
 The request stream is the reference's: request i goes to tenant
 ``i % tenants`` with a prompt of ``4 + (i % 3) * 4`` tokens, arriving
@@ -25,9 +25,11 @@ card); ``--check-identity`` serves the stream again on the default path
 (whole-prompt prefill, no residency) when ``--chunked`` or
 ``--residency-mb`` is set, and each tenant alone when ``--codec mixed``,
 and fails unless every request's tokens match; ``--lifecycle`` runs the
-online-lifecycle drill (:func:`run_lifecycle`). Meshes are not ported
-yet, and ``--strict-compile`` has no counterpart until the port counts
-CUDA-graph captures.
+online-lifecycle drill (:func:`run_lifecycle`, whose zero-retrace gate
+is ``analysis.CompileGuard``); ``--strict-compile`` attaches a strict
+``CompileGuard`` to the serving engine, so a new signature of a seen
+call (a retrace in the reference) raises where it happens. Meshes are
+not ported yet.
 
 :data:`RATIO_SPECS` maps a target compression ratio to its DeltaDQ spec,
 and :func:`synth_tenants` makes fine-tuned variants of a base model and
@@ -41,6 +43,7 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.analysis import CompileBudgetError, CompileGuard
 from repro_torch.core.codecs import BitDeltaSpec, DeltaDQSpec, codec_for_spec, get_codec
 from repro_torch.core.compress import (
     CompressionReport,
@@ -183,12 +186,19 @@ def _serve_stream(cfg, base, tenants, stream, args, *, default_path=False, **kw)
     if default_path:
         ekw.update(chunked_prefill=False, residency_budget_bytes=None)
     eng = ContinuousEngine(cfg, base, **ekw, **kw)
+    guard = None
+    if args.strict_compile and not default_path:
+        # fresh engine: every first signature is first=True and allowed;
+        # strict mode raises only on a new signature of a seen call
+        guard = CompileGuard(eng, strict=True, label="serve").attach()
     for name, deltas, report in tenants:
         eng.register_tenant(name, deltas, report)
     reqs = [eng.submit(tenant, prompt, max_new_tokens=args.max_new,
                        arrival=i * args.arrival_gap)
             for i, (tenant, prompt) in enumerate(stream)]
     eng.run()
+    if guard is not None:
+        guard.detach()
     undone = [r.rid for r in reqs if not r.done]
     if undone:
         raise RuntimeError(f"engine run() left requests {undone} unfinished")
@@ -203,8 +213,9 @@ def run_lifecycle(args, cfg, base) -> dict:
     are compressed and hot-registered by the :class:`DeltaRegistry` while
     tenant0's sequences keep decoding. Afterwards tenant0 rolls out a v2
     (new requests only) and tenant1 is retired. The drill fails on any
-    re-stack or decode-step ``jit_trace`` after warm-up (the port's
-    counterpart of the reference's zero decode recompiles). With ``--check-identity`` every
+    re-stack or new decode signature after warm-up (``CompileGuard``'s
+    ``max_new={"decode": 0}``, the reference's zero decode recompiles;
+    with ``--strict-compile`` it raises at the call). With ``--check-identity`` every
     request is also held token-identical to engines built with the same
     tenant versions up front. Returns the metrics report."""
     from repro_torch.serve import ContinuousEngine, DeltaRegistry, VirtualClock
@@ -225,7 +236,10 @@ def run_lifecycle(args, cfg, base) -> dict:
                for i, (t, p) in enumerate(stream) if t == "tenant0"]
     for _ in range(2):
         eng.step(eng._now())            # tenant0 genuinely in flight
-    traces0, restacks0 = eng.decode_traces, eng.restacks
+    # warm-up done: from here the decode step must see no new signature
+    guard = CompileGuard(eng, max_new={"decode": 0}, strict=args.strict_compile,
+                         label="lifecycle").attach()
+    restacks0 = eng.restacks
     for t in range(1, n):
         name = f"tenant{t}"
         reg.ingest(name, synth_ft(base, 7 + t))
@@ -253,15 +267,19 @@ def run_lifecycle(args, cfg, base) -> dict:
     if n > 1:
         eng.unregister_tenant("tenant1")
 
-    retraces = eng.decode_traces - traces0
+    guard.detach()
+    retraces = guard.new_compiles("decode")
     restacks = eng.restacks - restacks0
     rep = eng.metrics.report()
     print(f"lifecycle events: {rep['tenant_lifecycle']}")
     print(f"decode-step jit_trace events across register/rollout/retire: {retraces}; "
-          f"re-stacks: {restacks}")
-    if retraces or restacks:
-        raise SystemExit("the hot lifecycle changed a decode signature "
-                         f"({retraces} jit_trace, {restacks} re-stacks)")
+          f"re-stacks: {restacks}; CompileGuard {guard.report()}")
+    try:
+        guard.check()
+    except CompileBudgetError as e:
+        raise SystemExit(f"the hot lifecycle retraced the decode step: {e}")
+    if restacks:
+        raise SystemExit(f"the hot lifecycle re-stacked the tenant rows {restacks} times")
 
     if args.check_identity:
         # registration time must not change tokens: engines holding the
@@ -333,6 +351,11 @@ def main(argv=None) -> int:
                          "on an engine holding only that tenant; with --lifecycle, "
                          "against engines holding the tenant versions up front; "
                          "fail unless every request's tokens match")
+    ap.add_argument("--strict-compile", action="store_true",
+                    help="attach a strict CompileGuard to the serving engine: a new "
+                         "signature of an already-seen call (a retrace in the "
+                         "reference) raises at that call; with --lifecycle, the "
+                         "drill's post-warm-up gate also raises at the call")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

@@ -167,6 +167,27 @@ def residency_bytes_from_mb(mb: float) -> Optional[int]:
     return b if b > 0 else None
 
 
+class Signatures:
+    """The distinct call signatures one of the engine's entry points has
+    run with: what a jit's compile cache holds in the reference (a new
+    signature is a retrace there). ``_cache_size()`` is the count
+    ``analysis.CompileGuard`` reads; :meth:`record` returns whether the
+    key is new (a jit would trace). ``traces`` counts the new keys that
+    emitted ``jit_trace`` (calls with path notes, i.e. with deltas)."""
+
+    def __init__(self) -> None:
+        self.keys: set = set()
+        self.traces = 0
+
+    def record(self, key: Any) -> bool:
+        new = key not in self.keys
+        self.keys.add(key)
+        return new
+
+    def _cache_size(self) -> int:
+        return len(self.keys)
+
+
 def _zip_packed(fn, stacked: Any, values: Any) -> None:
     """Call ``fn(delta, buffer)`` for each PackedDelta leaf of ``stacked``
     and its buffer in the parallel ``values`` tree."""
@@ -235,8 +256,11 @@ class DeltaResidency:
             stacked)
         self._slot_of = {0: 0}           # zero delta: decoded values ARE 0
         self._free = list(range(1, self.capacity))
+        # the reference's promotion jit: one signature per stack shape
+        self._promote = Signatures()
 
-    def _promote(self, row: int, slot: int) -> None:
+    def _promote_row(self, row: int, slot: int) -> None:
+        self._promote.record(_stack_signature(self._stacked))
         _zip_packed(lambda d, buf: buf[slot].copy_(decode_values(d.index(row))),
                     self._stacked, self.values)
 
@@ -262,7 +286,7 @@ class DeltaResidency:
                 self._lru.remove(victim)
                 slot = self._slot_of.pop(victim)
             self._slot_of[r] = slot
-            self._promote(r, slot)
+            self._promote_row(r, slot)
         for r in uniq:                        # refresh recency, MRU last
             if r in self._lru:
                 self._lru.remove(r)
@@ -442,6 +466,9 @@ class TenantTable:
         self.structure = _tree_structure(template)
         self.stacked = _alloc_rows(template, self.capacity + 1)
         self._free: List[int] = list(range(1, self.capacity + 1))
+        # the reference's row-write jit: every write and tombstone has the
+        # template's signature
+        self._write_jit = Signatures()
 
     @property
     def n_free(self) -> int:
@@ -450,10 +477,12 @@ class TenantTable:
     def check_compatible(self, tree: Any) -> None:
         """Raise ValueError unless ``tree`` can fill a row (called BEFORE
         any engine state mutates, so a rejected tenant is a no-op)."""
-        if _tree_structure(tree) != self.structure:
+        got_struct = _tree_structure(tree)
+        if got_struct != self.structure:
             raise ValueError(
-                "tenant delta tree structure does not match the tenant "
-                "table template; cannot hot-register")
+                f"tenant delta tree structure {got_struct!r} does not match "
+                f"the tenant table template {self.structure!r}; cannot "
+                "hot-register")
         got_sig = _stack_signature(tree)
         if got_sig != self.signature:
             raise ValueError(
@@ -479,10 +508,12 @@ class TenantTable:
     def write(self, row: int, tree: Any) -> None:
         """Fill ``row`` from a runtime delta tree on the table's device,
         in place (scale cast to f32, zero to int32)."""
+        self._write_jit.record(self.signature)
         _write_row(self.stacked, row, tree)
 
     def clear(self, row: int) -> None:
         """Tombstone ``row``: the zero delta, written in place."""
+        self._write_jit.record(self.signature)
         _write_row(self.stacked, row, None)
 
 
@@ -640,14 +671,16 @@ class ContinuousEngine:
         self.bus = EventBus([self.metrics, trace, slo])
         # path-attribution notes per call signature. The reference's
         # dispatch notes fire only while jax traces; here they fire on
-        # every call, so a call whose argument shapes the engine has not
-        # seen (what would retrace a jit there: _traced) emits the
-        # jit_trace event and later calls replay the signature's notes
+        # every call, so a call whose argument shapes its entry point has
+        # not seen (what would retrace a jit there) emits the jit_trace
+        # event and later calls replay the signature's notes
         self._path_notes: dict = {}
-        self._traced: set = set()
-        # jit_trace events of the step's signatures (decode, decode_masked,
-        # combined): the reference's decode recompiles
-        self.decode_traces = 0
+        # each entry point's signatures: the reference's jits' compile
+        # caches (analysis.CompileGuard's ENTRY_PATHS)
+        self._prefill = Signatures()
+        self._decode = Signatures()
+        self._decode_masked = Signatures()
+        self._combined = Signatures()
 
         # host mirrors of per-slot decode state (row 0 = zero delta / base)
         self._tok = np.zeros(n_slots, np.int64)
@@ -949,6 +982,12 @@ class ContinuousEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    @property
+    def decode_traces(self) -> int:
+        """jit_trace events of the step's signatures (decode,
+        decode_masked, combined): the reference's decode recompiles."""
+        return self._decode.traces + self._decode_masked.traces + self._combined.traces
+
     def _record_path(self, sig: tuple, shapes: tuple, site: str, notes: list,
                      now: float) -> tuple:
         """Emit ``jit_trace`` when this call's argument shapes are new
@@ -957,11 +996,12 @@ class ContinuousEngine:
         ``first`` unless ``sig`` was seen before, as
         ``src/repro/serve/engine.py:1425-1429`` does; return (the
         signature's memoised notes, whether this call emitted)."""
-        key = (sig, shapes)
-        traced = bool(notes) and key not in self._traced
+        # a call without notes (no deltas) has its own signature, so it
+        # never hides a later traced call's
+        entry = getattr(self, f"_{site}")
+        traced = entry.record((sig, shapes)) and bool(notes)
         if traced:
-            self._traced.add(key)
-            self.decode_traces += site != "prefill"
+            entry.traces += 1
             self.bus.emit("jit_trace", now, signature=sig, site=site,
                           first=sig not in self._path_notes, notes=list(notes))
             self._path_notes[sig] = list(notes)

@@ -8,6 +8,7 @@ terminal.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Iterator
 
@@ -78,3 +79,24 @@ def tree_params(tree: Any) -> int:
 def resolve_device(device: Any) -> torch.device:
     """The port's device rule: an explicit device wins, else ``cuda``."""
     return torch.device(device if device is not None else "cuda")
+
+
+def is_spec(x: Any) -> bool:
+    """A ``(shape, dtype)`` pair: the port's stand-in for
+    ``jax.ShapeDtypeStruct`` (``lm.param_shapes``, ``codec.leaf_spec``)."""
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], torch.dtype)
+
+
+def materialize(tree: Any, device: Any = "meta") -> Any:
+    """Every ``(shape, dtype)`` spec of a dict tree, and of a codec leaf's
+    array fields, as an empty tensor on ``device``: on ``meta`` nothing is
+    allocated, and the tensors still report their shapes and bytes."""
+    def one(x: Any) -> Any:
+        if is_spec(x):
+            return torch.empty(tuple(x[0]), dtype=x[1], device=device)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return dataclasses.replace(x, **{
+                f.name: one(getattr(x, f.name)) for f in dataclasses.fields(x)
+                if is_spec(getattr(x, f.name))})
+        return x
+    return tree_map(one, tree)

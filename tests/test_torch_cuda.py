@@ -977,9 +977,10 @@ def test_expert_correction_backward_matches_native_autograd(cuda):
 
 @pytest.mark.gpu
 def test_routes_without_backward_raise_under_grad(cuda):
-    """delta_spmm_segments, delta_spmm_slots and fused_base_delta have no
-    backward: under grad on the card they raise, naming the route; without
-    grad they run."""
+    """delta_spmm_segments, delta_spmm_slots and fused_base_delta had no
+    backward and raised under grad on the card; they are autograd
+    Functions now: under grad they return an output with a grad_fn and
+    no error, without grad a plain tensor."""
     tenants = [_pack(256, 128, 16, 8, 4, 50 + t, cuda) for t in range(2)]
     stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
     x = _x(4, 256, 51, cuda).requires_grad_()
@@ -992,7 +993,64 @@ def test_routes_without_backward_raise_under_grad(cuda):
         "fused_base_delta": lambda: ops.fused_base_delta(x, w, tenants[0]),
     }
     for name, call in calls.items():
-        with pytest.raises(RuntimeError, match=f"{name}: this CUDA route has no backward"):
-            call()
+        assert call().grad_fn is not None, name
         with torch.no_grad():
-            assert call().grad_fn is None
+            assert call().grad_fn is None, name
+
+
+def _route_case(route, device):
+    """(call(x, w), plain(x, w), x, w, n_dequant) for one route at a full
+    wizard wi site (4096 x 11008, 128x spec): two tenants' segments with
+    rows outside every segment, four one-row slots, or the fused kernel
+    with a bf16 base weight that requires grad."""
+    h_in, h_out = 4096, 11008
+    tenants = [_pack(h_in, h_out, 16, 8, 4, 60 + t, device) for t in range(2)]
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    if route == "segments":
+        rows = torch.tensor([1, 0, -1], dtype=torch.int32, device=device)
+        offs = torch.tensor([0, 5, 12, 14], dtype=torch.int32, device=device)
+        return (lambda x, w: ops.delta_spmm_segments(x, stack, rows, offs),
+                lambda x, w: fb.segment_correction(x, stack, rows, offs),
+                _x(16, h_in, 61, device), None, 2)
+    if route == "slots":
+        slot_stack = stack_tenant_deltas([{"w": tenants[b % 2]} for b in range(4)])["w"]
+        x = _x(4, h_in, 62, device).reshape(4, 1, h_in)
+        return (lambda x, w: ops.delta_spmm_slots(x, slot_stack),
+                lambda x, w: fb.gather_correction_rows(x, slot_stack), x, None, 4)
+    w = (_x(h_in, h_out, 63, device) * 0.02).to(torch.bfloat16)
+    return (lambda x, w: ops.fused_base_delta(x, w, tenants[0]),
+            lambda x, w: x @ (w.float() + fb.dequant(tenants[0])),
+            _x(8, h_in, 64, device), w, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["segments", "slots", "fused"])
+def test_route_backward_matches_native_autograd(cuda, route):
+    """The three routes' CUDA backward (one dequant kernel a tenant, row
+    or merge, and one dense product) against native autograd through
+    their plain versions: input gradients, and the fused kernel's weight
+    gradient; rows outside every segment get a zero gradient."""
+    call, plain, x, w, n_dequant = _route_case(route, cuda)
+    x = x.requires_grad_()
+    if w is not None:
+        w = w.requires_grad_()
+    y = call(x, w)
+    gy = torch.randn(y.shape, device=cuda)
+    kern.reset_launches()
+    got = torch.autograd.grad(y, [t for t in (x, w) if t is not None], gy)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["dequant"] == n_dequant
+    x2 = x.detach().clone().requires_grad_()
+    w2 = None if w is None else w.detach().clone().requires_grad_()
+    y2 = plain(x2, w2)
+    want = torch.autograd.grad(y2, [t for t in (x2, w2) if t is not None], gy)
+    torch.testing.assert_close(y, y2, **TOL)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        # f32 sums in two orders; a bf16 weight gradient may round one
+        # spacing apart (2^-8 of a value, at most 2^-7 of the largest)
+        rel = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-4
+        scale = b.float().abs().max()
+        torch.testing.assert_close(a.float(), b.float(), atol=rel * scale, rtol=0)
+    if route == "segments":
+        assert not got[0][12:].any()

@@ -90,7 +90,7 @@ def _engine(cfg, base, **kw):
 
 
 def _decode_keys(eng):
-    return {k for k in eng._traced if k[0][0] != "prefill"}
+    return eng._decode.keys | eng._decode_masked.keys | eng._combined.keys
 
 
 # ---------------------------------------------------------------------------

@@ -384,3 +384,91 @@ def test_correction_function_matches_native_autograd():
             torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
             with torch.no_grad():
                 assert ops.delta_spmm(x, d).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# the segments, slots and fused routes' backward vs jax.grad of the
+# reference's formulations
+# ---------------------------------------------------------------------------
+def _route_inputs():
+    """Two tenants' packed deltas (64 x 48, 128x-style k=4), stacked, and
+    their twins in the reference's layout."""
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.core.dropout import groupwise_dropout_pack
+    g = torch.Generator().manual_seed(3)
+    ds = [groupwise_dropout_pack(torch.randn(64, 48, generator=g) * 0.01, h_g=16,
+                                 alpha=4, k_bits=4, generator=g) for _ in range(2)]
+    stack = stack_tenant_deltas([{"w": d} for d in ds])["w"]
+    return g, ds, stack, br.packed_to_jax(stack)
+
+
+@pytest.mark.parametrize("route", ["segments", "slots", "fused"])
+def test_route_backward_matches_reference(route):
+    """ops.delta_spmm_segments (two tenants' segments and an empty one),
+    delta_spmm_slots and fused_base_delta (and its weight gradient) under
+    grad: their Functions' input gradients against ``jax.grad`` of the
+    reference's formulations (``fallback.segment_correction``,
+    ``fallback.gather_correction_rows``, ``x @ (w + dequant(d))``), per
+    input within 2^-6 of its max|g| as the model's grads above. Rows the
+    port's segments zero-fill (outside every segment, or in a segment
+    whose row is outside the stack, which the reference's formulation
+    does not define) get an exact zero, as native autograd through the
+    port's plain version gives."""
+    from repro.core.pack import reconstruct_dense as j_dense
+    from repro.kernels import fallback as jfb
+    g, ds, stack, jstack = _route_inputs()
+    if route == "segments":
+        rows = np.array([1, 0, 1], np.int32)
+        offs = np.array([0, 3, 3, 11], np.int32)
+        x = torch.randn(11, 64, generator=g)
+
+        def port(x, w):
+            return ops.delta_spmm_segments(x, stack, torch.from_numpy(rows),
+                                           torch.from_numpy(offs))
+
+        def ref(x, w):
+            return jfb.segment_correction(x, jstack, jnp.asarray(rows), jnp.asarray(offs))
+        w = None
+    elif route == "slots":
+        from repro_torch.core.apply import stack_tenant_deltas
+        rows_stack = stack_tenant_deltas([{"w": ds[b % 2]} for b in range(3)])["w"]
+        jrows = br.packed_to_jax(rows_stack)
+        x = torch.randn(3, 2, 64, generator=g)
+
+        def port(x, w):
+            return ops.delta_spmm_slots(x, rows_stack)
+
+        def ref(x, w):
+            return jfb.gather_correction_rows(x, jrows)
+        w = None
+    else:
+        x = torch.randn(5, 64, generator=g)
+        w = torch.randn(64, 48, generator=g) * 0.1
+
+        def port(x, w):
+            return ops.fused_base_delta(x, w, ds[0])
+
+        def ref(x, w):
+            return x @ (w + j_dense(br.packed_to_jax(ds[0])))
+    gy = torch.randn(port(x, w).shape, generator=g)
+    xs = [x] if w is None else [x, w]
+    leaves = [t.clone().requires_grad_() for t in xs]
+    y = port(*leaves, *([None] if w is None else []))
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, gy)
+    argnums = (0,) if w is None else (0, 1)
+    want = jax.grad(lambda *a: jnp.sum(ref(*a, *([None] if w is None else []))
+                                       * jnp.asarray(gy.numpy())),
+                    argnums=argnums)(*[jnp.asarray(t.numpy()) for t in xs])
+    for a, b in zip(got, want):
+        _assert_grads_close({"g": _np(a)}, {"g": _np(b)})
+    if route == "segments":
+        rows_t = torch.tensor([1, 0, -1], dtype=torch.int32)
+        offs_t = torch.tensor([0, 3, 7, 9], dtype=torch.int32)
+        x1 = x.clone().requires_grad_()
+        dx, = torch.autograd.grad(ops.delta_spmm_segments(x1, stack, rows_t, offs_t), x1, gy)
+        x2 = x.clone().requires_grad_()
+        native, = torch.autograd.grad(fallback.segment_correction(x2, stack, rows_t, offs_t),
+                                      x2, gy)
+        torch.testing.assert_close(dx, native, atol=1e-6, rtol=1e-5)
+        assert not dx[7:].any() and dx[:7].abs().min() >= 0 and dx[:7].any()
