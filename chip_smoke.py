@@ -16,8 +16,8 @@ the continuous-batching engine (``serve.ContinuousEngine``: a mixed
 12-request stream, each tenant's requests alone, ``Engine.generate`` per
 request, and the chunked-prefill engine on the same stream against B=1
 chunked decode), the codec family (``[codecs]``: a DeltaDQ/BitDelta
-fleet in one engine, two codec groups, against each tenant alone; on a
-1-layer copy ``compress(codec="auto")``), the
+fleet in one engine at 16 of the 32 layers, two codec groups, against
+each tenant alone; on a 1-layer copy ``compress(codec="auto")``), the
 tenant lifecycle (``[lifecycle]``: a tenant table and a
 ``DeltaRegistry`` registering, rolling out, retiring, evicting and
 promoting tenants mid-traffic, against engines built up front), the
@@ -26,11 +26,15 @@ budget, packed on the card, equal to the packed run; resident values
 bit-equal to in-step decode), the storage layer (``[storage]``: tenant0's
 every matrix through the m-part parts and back onto the card), the
 group-size search and the baselines (``[groupsearch]``: the card against
-the CPU), the quickstart (``launch/quickstart.py``: compress, serve
+the CPU), the serving mesh (``[mesh]``: ``ContinuousEngine(mesh=)`` on
+meshes (1, 2) and (2, 2) whose ranks share the card over gloo, against
+the single-card engine's tokens; the sharded correction bit for bit
+against the single-card kernels; the cuBLAS column-slice check), the
+quickstart (``launch/quickstart.py``: compress, serve
 separately and merged), the kernels demo (``launch/kernels_demo.py``: the
 four kernels' entry points), the other dense configs at full width
-(``[archs]``: gemma3-1b at 6 of its 26 layers, gemma-7b and
-phi3-medium-14b at full depth, each
+(``[archs]``: gemma3-1b at 6 of its 26 layers, gemma-7b at 14 of 28 and
+phi3-medium-14b at 20 of 40, each
 with 3 tenants, both correction kernels at its site new to them, and the
 engine, mixed == alone; gemma3's prompts wrap its 512-token rings, whole
 and chunked) and, last, the MoE family
@@ -164,10 +168,14 @@ ARCH_SITES = {"gemma3-1b": ("attn", "wk"), "gemma-7b": ("mlp", "wo"),
 # tenants) and llama-3.2-vision-11b at 10 of its 40 self layers, which
 # hold two of its gated cross blocks, and, next in the order after a
 # measured 1006.6 s with [families] cut alone, qwen3-moe-30b-a3b runs 36
-# of its 48 layers; llama4-scout-17b-a16e (215.5 GB in bf16) runs 8 of 48
+# of its 48 layers; llama4-scout-17b-a16e (215.5 GB in bf16) runs 8 of 48.
+# To pay for [mesh], ROADMAP's cut order goes on: [codecs]' fleet
+# runs CODECS_DEPTH of wizard's 32 layers, then [archs] runs gemma-7b at
+# 14 of its 28 layers and phi3-medium-14b at 20 of its 40 (widths kept)
 ARCH_DEPTH = {"gemma3-1b": 6, "mamba2-370m": 12, "recurrentgemma-9b": 6,
               "llama-3.2-vision-11b": 10, "qwen3-moe-30b-a3b": 36,
-              "llama4-scout-17b-a16e": 8}
+              "llama4-scout-17b-a16e": 8, "gemma-7b": 14, "phi3-medium-14b": 20}
+CODECS_DEPTH = 16
 # gemma3-1b's stream: prompts longer than its 512-token local window
 WINDOW_REQUESTS, WINDOW_MIN, WINDOW_MAX, WINDOW_SEED, WINDOW_CHUNK = 12, 520, 900, 17, 64
 # [moe]: qwen3-moe-30b-a3b at its published width (36 of its 48 layers,
@@ -318,6 +326,26 @@ def time_ms(torch, fns, iters: int = 20, reps: int = 5, eager: bool = False) -> 
         per.append(start.elapsed_time(end) / iters)
     del graph
     return statistics.median(per)
+
+
+def _first_layers(cfg, base, trees: list, n: int) -> tuple:
+    """A dense config cut to its first ``n`` layers, its params and each
+    delta tree in ``trees`` as views of their first ``n`` layer slices
+    (nothing copied). -> (cfg, base, trees)."""
+    from repro_torch.core.pack import PackedDelta
+    from repro_torch.utils import map_with_paths
+
+    def cut(path, leaf):
+        if not path.startswith(("attn/", "mlp/")) or leaf is None:
+            return leaf
+        if isinstance(leaf, PackedDelta):
+            return leaf.with_arrays(leaf.idx[:n], leaf.codes[:n], leaf.scale[:n],
+                                    leaf.zero[:n])
+        return leaf[:n]
+
+    ccfg = dataclasses.replace(cfg, n_layers=n, layer_kinds=cfg.layer_kinds[:n],
+                               layer_windows=cfg.layer_windows[:n])
+    return ccfg, map_with_paths(cut, base), [map_with_paths(cut, t) for t in trees]
 
 
 def _at_depth(cfg):
@@ -1600,9 +1628,9 @@ def _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, tag: str) -> dict:
 
 
 def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
-    """The reference's ``--codec mixed`` fleet at full width and depth
-    (tenant0 and tenant2 DeltaDQ 128x, tenant1 BitDelta; the [engine]
-    stream), then a LowRank tenant beside a DeltaDQ one and
+    """The reference's ``--codec mixed`` fleet at full width and
+    CODECS_DEPTH layers (tenant0 and tenant2 DeltaDQ 128x, tenant1
+    BitDelta; the [engine] stream), then a LowRank tenant beside a DeltaDQ one and
     ``compress(codec="auto", budget_bits=2.0)`` on a copy cut to
     LOWRANK_LAYERS layers. The LowRank tenant is LowRank at LOWRANK_LEAVES
     and DeltaDQ 128x at its other sites, so its codec group is
@@ -1613,7 +1641,11 @@ def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
     from repro_torch.models import lm
     from repro_torch.utils import map_with_paths, tree_bytes
 
-    cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
+    store = ctx["eng"].store
+    # the fleet at CODECS_DEPTH of the 32 layers (views of the full model)
+    cfg, base, (t0_tree, t2_tree) = _first_layers(
+        ctx["cfg"], ctx["base"], [store.get("tenant0").deltas, store.get("tenant2").deltas],
+        CODECS_DEPTH)
     stream = _engine_stream(cfg)
     t0 = time.perf_counter()
     _, bd, bd_rep = synth_tenants(cfg, base, 1, [BitDeltaSpec()], seed=1)[0]   # noise 8
@@ -1627,9 +1659,9 @@ def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
         f"{tree_bytes(bd) / 1e9:.3f} GB packed; lowered in {lower_s:.1f} s to "
         f"{tree_bytes(bd_rt) / 1e9:.3f} GB of runtime arrays (h_g = keep = 128, "
         f"2-bit codes); {bd_rep.summary()}")
-    fleet = [("tenant0", store.get("tenant0").deltas), ("tenant1", bd_rt),
-             ("tenant2", store.get("tenant2").deltas)]
-    full = _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, "full depth")
+    fleet = [("tenant0", t0_tree), ("tenant1", bd_rt), ("tenant2", t2_tree)]
+    full = _mixed_vs_alone(torch, kern, cfg, base, fleet, stream,
+                           f"{CODECS_DEPTH} of {ctx['cfg'].n_layers} layers")
     del fleet, bd, bd_rt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1700,7 +1732,8 @@ def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
 
     report["codecs"] = {
         "bitdelta_compress_s": compress_s, "bitdelta_lower_s": lower_s,
-        "full_depth": {m: summary(r) for m, r in full.items()},
+        "fleet_depth": CODECS_DEPTH,
+        "fleet": {m: summary(r) for m, r in full.items()},
         "lowrank_depth": depth, "lowrank_leaves": list(LOWRANK_LEAVES),
         "lowrank_compress_s": lr_s, "lowrank_leaf_s": leaf_s,
         "lowrank_cut": {m: summary(r) for m, r in cut.items()},
@@ -2369,8 +2402,8 @@ def _window_chunked_checks(torch, lm, cfg, base, ref, stream, chunked, max_seq) 
 
 
 def phase_archs(torch, kern, report: dict) -> dict:
-    """gemma3-1b (at the depth ARCH_DEPTH cuts it to), gemma-7b and
-    phi3-medium-14b at full width and depth, one after the other (each
+    """gemma3-1b, gemma-7b and phi3-medium-14b at full width and the
+    depths ARCH_DEPTH cuts them to, one after the other (each
     freed before the next): random init from seed 0,
     3 tenants at the 128x spec compressed on the card, both correction
     kernels at the site new to them, and the engine: gemma-7b and phi3 on
@@ -3593,6 +3626,429 @@ def phase_train(torch, kern, report: dict) -> dict:
             "train:lifecycle": lc_launches}
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the serving mesh, its ranks sharing the one card
+# ---------------------------------------------------------------------------
+# (data, model) layouts the engine serves on; every wizard site's h_out
+# (4096, 11008) divides at model 2, so no site takes the replicated path
+MESH_LAYOUTS = ((1, 2), (2, 2))
+# the correction kernels' sites and rows: both delta_spmm routes (T = 2, 8
+# decode; 128 prefill) and the mixed step's segments layout
+MESH_SITES = {"wq": ("attn", "wq"), "wi": ("mlp", "wi"), "mlp_wo": ("mlp", "wo")}
+MESH_T = (2, 8, 128)
+# the rows the base GEMMs see on a rank: a decode step's 8 (data 1) or 4
+# (data 2) slots and the prefill buckets 64 and 128
+MESH_SLICE_T = (4, 8, 64, 128)
+# where cuBLAS gives a column slice other bits than the whole product, the
+# engine is held to this many of the 12 requests equal, and its logits,
+# as a share of max|logit|, to the single-card engine's: the static
+# prefill logits of every request to MESH_LOGITS_REL_TOL (each also nearer
+# its own tenant's than any other's), and every decode row that chose a
+# token, up to and including a request's first differing one (the same
+# history up to there; past it the two runs decode different sequences),
+# to MESH_DECODE_REL_TOL. Decode attends the bf16 ring, where K/V that
+# differ in their last f32 bits can round one bf16 step (2^-8) apart;
+# prefill attends them in f32. Readings on an H100 80GB HBM3 (700 W):
+# prefill 4.550e-5, decode 4.302e-3 at (1, 2). The phase's control, each
+# tenant's delta slice swapped between the two model ranks, read 1.594
+# and must land above both bounds.
+MESH_MIN_EQUAL = 10
+MESH_LOGITS_REL_TOL = 1e-3
+MESH_DECODE_REL_TOL = 2e-2
+# each world's deadline; a rank's collectives time out after RANK_TIMEOUT_S
+MESH_WORLD_TIMEOUT_S = 420.0
+
+
+def _mesh_slice_check(torch, base) -> list:
+    """cuBLAS on a column slice: ``x @ W[:, cols]`` against ``(x @ W)[:,
+    cols]`` at the wizard sites and the rows a rank's base GEMMs see, under
+    the engine's dtype rule (f32 activations against the bf16 weight)."""
+    from repro_torch.core.apply import _matmul
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(77)
+    out = []
+    for site, (stack, name) in MESH_SITES.items():
+        w = base[stack][name][0]
+        h_in, h_out = w.shape
+        n = h_out // 2
+        for T in MESH_SLICE_T:
+            x = torch.randn(T, h_in, generator=gen, device=DEVICE)
+            full = _matmul(x, w)
+            parts = torch.cat([_matmul(x, w[:, m * n:(m + 1) * n].contiguous())
+                               for m in range(2)], dim=-1)
+            eq = torch.equal(parts, full)
+            diff = (parts - full).abs().max().item()
+            out.append({"site": site, "T": T, "equal": eq, "max_abs_diff": diff})
+            log(f"[mesh] cuBLAS column slice {site} {h_in}x{h_out} T={T}: halves "
+                f"{'bit-equal to' if eq else 'DIFFER from'} the whole product "
+                f"(max |diff| {diff:.3e})")
+    return out
+
+
+def _mesh_correction_check(torch, ops, store) -> dict:
+    """The sharded correction (``ops.delta_correction_sharded`` on each
+    rank's column slice, the kernels on the card) against the single-card
+    kernel, bit for bit: a shared delta at every MESH_SITES site and T,
+    and the mixed step's segments layout, global and per data shard."""
+    import numpy as np
+    from repro_torch.core.apply import dget, stack_tenant_deltas, zero_delta_like
+    from repro_torch.launch.mesh import ServingMesh, shard_delta
+    from repro_torch.serve.scheduler import tenant_segments, tenant_segments_sharded
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(78)
+    views = [ServingMesh.view(1, 2, model_index=m) for m in range(2)]
+    rows_out, worst = [], 0.0
+    for site, (stack, name) in MESH_SITES.items():
+        d = dget(store.get("tenant0").deltas, stack, name).index(0)
+        cuts = [shard_delta(d, v) for v in views]
+        for T in MESH_T:
+            x = torch.randn(T, d.h_in, generator=gen, device=DEVICE)
+            want = ops.delta_spmm(x, d)
+            got = torch.cat([ops.delta_correction_sharded(x, c, v)
+                             for c, v in zip(cuts, views)], dim=-1)
+            eq = torch.equal(got, want)
+            worst = max(worst, (got - want).abs().max().item())
+            route = "prefill" if T >= ops.PREFILL_MIN_T else "decode"
+            log(f"[mesh] sharded correction {site} T={T} ({route} route): 2 column "
+                f"slices {'bit-equal to' if eq else 'DIFFER from'} the single-card kernel")
+            rows_out.append({"site": site, "T": T, "route": route, "layout": "shared",
+                             "equal": eq})
+            if not eq:
+                fail(f"[mesh] sharded correction at {site} T={T} differs from the "
+                     "single-card kernel")
+    # the mixed step: rows over {base, tenant0..2}, segments per tenant
+    trees = [dget(store.get(f"tenant{i}").deltas, "mlp", "wi") for i in range(3)]
+    layer0 = [t.index(0) for t in trees]
+    stk = stack_tenant_deltas([zero_delta_like(layer0[0])] + layer0)
+    rows = np.asarray(MIXED_SLOT_ROWS, np.int32)
+    x = torch.randn(len(rows), stk.h_in, generator=gen, device=DEVICE)
+    seg = tenant_segments(rows, skip_zero_row=True).to(DEVICE)
+    xs = x[seg.order]
+    want = ops.delta_spmm_segments(xs, stk, seg.seg_rows, seg.seg_offsets)
+    cuts = [shard_delta(stk, v) for v in views]
+    got = torch.cat([ops.delta_correction_sharded(xs, c, v,
+                                                  segments=(seg.seg_rows, seg.seg_offsets))
+                     for c, v in zip(cuts, views)], dim=-1)
+    eq_g = torch.equal(got, want)
+    seg2 = tenant_segments_sharded(rows, 2, skip_zero_row=True).to(DEVICE)
+    order, _ = seg2.global_order()
+    want2 = ops.delta_spmm_segments(x[order], stk, *seg2.global_segments())
+    eq_p = True
+    for dpool in range(2):
+        vs = [ServingMesh.view(2, 2, data_index=dpool, model_index=m) for m in range(2)]
+        xp = x[dpool * 4:(dpool + 1) * 4][seg2.order[dpool]]
+        gp = torch.cat([ops.delta_correction_sharded(
+            xp, shard_delta(stk, v), v, segments=(seg2.seg_rows, seg2.seg_offsets))
+            for v in vs], dim=-1)
+        eq_p &= torch.equal(gp, want2[dpool * 4:(dpool + 1) * 4])
+    rows_out += [{"site": "wi", "T": len(rows), "layout": "mixed, global", "equal": eq_g},
+                 {"site": "wi", "T": len(rows), "layout": "mixed, per data shard",
+                  "equal": eq_p}]
+    log(f"[mesh] sharded segments at wi, the mixed step's 8 rows over base+3 tenants: "
+        f"global layout {'bit-equal' if eq_g else 'DIFFERS'}, per-data-shard layout "
+        f"(2 pools x 2 column slices) {'bit-equal' if eq_p else 'DIFFERS'}")
+    if not (eq_g and eq_p):
+        fail("[mesh] the sharded segments correction differs from the single-card kernel")
+    return {"checks": rows_out, "worst_abs": worst}
+
+
+def _capture_decode_logits(eng, lm) -> tuple:
+    """Record, at each of ``eng``'s decode steps, the logits row that
+    chooses each active slot's next token on this process's rows, keyed
+    by (request id, token index); -> (records, the function that takes
+    the recorder off again)."""
+    real = lm.decode_step
+    records = {}
+
+    def recorded(*args, **kw):
+        logits, cache = real(*args, **kw)
+        lo, hi = eng._here
+        for slot in eng.sched.active_slots():
+            if lo <= slot < hi:
+                req = eng.sched.slots[slot].request
+                records[(req.rid, len(req.tokens))] = logits[slot - lo].float().cpu().numpy()
+        return logits, cache
+
+    lm.decode_step = recorded
+    return records, lambda: setattr(lm, "decode_step", real)
+
+
+def _rel(a, b) -> float:
+    """max|a - b| as a share of max|b|."""
+    import numpy as np
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _mesh_rank(rank: int, world: int, device: str, data: int, cfg, base, tenants,
+               stream, control_idx) -> dict:
+    """One rank of a [mesh] world: the continuous engine on a (data,
+    world/data) mesh over the [engine] stream, with the launch counts set
+    to 0 just before its run and read just after, its peak memory, the
+    decode logits that chose each token (ranks of model index 0, their
+    pool's rows), the static prefill logits of every request, and those
+    of ``control_idx``'s requests with each tenant's delta slice swapped
+    for the next model rank's (the control)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.apply import ColumnShard
+    from repro_torch.core.compress import is_compressible
+    from repro_torch.core.pack import PackedDelta
+    from repro_torch.kernels import delta_spmm as kern
+    from repro_torch.launch.mesh import ServingMesh, make_serving_mesh, shard_delta_tree
+    from repro_torch.models import lm
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+    from repro_torch.utils import iter_leaves, materialize
+
+    cuda = device == "cuda"
+    mesh = make_serving_mesh(world, data=data, device=device)
+    # does this build's gloo gather CUDA tensors itself? (the mesh stages
+    # them through host memory either way)
+    probe = "not gloo on CUDA tensors"
+    if mesh.backend == "gloo" and cuda:
+        # gloo's all_gather on CUDA tensors, which the mesh's gathers use:
+        # each model rank's index comes back in order
+        t = torch.full((2,), float(mesh.index("model")), device=device)
+        parts = [torch.empty_like(t) for _ in range(mesh.shape["model"])]
+        dist.all_gather(parts, t, group=mesh.device_mesh.get_group("model"))
+        got = [p.tolist() for p in parts]
+        ok = got == [[float(m)] * 2 for m in range(mesh.shape["model"])]
+        probe = f"gloo all_gather on CUDA tensors {'right' if ok else f'WRONG: {got}'}"
+    if cuda:
+        kern.build()
+        torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        eng = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                               clock=VirtualClock(tick=ENGINE_TICK), mesh=mesh)
+        for name, deltas in tenants:
+            eng.register_tenant(name, deltas)
+        held_gb = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+        # no site on the replicated fallback: every compressible weight is
+        # this rank's column slice, every stacked delta leaf its slice too
+        sites = [p for p, s in iter_leaves(lm.param_specs(cfg))
+                 if is_compressible(p, materialize({"w": s})["w"])]
+        cut = {"weights": sum(isinstance(l, ColumnShard) for _, l in iter_leaves(eng.base)),
+               "sites": len(sites),
+               "delta_leaves": [l.shards for g in eng._groups
+                                for _, l in iter_leaves(g.stacked)
+                                if isinstance(l, PackedDelta)]}
+        handles = [eng.submit(t, p, max_new_tokens=ENGINE_NEW, arrival=a)
+                   for t, p, a in stream]
+        decoded, uncapture = _capture_decode_logits(eng, lm)
+        if cuda:
+            torch.cuda.synchronize()
+        kern.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rep = eng.run().report()
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            uncapture()
+        wall = time.perf_counter() - t0
+        launches, routes = dict(kern.LAUNCHES), dict(kern.ROUTES)
+        of_rid = {h.rid: i for i, h in enumerate(handles)}
+        decoded = {(of_rid[rid], j): v for (rid, j), v in decoded.items()}
+
+        # static prefill logits through the sharded model (every rank, so
+        # each model group's gathers pair up)
+        def prefill(i, deltas):
+            row = eng.kv.empty_row()
+            out, _ = lm.prefill(cfg, eng.base, {"tokens": torch.as_tensor(
+                stream[i][1], dtype=torch.int64, device=device)[None]}, row, deltas=deltas)
+            return out[0].float().cpu().numpy()
+
+        eng._install_mesh()
+        logits = {i: prefill(i, eng._prefill_deltas(stream[i][0]))
+                  for i in range(len(stream))}
+        m, n_model = mesh.index("model"), mesh.shape["model"]
+        other = ServingMesh.view(data, n_model, data_index=mesh.index("data"),
+                                 model_index=(m + 1) % n_model)
+        full = dict(tenants)
+        control = {i: prefill(i, shard_delta_tree(full[stream[i][0]], other))
+                   for i in control_idx}
+    return {"coords": mesh.coords, "backend": mesh.backend, "transport": mesh.transport,
+            "probe": probe, "tokens": {i: np.asarray(h.output()) for i, h in enumerate(handles)},
+            "done": all(h.done for h in handles), "launches": launches, "routes": routes,
+            "cut": cut,
+            "decode_steps": rep["decode_steps"], "prefills": rep["prefills"],
+            "wall_s": wall, "held_gb": held_gb,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+            "decoded": decoded if m == 0 else None,
+            "logits": logits if rank == 0 else None,
+            "control": control if rank == 0 else None}
+
+
+def phase_mesh(torch, kern, ctx: dict, report: dict) -> dict:
+    """The serving mesh at full wizard-llama2-7b width with ranks that
+    share the one card (gloo; NCCL refuses two ranks on one device): the
+    cuBLAS column-slice check, the sharded correction against the
+    single-card kernel, then the continuous engine on meshes (1, 2) and
+    (2, 2) over the [engine] stream against the single-card [engine]
+    tokens. The ranks get the base and the tenants from this process by
+    CUDA IPC and cut their slices once. No time here measures a mesh: the
+    ranks share one card and gloo moves their gathers through host
+    memory."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import RANK_TIMEOUT_S, run_ranks
+    from repro_torch.models import lm
+    from repro_torch.serve import ContinuousEngine, VirtualClock
+
+    cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
+    sites = 7 * cfg.n_layers
+    slices = _mesh_slice_check(torch, base)
+    bits_equal = all(s["equal"] for s in slices)
+    corr = _mesh_correction_check(torch, ops, store)
+    stream = _engine_stream(cfg)
+    names = (None, "tenant0", "tenant1", "tenant2")
+    single = {int(i): np.asarray(t) for i, t in report["engine"]["tokens"].items()}
+    tenants = [(t.name, t.deltas) for t in store.ordered()]
+    control_idx = [i for i in range(len(names)) if stream[i][0] is not None]
+    # the single-card references: every request's static prefill logits
+    # under each of base, tenant0..2, and the [engine] stream served again
+    # with the decode logits that chose each token recorded
+    want = {}
+    with torch.inference_mode():
+        for i, (_, prompt, _) in enumerate(stream):
+            for name in names:
+                row = lm.init_cache(cfg, 1, ENGINE_MAX_SEQ, device=DEVICE)
+                out, _ = lm.prefill(cfg, base, {"tokens": torch.as_tensor(
+                    prompt, dtype=torch.int64, device=DEVICE)[None]}, row,
+                    deltas=store.get(name).deltas if name else None)
+                want[i, name] = out[0].float().cpu().numpy()
+        ce = ContinuousEngine(cfg, base, n_slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                              store=store, clock=VirtualClock(tick=ENGINE_TICK))
+        handles = [ce.submit(t, p, max_new_tokens=ENGINE_NEW, arrival=a) for t, p, a in stream]
+        single_dec, uncapture = _capture_decode_logits(ce, lm)
+        try:
+            ce.run()
+        finally:
+            uncapture()
+    of_rid = {h.rid: i for i, h in enumerate(handles)}
+    single_dec = {(of_rid[rid], j): v for (rid, j), v in single_dec.items()}
+    if any(not np.array_equal(h.output(), single[i]) for i, h in enumerate(handles)):
+        fail("[mesh] the single-card engine served again differs from its [engine] run")
+    del ce, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"slice_check": slices, "correction": corr, "layouts": {}}
+    launches_by = {}
+    for data, model in MESH_LAYOUTS:
+        world = data * model
+        tag = f"({data}, {model})"
+        t0 = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, world,
+                          (DEVICE, data, cfg, base, tenants, stream, control_idx),
+                          device=DEVICE, timeout_s=MESH_WORLD_TIMEOUT_S,
+                          rank_timeout_s=RANK_TIMEOUT_S)
+        spawn_wall = time.perf_counter() - t0
+        if DEVICE == "cuda":
+            torch.cuda.ipc_collect()  # the ranks are gone: free their IPC handles
+        r0 = ranks[0]
+        log(f"[mesh] {tag}: {world} ranks on one card, backend {r0['backend']}, "
+            f"transport: {r0['transport']} ({r0['probe']})")
+        if "WRONG" in r0["probe"]:
+            fail(f"[mesh] {tag}: {r0['probe']}")
+        for r in ranks:
+            if not r["done"]:
+                fail(f"[mesh] {tag}: rank {r['coords']} left requests unfinished")
+            for i in range(len(stream)):
+                if not np.array_equal(r["tokens"][i], r0["tokens"][i]):
+                    fail(f"[mesh] {tag}: rank {r['coords']} disagrees with rank 0 "
+                         f"on request {i}")
+        cut = r0["cut"]
+        log(f"[mesh] {tag}: {cut['weights']} of {cut['sites']} compressible weights are "
+            f"column slices, {sum(s == model for s in cut['delta_leaves'])} of "
+            f"{len(cut['delta_leaves'])} stacked delta leaves cut in {model}")
+        if cut["weights"] != cut["sites"] or any(s != model for s in cut["delta_leaves"]):
+            fail(f"[mesh] {tag}: a site took the replicated fallback: {cut}")
+        equal = [i for i in range(len(stream)) if np.array_equal(r0["tokens"][i], single[i])]
+        own = {i: stream[i][0] for i in range(len(stream))}
+        rel = max(_rel(r0["logits"][i], want[i, own[i]]) for i in own)
+        # each request's prefill logits nearer its own tenant's than any other's
+        astray = [(i, other) for i in own for other in names if other != own[i] and
+                  np.abs(r0["logits"][i] - want[i, other]).max() <=
+                  np.abs(r0["logits"][i] - want[i, own[i]]).max()]
+        # the decode rows up to and including each request's first differing
+        # token, from the pools' ranks of model index 0
+        mesh_dec = {k: v for r in ranks if r["decoded"] is not None
+                    for k, v in r["decoded"].items()}
+        dec = {}
+        for i in own:
+            j = _first_mismatch(r0["tokens"][i], single[i])
+            for step in range(1, ENGINE_NEW if j is None else j + 1):
+                dec[i, step] = _rel(mesh_dec[i, step], single_dec[i, step])
+        dec_rows = len(dec)
+        dec_worst = max(dec, key=dec.get) if dec else None
+        dec_rel = dec[dec_worst] if dec else 0.0
+        dec_median = float(np.median(list(dec.values()))) if dec else 0.0
+        differ = {i: _first_mismatch(r0["tokens"][i], single[i])
+                  for i in own if i not in equal}
+        ctl_rel = max(_rel(r0["control"][i], want[i, own[i]]) for i in control_idx)
+        ctl_astray = [(i, other) for i in control_idx for other in names
+                      if other != own[i] and np.abs(r0["control"][i] - want[i, other]).max()
+                      <= np.abs(r0["control"][i] - want[i, own[i]]).max()]
+        ctl_caught = ctl_rel > max(MESH_LOGITS_REL_TOL, MESH_DECODE_REL_TOL) or \
+            bool(ctl_astray)
+        summed = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+        routes = {k: sum(r["routes"][k] for r in ranks) for k in r0["routes"]}
+        steps = r0["decode_steps"]
+        want_launches = {"delta_spmm": model * sites * len(stream),
+                         "delta_spmm_segments": world * sites * steps,
+                         "fused_base_delta": 0, "dequant": 0}
+        log(f"[mesh] {tag}: tokens equal to the single-card engine for {len(equal)}/"
+            f"{len(stream)} requests (the rest differ first at token {differ}); logits "
+            f"rel of max|logit|: static prefill {rel:.3e} (bound {MESH_LOGITS_REL_TOL}; "
+            f"all {len(stream)} requests; nearer another tenant: {astray or 'none'}), "
+            f"decode {dec_rel:.3e} at (request, token) {dec_worst}, median {dec_median:.3e} "
+            f"(bound {MESH_DECODE_REL_TOL}; {dec_rows} rows up to each request's first "
+            f"differing token); control, "
+            f"each tenant's delta slice swapped between the model ranks: {ctl_rel:.3e}, "
+            f"nearer another tenant {len(ctl_astray)}/{3 * len(control_idx)} "
+            f"({'caught' if ctl_caught else 'NOT CAUGHT'} by the gate); launches summed "
+            f"over ranks {summed} (expected {want_launches}), routes {routes}; "
+            f"{steps} decode steps")
+        log(f"[mesh] {tag}: peak memory by rank " + ", ".join(
+            f"{r['coords']}: {r['peak_gb']:.2f} GB ({r['held_gb']:.2f} GB held after "
+            "registration)" for r in ranks) + "; the base and the tenants' full trees "
+            "stay in this process, shared by IPC")
+        log(f"[mesh] {tag}: engine wall {r0['wall_s']:.2f} s on rank 0, world "
+            f"{spawn_wall:.1f} s with spawn — ranks sharing one card, gathers through "
+            "host memory: no measure of a mesh's speed")
+        if summed != want_launches:
+            fail(f"[mesh] {tag}: launches {summed}, expected {want_launches}")
+        if not ctl_caught:
+            fail(f"[mesh] {tag}: the control (swapped delta slices) passes the gate: "
+                 f"logits rel {ctl_rel:.3e}")
+        if astray:
+            fail(f"[mesh] {tag}: prefill logits nearer another tenant's: {astray}")
+        if bits_equal:
+            if len(equal) != len(stream) or rel != 0.0 or dec_rel != 0.0:
+                fail(f"[mesh] {tag}: {len(equal)}/{len(stream)} requests equal, logits "
+                     f"rel {rel:.3e} / {dec_rel:.3e}; the column slices are bit-equal, "
+                     "so all must be")
+        elif (len(equal) < MESH_MIN_EQUAL or rel > MESH_LOGITS_REL_TOL
+              or dec_rel > MESH_DECODE_REL_TOL):
+            fail(f"[mesh] {tag}: {len(equal)}/{len(stream)} requests equal (floor "
+                 f"{MESH_MIN_EQUAL}), logits rel prefill {rel:.3e} (bound "
+                 f"{MESH_LOGITS_REL_TOL}), decode {dec_rel:.3e} (bound {MESH_DECODE_REL_TOL})")
+        out["layouts"][tag] = {
+            "backend": r0["backend"], "transport": r0["transport"], "probe": r0["probe"],
+            "equal_requests": len(equal), "logits_rel": rel, "decode_logits_rel": dec_rel,
+            "decode_rows": dec_rows, "decode_logits_median": dec_median,
+            "decode_worst_at": dec_worst, "first_differing_token": differ,
+            "control_logits_rel": ctl_rel,
+            "control_astray": len(ctl_astray), "launches": summed,
+            "routes": routes, "decode_steps": steps, "wall_s": r0["wall_s"],
+            "world_s": spawn_wall,
+            "peak_gb": {str(r["coords"]): r["peak_gb"] for r in ranks}}
+        launches_by[f"mesh:{data}x{model}"] = summed
+    report["mesh"] = out
+    return launches_by
+
+
 def kernel_times(torch) -> list:
     """``--kernel-times``: device times of the decode-side correction
     kernels alone (delta_spmm at DECODE_T, the three segments layouts) at
@@ -3780,6 +4236,8 @@ def main(argv: list) -> int:
             phase_done("storage")
             phase_groupsearch(torch, ctx, report)
             phase_done("groupsearch")
+            mesh_launches = phase_mesh(torch, kern, ctx, report)
+            phase_done("mesh")
             main_launches, merge_launches = ctx["launches"], ctx["merge_launches"]
             ctx.clear()          # frees the base, the engine and the tenants
             torch.cuda.empty_cache()
@@ -3810,7 +4268,7 @@ def main(argv: list) -> int:
         "storage": storage_launches, "generate": main_launches,
         "mixed_step": mixed_launches, "merge": merge_launches,
         "quickstart": quickstart_launches, "demo": demo_launches, **arch_launches,
-        **moe_launches, **families_launches, **train_launches})
+        **moe_launches, **families_launches, **train_launches, **mesh_launches})
     report["kernels"] = entries
     _write_report(report, t_start)
     log(f"[done] {report['wall_s']:.1f} s")

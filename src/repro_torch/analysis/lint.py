@@ -38,8 +38,8 @@ DL005     (The reference's recompile-risk ``jax.jit`` patterns: a jit
           of the contract (new call signatures of the engine's entry
           points).
 DL006     A class registered via ``register_codec`` must implement the
-          port's DeltaCodec protocol surface (``leaf_axes`` waits for the
-          mesh, so it is not part of it yet) — a partial codec fails at
+          DeltaCodec protocol surface (``leaf_spec`` and its sharding
+          twin ``leaf_axes`` included) — a partial codec fails at
           serving time deep inside pack/apply instead of at
           registration.
 DL007     Deterministic storage paths (``core/pack.py``,
@@ -372,10 +372,10 @@ def _finish_dl004(ctxs: List[_FileCtx]) -> None:
 # ---------------------------------------------------------------------------
 # DL006 — register_codec protocol completeness
 # ---------------------------------------------------------------------------
-# the reference's surface less leaf_axes, the sharding twin the mesh brings
+# the reference's surface (``repro/analysis/lint.py:423``)
 _CODEC_METHODS = {
     "compress_leaf", "reconstruct_dense", "runtime_packed", "storage_bits",
-    "to_storage_parts", "from_storage_parts", "leaf_spec",
+    "to_storage_parts", "from_storage_parts", "leaf_spec", "leaf_axes",
 }
 _CODEC_ATTRS = {"name", "spec_cls", "leaf_cls"}
 _PROTOCOL_ROOTS = {"DeltaCodec"}    # bases whose stubs don't count

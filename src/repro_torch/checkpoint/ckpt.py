@@ -107,8 +107,8 @@ class Checkpointer:
         template leaf's device). -> (state, manifest)."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=): elastic re-meshing needs the port's mesh "
-                "(ROADMAP item 10); restore onto one device")
+                "restore(shardings=): elastic re-meshing comes with the training "
+                "mesh (ROADMAP item 8); restore onto one device")
         path = self._step_dir(step)
         with open(os.path.join(path, _MANIFEST)) as f:
             manifest = json.load(f)

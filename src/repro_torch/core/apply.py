@@ -1,7 +1,7 @@
 """Delta application — the paper's separate-computation scheme (§3.1, Fig. 3).
 
-Port of ``repro/core/apply.py`` without the mesh. Every linear site
-routes through :func:`apply_linear`:
+Port of ``repro/core/apply.py``. Every linear site routes through
+:func:`apply_linear`:
 
     y = x @ W_base            (+ x @ dequant(packed delta)   if delta given)
 
@@ -18,6 +18,23 @@ leading axis (:func:`stack_tenant_deltas`) and wraps each leaf in a
 Tenants whose packings differ (codec, group size, quantization width)
 are stacked per compatible group, and :class:`MultiSlotDelta` sums the
 groups' corrections.
+
+Mesh mode (:func:`set_mesh`, installed per step by a mesh engine): one
+process per rank of a ``launch.mesh.ServingMesh``. A column-parallel
+weight is this rank's :class:`ColumnShard`; :func:`apply_linear` computes
+its local output columns (base product plus the correction of this
+rank's delta slice, ``ops.delta_correction_sharded``) and all-gathers
+them over ``model`` right after the site (:func:`_replicated`), so every
+activation is whole again and every matmul reduces over the full
+contraction locally, in the single-card order: a rank's columns equal
+the unsharded site's bit for bit. Where the ring holds this rank's
+kv-heads, q/k/v are its own columns of wq/wk/wv, not gathered
+(:func:`local_linear`), and the attention output is gathered over heads
+(:func:`gather_heads`); ssm and rg-lru states stay whole, each rank
+running the whole mixer. With a ``data`` axis > 1 a
+rank computes only its slot pool's rows: the per-data-shard
+:class:`ShardedTenantSegments` layout hands it its pool's block
+(:func:`_row_sharded`).
 """
 from __future__ import annotations
 
@@ -29,11 +46,96 @@ import torch
 
 from repro_torch.core.pack import PackedDelta, reconstruct_dense
 
+# Active serving mesh (a ``launch.mesh.ServingMesh``), installed by a mesh
+# engine before each of its steps (``ContinuousEngine._install_mesh``), so
+# mesh and plain engines coexist in one process. One mesh at a time.
+_MESH = None
+
+
 def _note(site: str, **attrs) -> None:
     """Report the chosen dispatch to an open trace context (no-op
     otherwise)."""
     from repro_torch.serve.trace import note_path
     note_path(site, **attrs)
+
+
+def set_mesh(mesh) -> None:
+    """Install (or clear, with None) the process-wide serving mesh."""
+    global _MESH
+    _MESH = mesh
+
+
+def get_mesh():
+    return _MESH
+
+
+class ColumnShard:
+    """This model rank's output-column slice of a column-parallel weight:
+    ``local`` holds columns ``[m * O/shards, (m + 1) * O/shards)`` of the
+    ``[..., h_in, O]`` weight (``launch.mesh.shard_tree`` cuts it once,
+    contiguous). Indexing slices the leading (layer) axes, as a tensor's
+    would; :func:`apply_linear` and :func:`apply_linear_batched` take it
+    in place of the weight."""
+
+    __slots__ = ("local", "shards")
+
+    def __init__(self, local: torch.Tensor, shards: int):
+        self.local = local
+        self.shards = int(shards)
+
+    def __getitem__(self, i) -> "ColumnShard":
+        return ColumnShard(self.local[i], self.shards)
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A column-parallel site's local output columns, all-gathered along
+    the last axis over ``model``: the reference's replicated-activation
+    pin (``repro/core/apply.py::_replicated``) as the collective it
+    implies. Every matmul after it contracts the whole activation
+    locally, in the single-card order."""
+    if _MESH is None:
+        return t
+    return _MESH.all_gather(t, "model", dim=-1)
+
+
+def _sharded_correction(x: torch.Tensor, d: PackedDelta, **kw):
+    """This rank's correction columns, or None where the mesh path does
+    not apply (``ops.delta_correction_sharded``)."""
+    if _MESH is None:
+        return None
+    from repro_torch.kernels import ops
+    return ops.delta_correction_sharded(x, d, _MESH, **kw)
+
+
+def _own_columns(t: torch.Tensor) -> torch.Tensor:
+    """This model rank's contiguous ``1/model`` of ``t``'s last axis."""
+    n = t.shape[-1] // _MESH.shape["model"]
+    m = _MESH.index("model")
+    return t[..., m * n:(m + 1) * n]
+
+
+def local_linear(x: torch.Tensor, w, d=None) -> torch.Tensor:
+    """:func:`apply_linear`'s output columns of this model rank alone (its
+    contiguous ``1/model`` of them), with no gather: a column slice's own
+    product and correction, or a whole weight's result cut. The q/k/v
+    projections that feed a ring sharded on kv-heads take it."""
+    if _MESH is None:
+        raise ValueError("a rank's own columns need the mesh installed "
+                         "(core.apply.set_mesh)")
+    if isinstance(w, ColumnShard):
+        if w.shards != _MESH.shape["model"]:
+            raise ValueError(f"a weight cut in {w.shards} under a model axis of "
+                             f"{_MESH.shape['model']}")
+        return _column_parallel(x, w, d, _matmul, gather=False)
+    return _own_columns(apply_linear(x, w, d))
+
+
+def gather_heads(out: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Attention output ``[B, S, H_local, D]`` of this rank's heads ->
+    all ``n_heads``, gathered over ``model`` in head order."""
+    if out.shape[2] == n_heads:
+        return out
+    return _MESH.all_gather(out, "model", dim=2)
 
 
 def _pinned(c: torch.Tensor) -> torch.Tensor:
@@ -77,6 +179,68 @@ class TenantSegments:
             return torch.as_tensor(a).to(device=device, dtype=torch.int64)
         return TenantSegments(t(self.order), t(self.inv_order),
                               t(self.seg_rows), t(self.seg_offsets))
+
+
+@dataclass
+class ShardedTenantSegments:
+    """Per-data-shard tenant-segment layout (``data > 1`` decode).
+
+    Built host-side by ``serve.scheduler.tenant_segments_sharded``: each
+    contiguous shard pool of B_s = B / D slots sorts its own rows by
+    tenant and carries its own (pool-local) segment list:
+
+      order       int [D, B_s]    pool-LOCAL row permutation
+      inv_order   int [D, B_s]    its inverse (also pool-local)
+      seg_rows    int [D, B_s]    tenant row per segment (padding 0)
+      seg_offsets int [D, B_s+1]  pool-local half-open ranges
+
+    A mesh rank of data index i computes only pool i's rows, so it takes
+    block i (:meth:`block`) and decodes only the tenants its pool hosts;
+    :meth:`global_order` / :meth:`global_segments` flatten the layout to
+    the equivalent single-pool form (block-diagonal permutation,
+    concatenated segment runs) for a run over all B rows — the same
+    permutation and the same per-row bits.
+    """
+    order: Any
+    inv_order: Any
+    seg_rows: Any
+    seg_offsets: Any
+
+    @property
+    def data_shards(self) -> int:
+        return self.order.shape[0]
+
+    def to(self, device) -> "ShardedTenantSegments":
+        def t(a):
+            return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+        return ShardedTenantSegments(t(self.order), t(self.inv_order),
+                                     t(self.seg_rows), t(self.seg_offsets))
+
+    def block(self, i: int) -> TenantSegments:
+        """Pool i's own layout, over its B_s rows."""
+        return TenantSegments(self.order[i], self.inv_order[i],
+                              self.seg_rows[i], self.seg_offsets[i])
+
+    def global_order(self) -> tuple:
+        """(order, inv_order) over all B rows: the per-pool permutations
+        shifted by each pool's base offset (never crossing a pool)."""
+        D, Bs = self.order.shape
+        base = (torch.arange(D, dtype=self.order.dtype,
+                             device=self.order.device) * Bs)[:, None]
+        return ((self.order + base).reshape(D * Bs),
+                (self.inv_order + base).reshape(D * Bs))
+
+    def global_segments(self) -> tuple:
+        """(seg_rows [B], seg_offsets [B+1]) over all B rows: each pool's
+        padding segments collapse onto its end boundary, so offsets stay
+        monotone and segments never cross a pool."""
+        D, Bs = self.seg_rows.shape
+        B = D * Bs
+        base = (torch.arange(D, dtype=self.seg_offsets.dtype,
+                             device=self.seg_offsets.device) * Bs)[:, None]
+        so = torch.cat([(self.seg_offsets[:, :Bs] + base).reshape(B),
+                        self.seg_offsets.new_full((1,), B)])
+        return self.seg_rows.reshape(B), so
 
 
 @dataclass
@@ -158,24 +322,45 @@ def combine_slot_deltas(wrapped: list) -> Any:
     return merge(*wrapped)
 
 
+def _row_sharded(seg, rows: int) -> tuple:
+    """The (order, inv_order, seg_rows, seg_offsets) a run over ``rows``
+    batch rows takes from a segment layout: a mesh rank of a ``data``
+    axis > 1 computes only its pool's rows and takes its pool's block of
+    a :class:`ShardedTenantSegments` (the reference pins the sorted rows
+    over ``data`` instead); a run over all rows takes the flattened
+    global form; a :class:`TenantSegments` is taken as it is."""
+    if not isinstance(seg, ShardedTenantSegments):
+        return seg.order, seg.inv_order, seg.seg_rows, seg.seg_offsets
+    if _MESH is not None and _MESH.shape.get("data", 1) == seg.data_shards > 1:
+        if rows != seg.order.shape[1]:
+            raise ValueError(f"a data rank computes its pool's {seg.order.shape[1]} "
+                             f"rows, got {rows}")
+        b = seg.block(_MESH.index("data"))
+        return b.order, b.inv_order, b.seg_rows, b.seg_offsets
+    order, inv_order = seg.global_order()
+    return (order, inv_order, *seg.global_segments())
+
+
 def _segment_dispatch(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
     """Unique-tenant correction: sort rows by tenant, decode each unique
     delta once, apply per segment, unsort. x [B, ..., h_in]."""
     from repro_torch.kernels import ops
-    seg = sd.segments
     d = sd.delta
     B = x.shape[0]
     lead = x.shape[1:-1]
     tokens_per_row = math.prod(lead)
-    xs = x.index_select(0, seg.order)
+    order, inv_order, seg_rows, seg_offsets = _row_sharded(sd.segments, B)
+    xs = x.index_select(0, order)
     x2 = xs.reshape(B * tokens_per_row, d.h_in)
     # row ranges scale with the tokens folded out of each batch row
-    y2 = ops.delta_spmm_segments(x2, d, seg.seg_rows,
-                                 seg.seg_offsets * tokens_per_row,
-                                 values=sd.values, res_map=sd.res_map)
+    y2 = _sharded_correction(x2, d, segments=(seg_rows, seg_offsets * tokens_per_row),
+                             values=sd.values, res_map=sd.res_map)
+    if y2 is None:
+        y2 = ops.delta_spmm_segments(x2, d, seg_rows, seg_offsets * tokens_per_row,
+                                     values=sd.values, res_map=sd.res_map)
     # same dtype round-trip as every other path (no-op for f32)
     y = y2.reshape(B, *lead, d.h_out).to(x.dtype)
-    return y.index_select(0, seg.inv_order)
+    return y.index_select(0, inv_order)
 
 
 def slot_delta_matmul(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
@@ -188,7 +373,11 @@ def slot_delta_matmul(x: torch.Tensor, sd: SlotDelta) -> torch.Tensor:
         return _segment_dispatch(x, sd)
     _note("slot_dispatch", dispatch="per_row")
     from repro_torch.kernels import ops
-    return ops.delta_spmm_slots(x, sd.gather()).to(x.dtype)
+    g = sd.gather()
+    y = _sharded_correction(x, g)
+    if y is not None:
+        return y
+    return ops.delta_spmm_slots(x, g).to(x.dtype)
 
 
 def delta_matmul(x: torch.Tensor, d) -> torch.Tensor:
@@ -203,6 +392,9 @@ def delta_matmul(x: torch.Tensor, d) -> torch.Tensor:
         return y.to(x.dtype)
     if isinstance(d, SlotDelta):
         return slot_delta_matmul(x, d)
+    y = _sharded_correction(x, d)
+    if y is not None:
+        return y
     from repro_torch.kernels import ops
     # the kernel on the card, the gather formulation at decode-sized token
     # counts and dense reconstruction at prefill-sized ones on the CPU; the
@@ -210,9 +402,33 @@ def delta_matmul(x: torch.Tensor, d) -> torch.Tensor:
     return ops.delta_spmm(x, d).to(x.dtype)
 
 
+def _column_parallel(x: torch.Tensor, w: ColumnShard, d, product,
+                     gather: bool = True) -> torch.Tensor:
+    """A column-parallel site on this rank: ``product(x, local columns)``;
+    a correction of this rank's delta slice is added to those columns
+    before the gather, a whole (replicated) delta's after it — in f32
+    with one final rounding either way, each column as the single-card
+    site computes it. ``gather=False`` keeps this rank's columns (a whole
+    delta's correction cut to them)."""
+    y = product(x, w.local)
+    c = None if d is None else delta_matmul(x, d)
+    whole = c is not None and c.shape[-1] != y.shape[-1]
+    if whole and not gather:
+        c, whole = _own_columns(c), False
+    if whole:
+        y = _replicated(y)
+    if c is not None:
+        y = (y.to(torch.float32) + _pinned(c.to(torch.float32))).to(y.dtype)
+    return _replicated(y) if gather and not whole else y
+
+
 def apply_linear(x: torch.Tensor, w: torch.Tensor, d=None) -> torch.Tensor:
     """Base matmul plus (optionally) the tenant's delta correction, added
-    in f32 with ONE final rounding (``apply.py:488-493``)."""
+    in f32 with ONE final rounding (``apply.py:488-493``). A
+    :class:`ColumnShard` weight computes this rank's columns and gathers
+    them over the mesh's ``model`` axis."""
+    if isinstance(w, ColumnShard):
+        return _column_parallel(x, w, d, _matmul)
     y = _matmul(x, w)
     if d is not None:
         c = _pinned(delta_matmul(x, d).to(torch.float32))
@@ -240,7 +456,13 @@ def apply_linear_batched(x: torch.Tensor, w: torch.Tensor, d=None,
             "linear sites (MoE); serve these tenants via per-tenant grouping")
     from repro_torch.kernels import ops
     x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-    y = _matmul(x3, w)
+    if isinstance(w, ColumnShard):
+        # the expert stack's output columns on this rank, gathered after
+        # the site; a (whole) expert delta is added after the gather
+        y = _replicated(_matmul(x3, w.local))
+    else:
+        y = _matmul(x3, w)
+    h_out = y.shape[-1]
     if d is not None:
         if ops._device_kind(x3) == "cpu":
             _note("apply_linear_batched", formulation="experts-dense", codec=d.codec)
@@ -249,7 +471,7 @@ def apply_linear_batched(x: torch.Tensor, w: torch.Tensor, d=None,
         else:
             c = ops.delta_spmm_experts(x3, d, counts)
         y = (y.to(torch.float32) + _pinned(c.to(torch.float32))).to(y.dtype)
-    return y.reshape(*x.shape[:-1], w.shape[-1])
+    return y.reshape(*x.shape[:-1], h_out)
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,9 @@ at once.
 ``leaf_spec`` is the dry run's shape-only twin of ``compress_leaf``: the
 codec leaf whose array fields are ``(shape, dtype)`` pairs, the port's
 stand-in for ``jax.ShapeDtypeStruct`` (``utils.materialize`` allocates
-them, on the ``meta`` device for the dry run). ``leaf_axes`` (the
-sharding twin) waits for the mesh.
+them, on the ``meta`` device for the dry run). ``leaf_axes`` is its
+sharding twin: the same leaf with a tuple of logical axis names in each
+array field (``dist.sharding`` maps them to mesh axes).
 """
 from __future__ import annotations
 
@@ -302,6 +303,12 @@ class DeltaCodec:
         ``(shape, dtype)`` pairs for its arrays: nothing is compressed."""
         raise NotImplementedError
 
+    def leaf_axes(self, leaf, axes: tuple, spec, model_axis_size: int):
+        """The codec leaf that compressing a weight shaped like ``leaf``
+        with logical ``axes`` gives, with each array field's logical axes
+        (a tuple of names or None per dimension) in its place."""
+        raise NotImplementedError
+
     def planned_total_bits(self, shape: tuple, spec) -> Optional[float]:
         """``storage_bits(...)["total_bits"]`` of the leaf that compressing
         a weight of ``shape`` with ``spec`` would give, where the shapes
@@ -392,6 +399,21 @@ class DeltaDQCodec(DeltaCodec):
             h_in=h_in, h_out=h_out, h_g=hg, keep=keep, alpha=float(spec.alpha),
             k_bits=spec.k_bits, m=spec.m)
 
+    def leaf_axes(self, leaf, axes: tuple, spec: DeltaDQSpec,
+                  model_axis_size: int) -> PackedDelta:
+        """idx/codes ``[lead..., G, K, O]``: O takes the weight's output
+        axis; G its input axis only when group boundaries align with the
+        shard boundaries (G divisible by the mesh axis), else replicated;
+        scale/zero the lead axes (``repro/core/codecs.py:343``)."""
+        d = self.leaf_spec(leaf, spec)
+        lead_ax = tuple(axes[:-2])
+        in_ax, out_ax = axes[-2], axes[-1]
+        g_ax = in_ax if d.n_groups % max(model_axis_size, 1) == 0 else None
+        arr_ax = (*lead_ax, g_ax, None, out_ax)
+        return PackedDelta(idx=arr_ax, codes=arr_ax, scale=lead_ax, zero=lead_ax,
+                           h_in=d.h_in, h_out=d.h_out, h_g=d.h_g, keep=d.keep,
+                           alpha=d.alpha, k_bits=d.k_bits, m=d.m)
+
 
 # ---------------------------------------------------------------------------
 # BitDelta: sign bitmap + per-tensor scale (arXiv 2402.10193)
@@ -463,6 +485,15 @@ class BitDeltaCodec(DeltaCodec):
         lead, (h_in, h_out) = shape[:-2], shape[-2:]
         return BitDeltaLeaf(sign=((*lead, quant.packed_len(h_in, 1), h_out), torch.uint8),
                             scale=(lead, torch.float32), h_in=h_in, h_out=h_out)
+
+    def leaf_axes(self, leaf, axes: tuple, spec: BitDeltaSpec,
+                  model_axis_size: int) -> BitDeltaLeaf:
+        """sign ``[lead..., packed h_in, O]``: O takes the output axis; the
+        packed input axis replicates (``repro/core/codecs.py:432``)."""
+        d = self.leaf_spec(leaf, spec)
+        lead_ax = tuple(axes[:-2])
+        return BitDeltaLeaf(sign=(*lead_ax, None, axes[-1]), scale=lead_ax,
+                            h_in=d.h_in, h_out=d.h_out)
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +591,17 @@ class LowRankCodec(DeltaCodec):
             u=((*lead, h_in, spec.rank), torch.float32),
             v=((*lead, spec.rank, h_out), torch.float32),
             h_in=h_in, h_out=h_out, k_bits=spec.k_bits, rank=spec.rank)
+
+    def leaf_axes(self, leaf, axes: tuple, spec: LowRankSpec,
+                  model_axis_size: int) -> LowRankLeaf:
+        """codes and v take the output axis, u the input axis, the packed
+        and rank axes replicate (``repro/core/codecs.py:548``)."""
+        d = self.leaf_spec(leaf, spec)
+        lead_ax = tuple(axes[:-2])
+        in_ax, out_ax = axes[-2], axes[-1]
+        return LowRankLeaf(codes=(*lead_ax, None, out_ax), scale=lead_ax, zero=lead_ax,
+                           u=(*lead_ax, in_ax, None), v=(*lead_ax, None, out_ax),
+                           h_in=d.h_in, h_out=d.h_out, k_bits=d.k_bits, rank=d.rank)
 
     def planned_total_bits(self, shape: tuple, spec: LowRankSpec) -> float:
         return self._bits(shape[-2], shape[-1], spec.k_bits, spec.rank,

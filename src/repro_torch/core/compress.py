@@ -334,8 +334,7 @@ def delta_specs(param_specs: Any, spec: Any) -> Any:
     """``(shape, dtype)`` deltas tree mirroring a params tree of tensors
     or ``(shape, dtype)`` specs, for any registered codec's spec: each
     compressible leaf's ``codec.leaf_spec``, None elsewhere, as
-    :func:`compress` leaves it. The sharding twin (``delta_axes``) waits
-    for the mesh."""
+    :func:`compress` leaves it. Its sharding twin is :func:`delta_axes`."""
     c = codec_for_spec(spec)
 
     def fn(path: str, leaf):
@@ -344,3 +343,24 @@ def delta_specs(param_specs: Any, spec: Any) -> Any:
         return c.leaf_spec(leaf, spec)
 
     return map_with_paths(fn, param_specs)
+
+
+def delta_axes(param_specs: Any, param_axes: Any, spec: Any,
+               model_axis_size: int) -> Any:
+    """Logical-axes tree matching :func:`delta_specs`' structure
+    (``repro/core/compress.py:305``): each compressible leaf's
+    ``codec.leaf_axes`` from the base weight's axes, None elsewhere.
+
+    For DeltaDQ, idx/codes ``[lead..., G, K, O]``: O inherits the base
+    weight's output axis; the G (group) axis inherits the input axis only
+    when group boundaries align with the shard boundaries (G divisible by
+    the mesh axis) — else it replicates, which is cheap because deltas
+    are tiny (the paper's point). scale/zero inherit the lead axes."""
+    c = codec_for_spec(spec)
+
+    def fn(path: str, leaf, ax):
+        if not is_compressible(path, materialize(leaf)):
+            return None
+        return c.leaf_axes(leaf, ax, spec, model_axis_size)
+
+    return map_with_paths(fn, param_specs, param_axes)

@@ -34,6 +34,13 @@ class PackedDelta:
              when k_bits is None
       scale: f32, zero: int32 — per-matrix quant params, shape = stack dims
     Static meta: h_in, h_out, h_g, keep, alpha, k_bits, m, codec.
+
+    ``shards`` > 1 marks one rank's contiguous output-column slice of a
+    matrix cut over a serving mesh's ``model`` axis
+    (``launch.mesh.shard_delta``): the arrays and ``h_out`` are the
+    slice's, and the matrix has ``h_out * shards`` columns. Every route
+    decided by the matrix (the CPU gather/dense crossover) keys on that
+    global width, so a slice's columns get the unsharded matrix's bits.
     """
     idx: torch.Tensor
     codes: torch.Tensor
@@ -47,6 +54,7 @@ class PackedDelta:
     k_bits: Optional[int]
     m: int
     codec: str = "deltadq"
+    shards: int = 1
 
     # -- derived -----------------------------------------------------------
     @property

@@ -19,10 +19,14 @@ routed to its tenant's packed bytes). :func:`dequant` and
 fused kernels.
 
 Bit-identity note: the gather contraction is an elementwise multiply
-followed by ``sum`` over one merged (group, keep) axis — NOT a matmul or
-einsum, whose reduction order varies with the batch extent. A row's
-correction then has the same bits whether it is computed alone, in a
-tenant group or in a mixed slot batch. ``values=``/``res_map=`` (the
+followed by ``sum`` over one merged (group, keep) axis, laid out
+innermost — NOT a matmul or einsum, whose reduction order varies with
+the batch extent. Each output element then reduces one contiguous row in
+an order set by G*K alone: a row's correction has the same bits whether
+it is computed alone, in a tenant group or in a mixed slot batch, and a
+column's whether the matrix is whole or cut into output-column slices
+over a serving mesh (a sum over a non-innermost axis vectorizes across
+the columns, and its order then changes with their count). ``values=``/``res_map=`` (the
 pre-decoded residency tier) skip the code unpack and feed the same
 contraction, so resident rows keep those bits.
 """
@@ -54,14 +58,22 @@ def dense_correction(x2: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     return x2.to(torch.float32) @ reconstruct_dense(d)
 
 
+def _keep_last(t: torch.Tensor) -> torch.Tensor:
+    """[..., G, K, O] -> [..., O, G*K] contiguous: the reduced axis
+    innermost (see the module's bit-identity note)."""
+    lead = t.shape[:-3]
+    G, K, O = t.shape[-3:]
+    return t.reshape(*lead, G * K, O).transpose(-1, -2).contiguous()
+
+
 def gather_correction(x2: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     """x2 [T, h_in] -> [T, h_out] f32 without materializing the dense delta."""
-    vals = decode_values(d)                          # [G, K, O] f32
-    G, K, O = vals.shape
-    gidx = _flat_gather_idx(d, d.idx).reshape(-1)    # [G*K*O]
-    sel = x2.to(torch.float32)[:, gidx].reshape(x2.shape[0], G * K, O)
-    # multiply + axis-sum (not einsum): batch-extent-stable bits, see above
-    return (sel * vals.reshape(G * K, O)[None]).sum(dim=1)
+    vals = _keep_last(decode_values(d))                  # [O, G*K] f32
+    O, GK = vals.shape
+    gidx = _keep_last(_flat_gather_idx(d, d.idx)).reshape(-1)   # [O*G*K]
+    sel = x2.to(torch.float32)[:, gidx].reshape(x2.shape[0], O, GK)
+    # multiply + innermost-axis sum (not einsum): stable bits, see above
+    return (sel * vals[None]).sum(dim=-1)
 
 
 def dequant(d: PackedDelta) -> torch.Tensor:
@@ -96,7 +108,7 @@ def correction_nd(x: torch.Tensor, d: PackedDelta, *,
     if gather_max_t is None:
         from repro_torch.kernels import autotune
         gather_max_t = autotune.lookup(
-            d.h_g, d.keep, d.k_bits, d.h_in, d.h_out)["gather_max_t"]
+            d.h_g, d.keep, d.k_bits, d.h_in, d.h_out * d.shards)["gather_max_t"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, d.h_in)
     y = correction(x2, d, gather_max_t=gather_max_t)
@@ -105,18 +117,18 @@ def correction_nd(x: torch.Tensor, d: PackedDelta, *,
 
 def _rows_core(x_rows: torch.Tensor, gidx: torch.Tensor,
                vals: torch.Tensor) -> torch.Tensor:
-    """Shared per-row contraction: x_rows [N, h_in], gidx [N, G*K*O] flat
-    h_in indices, vals [N, G*K, O] -> [N, O] f32.
+    """Shared per-row contraction: x_rows [N, h_in], gidx [N, O*G*K] flat
+    h_in indices, vals [N, O, G*K] -> [N, O] f32.
 
     Every per-row path funnels through this one function so the gather +
     reduce shapes — and therefore the bits — are identical across
-    dispatch modes.
+    dispatch modes, and equal :func:`gather_correction`'s.
     """
     N = x_rows.shape[0]
-    GK, O = vals.shape[1], vals.shape[2]
+    O, GK = vals.shape[1], vals.shape[2]
     sel = torch.gather(x_rows.to(torch.float32), 1, gidx)
-    sel = sel.reshape(N, GK, O)
-    return (sel * vals).sum(dim=1)
+    sel = sel.reshape(N, O, GK)
+    return (sel * vals).sum(dim=-1)
 
 
 def gather_correction_rows(x: torch.Tensor, d: PackedDelta,
@@ -135,16 +147,17 @@ def gather_correction_rows(x: torch.Tensor, d: PackedDelta,
     B = x.shape[0]
     vals = decode_values(d) if values is None else values   # [B, G, K, O]
     _, G, K, O = vals.shape
-    gidx = _flat_gather_idx(d, d.idx)                # [B, G, K, O]
+    vals = _keep_last(vals)                          # [B, O, G*K]
+    gidx = _keep_last(_flat_gather_idx(d, d.idx))    # [B, O, G*K]
     x2 = x.to(torch.float32).reshape(B, -1, d.h_in)
     T = x2.shape[1]
     # flatten (row, token) so the reduce shape matches gather_correction's
-    # [rows, G*K, O] exactly — same bits as the shared-tenant path
+    # [rows, O, G*K] exactly — same bits as the shared-tenant path
     x_rows = x2.reshape(B * T, d.h_in)
     gidx_rows = gidx.reshape(B, 1, G * K * O).expand(B, T, G * K * O) \
         .reshape(B * T, -1)
-    vals_rows = vals.reshape(B, 1, G * K, O).expand(B, T, G * K, O) \
-        .reshape(B * T, G * K, O)
+    vals_rows = vals.reshape(B, 1, O, G * K).expand(B, T, O, G * K) \
+        .reshape(B * T, O, G * K)
     y = _rows_core(x_rows, gidx_rows, vals_rows)
     return y.reshape(*x.shape[:-1], d.h_out)
 

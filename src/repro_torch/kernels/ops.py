@@ -1,5 +1,4 @@
-"""Public wrappers around the delta kernels (port of ``repro/kernels/ops.py``,
-without ``shard_map``).
+"""Public wrappers around the delta kernels (port of ``repro/kernels/ops.py``).
 
 Device rule: a CUDA tensor launches the CUDA kernel
 (``kernels/delta_spmm.py``) and raises if it cannot; a CPU tensor takes
@@ -27,6 +26,16 @@ the card), the dense product the reference differentiates
 segment get a zero gradient, as their output is zero-filled), and
 ``dx = g @ (w + dequant(d))^T``, ``dw = x^T g`` for
 ``fused_base_delta``. No kernel is added for a backward.
+
+Mesh: :func:`delta_correction_sharded` is the reference's ``shard_map``'d
+output-column-partitioned correction on one rank of a
+``launch.mesh.ServingMesh``: the rank's delta is its contiguous
+output-column slice, cut once at registration (``launch.mesh.shard_delta``),
+and the same entry points compute that slice's columns — the kernels on
+the card, with no new kernel. The formulation is decided on the whole
+matrix's envelope point (``PackedDelta.shards``), and every column's
+reduction order is fixed in the kernels and in the plain versions, so a
+slice's columns are the unsharded correction's columns bit for bit.
 
 Tiles: the kernels take every T and h_out as they are (they mask the
 ragged edges themselves), so the reference's row padding and column
@@ -133,7 +142,11 @@ def spmm_row_tile(T: int, d: PackedDelta) -> int:
 
 
 def _gather_max_t(d: PackedDelta) -> int:
-    return autotune.lookup(d.h_g, d.keep, d.k_bits, d.h_in, d.h_out)["gather_max_t"]
+    """The CPU crossover at the matrix's envelope point: a column slice
+    (``d.shards`` > 1) keys on the whole matrix's width, as the
+    reference's sharded correction decides on the global point."""
+    return autotune.lookup(d.h_g, d.keep, d.k_bits, d.h_in,
+                           d.h_out * d.shards)["gather_max_t"]
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -429,6 +442,68 @@ def _delta_spmm_slots(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     offsets = torch.arange(B + 1, dtype=torch.int32, device=x.device) * per_row
     y = delta_spmm_segments(x.reshape(B * per_row, d.h_in), d, rows, offsets)
     return y.reshape(*x.shape[:-1], d.h_out)
+
+
+def delta_correction_sharded(x: torch.Tensor, d: PackedDelta, mesh, *,
+                             segments: tuple | None = None,
+                             values: torch.Tensor | None = None,
+                             res_map: torch.Tensor | None = None) -> torch.Tensor | None:
+    """y = x · dequant(d) for this rank's output columns of a mesh
+    (``repro/kernels/ops.py:240-390``).
+
+    ``d`` is this model rank's output-column slice (``d.shards`` equal to
+    the mesh's ``model`` extent): a shared delta, a row-gathered stack
+    ``[B]`` matching ``x``'s leading dim (per-row decode), or — with
+    ``segments=(seg_rows, seg_offsets)`` — the tenant stack ``[R]`` of the
+    unique-tenant dispatch (x rows pre-sorted by tenant). Segment arrays
+    may be the global ``[S]``/``[S+1]`` layout or the per-data-shard
+    ``[D, B_s]``/``[D, B_s+1]`` one (by ndim): then ``x`` holds this data
+    rank's pool rows and the rank takes its pool's block, so it decodes
+    only the tenants its pool hosts. ``values``/``res_map`` (segments
+    only, CPU) are the residency tier's decoded values, which a stack cut
+    into slices holds as slices too. Returns ``[..., h_out / M]``, the
+    columns ``[m * h_out/M, (m + 1) * h_out/M)``, computed by the
+    unsharded entry points on the slice (the kernels on the card).
+
+    Returns None — the caller's replicated path, with a trace note —
+    where the reference does: no model axis, a delta that is not cut (its
+    h_out does not divide, or it is replicated), a stack shape the path
+    does not take, or a per-shard layout that does not match the mesh's
+    data axis."""
+    n = mesh.shape.get("model", 1) if mesh is not None else 1
+    why = None
+    stack = d.stack_shape()
+    if n <= 1:
+        why = "no model axis"
+    elif d.shards == 1:
+        why = "replicated delta" if d.h_out % n == 0 else "h_out not divisible"
+    elif d.shards != n:
+        raise ValueError(f"delta cut into {d.shards} column slices on a mesh whose "
+                         f"model axis is {n}")
+    elif segments is not None and len(stack) != 1:
+        why = f"stack {stack} for segments"
+    elif segments is None and stack not in ((), (x.shape[0],)):
+        why = f"stack {stack} for {tuple(x.shape)}"
+    elif segments is not None and segments[0].ndim == 2 and \
+            segments[0].shape[0] != mesh.shape.get("data", 1):
+        why = "per-shard layout off the data axis"
+    if why is not None:
+        _note("delta_correction_sharded", sharded=False, why=why, codec=d.codec)
+        return None
+    per_shard = segments is not None and segments[0].ndim == 2
+    _note("delta_correction_sharded", sharded=True, codec=d.codec,
+          model_shards=int(n), per_shard_segments=per_shard)
+    if segments is not None:
+        seg_rows, seg_offsets = segments
+        if per_shard:
+            i = mesh.index("data")
+            seg_rows, seg_offsets = seg_rows[i], seg_offsets[i]
+        return delta_spmm_segments(x, d, seg_rows, seg_offsets, values=values,
+                                   res_map=res_map)
+    if stack:
+        return delta_spmm_slots(x, d).to(x.dtype)
+    # same dtype round-trip as the replicated path
+    return delta_spmm(x, d).to(x.dtype)
 
 
 def fused_base_delta(x: torch.Tensor, w: torch.Tensor, d: PackedDelta) -> torch.Tensor:

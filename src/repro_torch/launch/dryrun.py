@@ -61,8 +61,8 @@ SHAPES = {
 # tenant's packed delta at the paper's flagship 128x setting
 SERVE_DELTA = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=128)
 
-MESH_ITEM = ("the mesh (ROADMAP section 1, item 8: dist/sharding.py, "
-             "launch/mesh.py, the engine's mesh=)")
+MESH_ITEM = ("a mesh: the dry run's mesh cells come with the training mesh "
+             "(ROADMAP section 1, item 8), from launch.mesh.make_production_mesh")
 
 
 def _unflatten(flat: dict) -> dict:

@@ -13,6 +13,8 @@ process, with per-tenant metrics.
         --tenants 3 --codec mixed --check-identity
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --tenants 3 --lifecycle --check-identity --strict-compile
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --devices 4 --data 2 --check-identity
 
 The request stream is the reference's: request i goes to tenant
 ``i % tenants`` with a prompt of ``4 + (i % 3) * 4`` tokens, arriving
@@ -28,8 +30,17 @@ and fails unless every request's tokens match; ``--lifecycle`` runs the
 online-lifecycle drill (:func:`run_lifecycle`, whose zero-retrace gate
 is ``analysis.CompileGuard``); ``--strict-compile`` attaches a strict
 ``CompileGuard`` to the serving engine, so a new signature of a seen
-call (a retrace in the reference) raises where it happens. Meshes are
-not ported yet.
+call (a retrace in the reference) raises where it happens.
+
+``--devices N --data D`` serves sharded: the launcher spawns N ranks
+itself (``launch.mesh.run_ranks``: ``torch.multiprocessing``, start
+method ``spawn``, a file rendezvous, a deadline on the whole world and a
+timeout on every collective), joins them into a ``(D, N/D)``
+``(data, model)`` mesh (``launch.mesh.make_serving_mesh``; nccl with a
+card per rank, gloo on the CPU or with ranks sharing a card), and every
+rank serves the stream with ``ContinuousEngine(mesh=)``. Rank 0 prints
+the mesh shape and the usual report; ``--check-identity`` also serves
+the stream unsharded on every rank and fails unless the tokens match.
 
 :data:`RATIO_SPECS` maps a target compression ratio to its DeltaDQ spec,
 and :func:`synth_tenants` makes fine-tuned variants of a base model and
@@ -318,11 +329,7 @@ def run_lifecycle(args, cfg, base) -> dict:
     return rep
 
 
-def main(argv=None) -> int:
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.models import lm
-    from repro_torch.serve import ContinuousEngine
-
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--full", action="store_true",
@@ -381,8 +388,17 @@ def main(argv=None) -> int:
                          "the per-step unpack; 0 disables the tier")
     ap.add_argument("--admission", default="occupancy",
                     choices=("occupancy", "affinity"),
-                    help="slot admission policy (one slot pool: both place "
-                         "the same way until data-parallel pools exist)")
+                    help="shard admission policy: 'occupancy' (balanced) or "
+                         "'affinity' (prefer the pool already hosting the "
+                         "request's tenant within a bounded imbalance); with one "
+                         "pool both place the same way")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the base over N ranks, spawned by this launcher "
+                         "((data, N/data) mesh over torch.distributed)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-axis extent of the serving mesh: slot rows split "
+                         "into `data` contiguous pools (requires --devices and "
+                         "--slots divisible by data)")
     ap.add_argument("--trace-out", metavar="FILE", default=None,
                     help="write a Chrome-trace/Perfetto JSON of the run")
     ap.add_argument("--trace-sample", type=int, default=1,
@@ -392,7 +408,63 @@ def main(argv=None) -> int:
                          "engine time; 0 disables")
     ap.add_argument("--telemetry-out", metavar="FILE", default="telemetry.json",
                     help="snapshot file for --telemetry-snapshot-secs")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    if args.data > 1 and args.devices % args.data:
+        raise SystemExit(f"--devices {args.devices} must be a multiple of "
+                         f"--data {args.data}")
+    if args.data > 1 and args.slots % args.data:
+        raise SystemExit(f"--slots {args.slots} must be a multiple of "
+                         f"--data {args.data} (equal shard pools)")
+    if args.devices <= 1:
+        if args.data > 1:
+            raise SystemExit("--data > 1 requires --devices > 1 (the shard "
+                             "pools mirror the mesh data axis)")
+        return _run(args, None)
+    if args.lifecycle:
+        raise SystemExit("--lifecycle runs single-device (the drill "
+                         "measures lifecycle, not sharding)")
+    from repro_torch.launch.mesh import run_ranks
+    try:
+        codes = run_ranks(_rank_main, args.devices, (argv,), device=args.device,
+                          timeout_s=RANKS_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        print(f"serve: {e}", file=sys.stderr, flush=True)
+        return 1
+    return max(codes)
+
+
+# the whole world's deadline (a rank's collectives each have their own)
+RANKS_TIMEOUT_S = 3600.0
+
+
+def _rank_main(rank: int, world: int, argv: list) -> int:
+    """One spawned rank of ``--devices``: join the mesh, serve the stream
+    on it; only rank 0 prints."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    args = _parser().parse_args(argv)
+    mesh = make_serving_mesh(world, data=args.data, device=args.device)
+    if rank == 0:
+        print(f"mesh: {mesh.shape} ({mesh.backend}, transport {mesh.transport})",
+              flush=True)
+        return _run(args, mesh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> int:
+    """Serve the stream (on ``mesh``, or on one device)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ContinuousEngine
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     base = lm.init_params(cfg, 0, device=args.device)
@@ -402,16 +474,18 @@ def main(argv=None) -> int:
     if args.codec == "auto" and args.budget_bits is None:
         raise SystemExit("--codec auto needs --budget-bits")
     nondefault = args.chunked or args.residency_mb > 0
-    if args.check_identity and not (nondefault or args.codec == "mixed"):
-        raise SystemExit("--check-identity requires --chunked, --residency-mb > 0 "
-                         "or --codec mixed (nothing to compare against otherwise)")
+    if args.check_identity and mesh is None and not (nondefault or args.codec == "mixed"):
+        raise SystemExit("--check-identity requires --devices N > 1, --chunked, "
+                         "--residency-mb > 0 or --codec mixed (nothing to compare "
+                         "against otherwise)")
     tenants = synth_tenants(cfg, base, args.tenants,
                             tenant_specs(args.codec, args.tenants, args.ratio),
                             seed=0, budget_bits=args.budget_bits)
     stream = request_stream(cfg, args.requests, args.tenants)
 
     ref_reqs = None
-    if args.check_identity and nondefault:
+    if args.check_identity and (nondefault or mesh is not None):
+        # the unsharded default path first, on every rank alike
         _, ref_reqs = _serve_stream(cfg, base, tenants, stream, args, default_path=True)
 
     kw = {}
@@ -425,7 +499,7 @@ def main(argv=None) -> int:
                                                   args.telemetry_snapshot_secs)
     for name, _, report in tenants:
         print(f"registered {name}: {report.summary()}", flush=True)
-    eng, reqs = _serve_stream(cfg, base, tenants, stream, args, **kw)
+    eng, reqs = _serve_stream(cfg, base, tenants, stream, args, mesh=mesh, **kw)
     rep = eng.metrics.report()
 
     if ref_reqs is not None:
@@ -433,8 +507,8 @@ def main(argv=None) -> int:
                if not np.array_equal(r.output(), s.output())]
         if bad:
             raise SystemExit(f"token identity FAILED for requests {bad}")
-        print(f"token identity vs the default path: OK ({len(reqs)} requests)",
-              flush=True)
+        vs = "single device" if mesh is not None else "the default path"
+        print(f"token identity vs {vs}: OK ({len(reqs)} requests)", flush=True)
     if args.check_identity and args.codec == "mixed":
         # mixed-codec contract: each request's tokens match an engine
         # serving ONLY that tenant (same prompts, same arrivals per tenant)
@@ -442,7 +516,7 @@ def main(argv=None) -> int:
         bad = []
         for name, deltas, report in tenants:
             mine = [(i, r) for i, r in enumerate(reqs) if r.tenant == name]
-            eng_a = ContinuousEngine(cfg, base, **_engine_kw(args))
+            eng_a = ContinuousEngine(cfg, base, mesh=mesh, **_engine_kw(args))
             eng_a.register_tenant(name, deltas, report)
             alone = [eng_a.submit(name, stream[i][1], max_new_tokens=args.max_new,
                                   arrival=k * args.arrival_gap)

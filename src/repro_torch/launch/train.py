@@ -11,7 +11,7 @@ and crash-restart resume:
 It runs the smoke config by default and the production config with
 ``--full``, on ``cuda`` unless ``--device cpu`` is given; without a card
 it exits non-zero. ``--data``/``--model`` above 1 and ``--grad-compress``
-need the port's mesh (ROADMAP item 10) and raise. Each logged line is the
+need the training mesh (ROADMAP item 8) and raise. Each logged line is the
 reference's (``step … loss … gnorm … lr … tok/s``); ``main`` returns the
 run's losses and per-step wall times (synchronized with the device).
 """
@@ -63,8 +63,9 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.data > 1 or args.model > 1 or args.grad_compress:
         raise NotImplementedError(
-            "--data/--model > 1 and --grad-compress need the port's mesh "
-            "(ROADMAP item 10); the port trains on one device")
+            "--data/--model > 1 and --grad-compress need the training mesh "
+            "(ROADMAP item 8: dist/grad_compress.py, ZeRO-1 in train_step); "
+            "the port trains on one device")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("repro_torch.launch.train: no CUDA device; pass --device cpu "

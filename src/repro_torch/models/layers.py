@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.apply import apply_linear, dget
+from repro_torch.core.apply import apply_linear, dget, local_linear
 
 _NEG_INF = -1e30
 
@@ -109,12 +109,21 @@ def attention(q, k, v, q_pos, k_pos, *, window: int = 0, causal: bool = True,
 # ---------------------------------------------------------------------------
 # Blocks' inner projections
 # ---------------------------------------------------------------------------
-def qkv_project(x, p, d, cfg, positions, rope_on: bool = True):
-    """x [B,S,d_model] -> q [B,S,Hq,D], k,v [B,S,Hkv,D] (+rope, +qk-norm)."""
+def qkv_project(x, p, d, cfg, positions, rope_on: bool = True,
+                kv_local: Optional[int] = None):
+    """x [B,S,d_model] -> q [B,S,Hq,D], k,v [B,S,Hkv,D] (+rope, +qk-norm).
+
+    ``kv_local`` below ``cfg.n_kv`` (a ring that holds this model rank's
+    kv-heads): the rank's heads alone, kv-heads ``[m * kv_local, (m + 1) *
+    kv_local)`` and the query heads grouped on them, which are its own
+    columns of wq/wk/wv (``local_linear``: no gather)."""
     B, S, _ = x.shape
-    q = apply_linear(x, p["wq"], dget(d, "wq")).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = apply_linear(x, p["wk"], dget(d, "wk")).reshape(B, S, cfg.n_kv, cfg.head_dim)
-    v = apply_linear(x, p["wv"], dget(d, "wv")).reshape(B, S, cfg.n_kv, cfg.head_dim)
+    n_kv = cfg.n_kv if kv_local is None else kv_local
+    n_q = cfg.n_heads // cfg.n_kv * n_kv
+    proj = apply_linear if n_kv == cfg.n_kv else local_linear
+    q = proj(x, p["wq"], dget(d, "wq")).reshape(B, S, n_q, cfg.head_dim)
+    k = proj(x, p["wk"], dget(d, "wk")).reshape(B, S, n_kv, cfg.head_dim)
+    v = proj(x, p["wv"], dget(d, "wv")).reshape(B, S, n_kv, cfg.head_dim)
     if cfg.qk_norm:
         q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)

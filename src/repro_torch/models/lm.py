@@ -66,7 +66,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.arch import ArchConfig
-from repro_torch.core.apply import apply_linear, dget, dindex
+from repro_torch.core.apply import apply_linear, dget, dindex, gather_heads
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
@@ -235,6 +235,60 @@ def _param_table(cfg: ArchConfig) -> dict:
     return t
 
 
+# logical axes of each param row (``repro/models/lm.py``'s tables), read
+# by ``dist.sharding`` through :func:`param_axes`
+_ATTN_AXES = {"ln1": (None,), "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+              "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+              "q_norm": (None,), "k_norm": (None,), "gate_attn": (), "gate_mlp": ()}
+_MLP_AXES = {"ln": (None,), "wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+             "wo": ("mlp", "embed")}
+_ROW_AXES = {
+    "attn": _ATTN_AXES, "cross": _ATTN_AXES, "dec_cross": _ATTN_AXES,
+    "enc/attn": _ATTN_AXES, "mlp": _MLP_AXES, "enc/mlp": _MLP_AXES,
+    "moe": {"ln": (None,), "router": ("embed", None),
+            "wi": ("experts", "embed", "expert_ff"), "wg": ("experts", "embed", "expert_ff"),
+            "wo": ("experts", "expert_ff", "embed"),
+            **{f"shared/{k}": v for k, v in _MLP_AXES.items() if k != "ln"}},
+    "ssm": {"norm": (None,), "wz": ("embed", "inner"), "wx": ("embed", "inner"),
+            "wbc": ("embed", None), "wdt": ("embed", None), "conv_x_w": (None, "inner"),
+            "conv_x_b": (None,), "conv_bc_w": (None, None), "conv_bc_b": (None,),
+            "a_log": (None,), "d_skip": (None,), "dt_bias": (None,),
+            "out_norm": (None,), "wout": ("inner", "embed")},
+    "rec": {"norm": (None,), "linear_x": ("embed", "lru"), "linear_y": ("embed", "lru"),
+            "linear_out": ("lru", "embed"), "conv_w": (None, "lru"), "conv_b": (None,),
+            "a_param": (None,), "a_gate_w": (None,), "a_gate_b": (None,),
+            "i_gate_w": (None,), "i_gate_b": (None,)},
+}
+_TOP_AXES = {"embed/tok": ("vocab", "embed"), "final_norm/scale": (None,),
+             "unembed/w": ("embed", "vocab"), "enc/final_norm/scale": (None,)}
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The params tree's logical axes (``repro/models/lm.py::param_axes``):
+    a tuple of names per leaf, ``"layers"`` first on a stacked leaf."""
+    tree: dict = {}
+    for path in _param_table(cfg):
+        if path in _TOP_AXES:
+            _set_path(tree, path, _TOP_AXES[path])
+            continue
+        for stack, rows in _ROW_AXES.items():
+            if path.startswith(stack + "/") and path[len(stack) + 1:] in rows:
+                _set_path(tree, path, ("layers", *rows[path[len(stack) + 1:]]))
+                break
+        else:
+            raise KeyError(f"no logical axes for param {path!r}")
+    return tree
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The params tree of ``(shape, dtype)`` specs (nested, as
+    :func:`init_params` builds it)."""
+    tree: dict = {}
+    for path, spec in param_shapes(cfg).items():
+        _set_path(tree, path, spec)
+    return tree
+
+
 def _dtype(cfg: ArchConfig, shape: tuple) -> torch.dtype:
     # stacked weight matrices (>= 3 dims) take the param dtype, the rest f32
     return getattr(torch, cfg.param_dtype) if len(shape) >= 3 else torch.float32
@@ -318,9 +372,10 @@ def _attn_block_prefill(cfg, p, d, x, positions, window, cache):
     ``positions`` is [S] (shared) or [B, S] (per-row; negative entries
     mark pad slots, which the cache records as invalid)."""
     u = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(u, p, d, cfg, positions)
+    q, k, v = qkv_project(u, p, d, cfg, positions, kv_local=cache["k"].shape[2])
     out = attention(q, k, v, positions, positions, window=window, causal=True,
                     cap=cfg.attn_softcap)
+    out = gather_heads(out, cfg.n_heads)
     S = k.shape[1]
     S_c = cache["k"].shape[1]
     n_write = min(S, S_c)
@@ -364,7 +419,7 @@ def _attn_block_chunk(cfg, p, d, x, positions, window, cache, valid):
     discards.
     """
     u = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(u, p, d, cfg, positions)
+    q, k, v = qkv_project(u, p, d, cfg, positions, kv_local=cache["k"].shape[2])
     B = x.shape[0]
     S_c = cache["k"].shape[1]
     k = k.to(cache["k"].dtype)
@@ -373,8 +428,8 @@ def _attn_block_chunk(cfg, p, d, x, positions, window, cache, valid):
     k_all = torch.cat([cache["k"], k], dim=1)
     v_all = torch.cat([cache["v"], v], dim=1)
     kp_all = torch.cat([cache["pos"], pos_c], dim=1)
-    out = attention(q, k_all, v_all, positions, kp_all, window=window,
-                    causal=True, cap=cfg.attn_softcap)
+    out = gather_heads(attention(q, k_all, v_all, positions, kp_all, window=window,
+                                 causal=True, cap=cfg.attn_softcap), cfg.n_heads)
     slots = positions % S_c                               # [B, C]
     bi = torch.arange(B, device=x.device)[:, None]
     for name, new in (("k", k), ("v", v), ("pos", pos_c)):
@@ -397,7 +452,7 @@ def _attn_block_decode(cfg, p, d, x, pos, window, cache):
     if isinstance(pos, torch.Tensor):
         B = x.shape[0]
         positions = pos[:, None]                          # [B, 1]
-        q, k, v = qkv_project(u, p, d, cfg, positions)
+        q, k, v = qkv_project(u, p, d, cfg, positions, kv_local=cache["k"].shape[2])
         slot = pos % S_c                                  # [B]
         bi = torch.arange(B, device=x.device)
         cache["k"][bi, slot] = k[:, 0].to(cache["k"].dtype)
@@ -405,13 +460,14 @@ def _attn_block_decode(cfg, p, d, x, pos, window, cache):
         cache["pos"][bi, slot] = pos.to(cache["pos"].dtype)
     else:
         positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-        q, k, v = qkv_project(u, p, d, cfg, positions)
+        q, k, v = qkv_project(u, p, d, cfg, positions, kv_local=cache["k"].shape[2])
         slot = pos % S_c          # a host int: no device sync to index
         cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
         cache["pos"][:, slot] = pos
     out = attention(q, cache["k"], cache["v"], positions, cache["pos"],
                     window=window, causal=True, cap=cfg.attn_softcap)
+    out = gather_heads(out, cfg.n_heads)
     out = apply_linear(out.reshape(*x.shape[:-1], cfg.q_dim), p["wo"], dget(d, "wo"))
     return x + out
 

@@ -28,8 +28,10 @@ share that model:
   grouping only where slot dispatch cannot apply.
 
 The reference jits each step; the port runs eagerly and updates the KV
-cache and the tenant table in place. What waits for later slices raises:
-``mesh=`` and ``data > 1``.
+cache and the tenant table in place. ``ContinuousEngine(mesh=)`` serves
+sharded over a ``launch.mesh.ServingMesh``, one process per rank (see
+the class doc); ``Engine.generate`` stays single-card, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ from repro_torch.serve.scheduler import (
     Scheduler,
     SlotState,
     tenant_segments,
+    tenant_segments_sharded,
 )
 from repro_torch.serve.trace import EventBus, attribution, path_label
 from repro_torch.utils import iter_leaves, tree_bytes
@@ -228,6 +231,11 @@ class DeltaResidency:
       resident values equal in-step decode bit for bit.
     * **Demotion** is LRU among rows not referenced by the current
       step; no device work — the row is simply reused.
+
+    Under a mesh the engine passes this rank's slice of the stack (the
+    reference's ``shard_output`` layout), so the value buffers, shaped
+    after its leaves, hold this rank's output columns and the budget is
+    per rank: no mesh argument is needed to place them.
     """
 
     def __init__(self, stacked: Any, budget_bytes: int):
@@ -456,19 +464,33 @@ class TenantTable:
     Every tenant must match the template's tree structure AND stack
     signature (:meth:`check_compatible`); heterogeneous-codec fleets need
     the dynamic multi-group path.
+
+    Under a mesh (``mesh=``, ``shard_deltas="auto"``) the table holds this
+    rank's output-column slice of every row: a row write copies the
+    tenant's slice in (``launch.mesh.shard_delta``, cut at the write,
+    never per step); ``"replicated"`` keeps whole rows.
     """
 
-    def __init__(self, template: Any, capacity: int):
+    def __init__(self, template: Any, capacity: int, *, mesh=None,
+                 shard_deltas: str = "auto"):
         if capacity < 1:
             raise ValueError(f"tenant_capacity must be >= 1, got {capacity}")
         self.capacity = int(capacity)
         self.signature = _stack_signature(template)
         self.structure = _tree_structure(template)
-        self.stacked = _alloc_rows(template, self.capacity + 1)
+        self.mesh = mesh if shard_deltas == "auto" else None
+        self.stacked = _alloc_rows(self._cut(template), self.capacity + 1)
         self._free: List[int] = list(range(1, self.capacity + 1))
         # the reference's row-write jit: every write and tombstone has the
         # template's signature
         self._write_jit = Signatures()
+
+    def _cut(self, tree: Any) -> Any:
+        """This rank's slice of a runtime tree (views), or the tree."""
+        if self.mesh is None:
+            return tree
+        from repro_torch.launch.mesh import shard_delta_tree
+        return shard_delta_tree(tree, self.mesh, copy=False)
 
     @property
     def n_free(self) -> int:
@@ -509,7 +531,7 @@ class TenantTable:
         """Fill ``row`` from a runtime delta tree on the table's device,
         in place (scale cast to f32, zero to int32)."""
         self._write_jit.record(self.signature)
-        _write_row(self.stacked, row, tree)
+        _write_row(self.stacked, row, self._cut(tree))
 
     def clear(self, row: int) -> None:
         """Tombstone ``row``: the zero delta, written in place."""
@@ -574,6 +596,27 @@ class ContinuousEngine:
     card every step is a packed step, as on a TPU running the reference's
     Pallas kernels.
 
+    ``mesh=`` (a ``launch.mesh.ServingMesh`` from ``make_serving_mesh``)
+    serves the same loop sharded, SPMD: every rank runs this engine on
+    the same requests and the same host decisions. The base is cut to
+    the rank's column-parallel slice (``launch.mesh.shard_params``), KV
+    rings to its kv-heads and ssm/rg-lru states to its width
+    (``cache_shardings``), and each codec group's stack to its
+    output-column slice at registration (``shard_deltas="auto"``; or
+    whole, ``"replicated"``); prefills read a tenant's row of that stack.
+    Every linear site's output is gathered over ``model`` after the site
+    (``core.apply`` mesh mode, installed per step by
+    :meth:`_install_mesh`, so mesh and plain engines coexist in one
+    process), so the tokens are the unsharded engine's. ``data=``
+    (default: the mesh's ``data`` extent) splits the slot rows into
+    contiguous pools: admission balances per-pool occupancy, the decode
+    step's segment layout is built per pool, and a rank stores and
+    computes only its pool's rows — prefills into its pool, decode over
+    its rows — then the ranks all-gather each step's next tokens over
+    ``data``, so every rank's scheduler, stop checks and ``Metrics`` see
+    the same state. Without a mesh ``data > 1`` keeps the pools as a
+    host-side policy over one cache.
+
     ``trace=`` (a :class:`~repro_torch.serve.trace.Tracer`), ``slo=`` (a
     :class:`~repro_torch.serve.telemetry.SLOCounters`) and ``telemetry=``
     (a :class:`~repro_torch.serve.telemetry.TelemetrySnapshotWriter`)
@@ -589,6 +632,7 @@ class ContinuousEngine:
                  store: Optional[DeltaStore] = None, clock=time.monotonic,
                  mesh=None, data: Optional[int] = None,
                  slot_dispatch: str = "segments",
+                 shard_deltas: str = "auto",
                  admission="occupancy",
                  residency_budget_bytes: Optional[int] = None,
                  tenant_capacity: Optional[int] = None,
@@ -600,18 +644,37 @@ class ContinuousEngine:
                 f"continuous batching does not support family={cfg.family!r} "
                 "(per-request encoder inputs); use Engine.generate")
         lm._check_family(cfg)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharded serving is not ported yet; the port serves "
-                "one card")
-        if data is not None and data != 1:
-            raise NotImplementedError(
-                f"data={data}: data-parallel slot pools come with the mesh")
+        from repro_torch.launch import mesh as mesh_lib
+        if mesh is not None and not isinstance(mesh, mesh_lib.ServingMesh):
+            raise TypeError(f"mesh= takes a launch.mesh.ServingMesh, got "
+                            f"{type(mesh).__name__}")
+        mesh_data = mesh.shape.get("data", 1) if mesh is not None else 1
+        if data is None:
+            data = mesh_data
+        if mesh is not None and data != mesh_data:
+            raise ValueError(
+                f"data={data} does not match the mesh's data axis "
+                f"({mesh_data}); slot pools must mirror the device shards")
+        if data < 1 or n_slots % data:
+            raise ValueError(
+                f"n_slots={n_slots} must be a positive multiple of "
+                f"data={data} (equal contiguous shard pools)")
         if slot_dispatch not in ("segments", "per_row"):
             raise ValueError(f"slot_dispatch={slot_dispatch!r} not in "
                              "('segments', 'per_row')")
+        if shard_deltas not in ("auto", "replicated"):
+            raise ValueError(f"shard_deltas={shard_deltas!r} not in "
+                             "('auto', 'replicated')")
         self.cfg = cfg
+        self.mesh = mesh
+        self.data = data
+        self.shard_deltas = shard_deltas
         self.slot_dispatch = slot_dispatch
+        cache_sh = None
+        if mesh is not None:
+            # this rank's column-parallel slice of the base, cut once
+            base_params = mesh_lib.shard_params(cfg, base_params, mesh)
+            cache_sh = mesh_lib.cache_shardings(cfg, mesh, n_slots, max_seq)
         self.base = base_params
         self.device = base_params["embed"]["tok"].device
         self.n_slots = n_slots
@@ -660,10 +723,14 @@ class ContinuousEngine:
         self._chunk_budget = ChunkBudget(self.chunk_share)
         self._chunk_t0: dict[int, float] = {}    # rid -> admit time
         self.queue = RequestQueue()
-        self.sched = Scheduler(n_slots, self.buckets, data_shards=1,
+        self.sched = Scheduler(n_slots, self.buckets, data_shards=data,
                                admission=admission)
-        self.kv = SlotKVCache(cfg, n_slots, max_seq, device=self.device)
-        self.metrics = Metrics(n_slots, data_shards=1)
+        self.kv = SlotKVCache(cfg, n_slots, max_seq, shardings=cache_sh,
+                              data_shards=data, mesh=mesh, device=self.device)
+        # the slot rows this process computes: its pool's under a mesh
+        # with data > 1, all of them otherwise
+        self._here = self.kv.rows
+        self.metrics = Metrics(n_slots, data_shards=data)
         self.clock = clock
         self.trace = trace
         self.slo = slo
@@ -710,6 +777,29 @@ class ContinuousEngine:
         """A runtime delta tree on the engine's device (no copy where it
         already is)."""
         return _map_packed(lambda d: d.to(self.device), tree)
+
+    def _cut(self, tree: Any) -> Any:
+        """This rank's output-column slice of a runtime tree, as views (the
+        stacks copy them into their rows), or the tree itself without a
+        mesh or with ``shard_deltas="replicated"``."""
+        if self.mesh is None or self.shard_deltas != "auto":
+            return tree
+        from repro_torch.launch.mesh import shard_delta_tree
+        return shard_delta_tree(tree, self.mesh, copy=False)
+
+    def _prefill_deltas(self, tenant: Optional[str]) -> Any:
+        """The deltas a prefill of ``tenant``'s request applies: its
+        registered tree; under a mesh, its row of its group's stack
+        (views of this rank's slice, cut at registration)."""
+        if tenant is None:
+            return self._zero_tree    # None when no tenants registered
+        if self.mesh is None:
+            return self.store.get(tenant).deltas
+        grow = self._rows[tenant]
+        for g in self._groups:
+            if g.lut[grow]:
+                return _row_view(g.stacked, int(g.lut[grow]))
+        raise KeyError(f"tenant {tenant!r} is in no codec group")
 
     def register_tenant(self, name: str, deltas: Any, report=None) -> Tenant:
         """Register (or roll out a new version of) a tenant.
@@ -812,7 +902,8 @@ class ContinuousEngine:
             # the first tenant fixes the template: the envelope is built
             # once, here, as ONE group with an identity LUT for the
             # table's whole life
-            table = TenantTable(rt, self.tenant_capacity)
+            table = TenantTable(rt, self.tenant_capacity, mesh=self.mesh,
+                                shard_deltas=self.shard_deltas)
             self._table = table
             self._zero_tree = _row_view(table.stacked, 0)
             lut = np.arange(self.tenant_capacity + 1, dtype=np.int32)
@@ -928,10 +1019,12 @@ class ContinuousEngine:
         groups = []
         n_global = len(tenants) + 1
         for _, members in buckets:
-            stacked = _alloc_rows(members[0][1].deltas, len(members) + 1)
+            # under a mesh each rank's stack holds its output-column slice,
+            # cut here, at registration, never per step
+            stacked = _alloc_rows(self._cut(members[0][1].deltas), len(members) + 1)
             lut = np.zeros(n_global, np.int32)
             for local, (grow, t) in enumerate(members, start=1):
-                _write_row(stacked, local, t.deltas)
+                _write_row(stacked, local, self._cut(t.deltas))
                 lut[grow] = local
             groups.append(_CodecGroup(
                 stacked=stacked, lut=lut, names=[t.name for _, t in members],
@@ -982,6 +1075,32 @@ class ContinuousEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    def _install_mesh(self) -> None:
+        """Install THIS engine's mesh (or None) as the process-wide apply
+        mode before its step runs, so engines with different meshes (or
+        none) coexist in one process."""
+        from repro_torch.core.apply import set_mesh
+        set_mesh(self.mesh)
+
+    def _pooled(self) -> bool:
+        """Whether this rank computes only its pool's slot rows."""
+        return self.mesh is not None and self.data > 1
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A step's per-row result over this rank's rows -> over all
+        ``n_slots`` rows (all-gathered over ``data`` in pool order)."""
+        return self.mesh.all_gather(t, "data", dim=0) if self._pooled() else t
+
+    def _from_owner(self, t: Optional[torch.Tensor], slot: int) -> torch.Tensor:
+        """A token the ranks of ``slot``'s pool computed (``t``; None on the
+        other pools' ranks), on every rank: an all-gather over ``data``
+        that every rank makes at the same point of the same step."""
+        if not self._pooled():
+            return t
+        buf = t.reshape(1).to(torch.int64) if t is not None else \
+            torch.full((1,), -1, dtype=torch.int64, device=self.device)
+        return self.mesh.all_gather(buf, "data", dim=0)[self.kv.shard_of(slot)]
+
     @property
     def decode_traces(self) -> int:
         """jit_trace events of the step's signatures (decode,
@@ -1015,24 +1134,25 @@ class ContinuousEngine:
         host = np.zeros((2, bucket), np.int64)
         host[0, pad:] = req.prompt                        # tokens
         host[1] = np.arange(bucket) - pad                 # positions
-        if req.tenant is not None:
-            deltas = self.store.get(req.tenant).deltas
-        else:
-            deltas = self._zero_tree    # None when no tenants registered
-        batch = self._to_device(host)
-        row_cache = lm.init_cache(self.cfg, 1, self.max_seq, device=self.device)
+        deltas = self._prefill_deltas(req.tenant)
         self.prefill_shapes.add(bucket)
-        with attribution() as notes:
-            logits, row_cache = lm.prefill(
-                self.cfg, self.base,
-                {"tokens": batch[0:1], "positions": batch[1:2]},
-                row_cache, deltas=deltas)
-        self._record_path(("prefill", bucket),
-                          _stack_signature(deltas) if deltas is not None else None,
-                          "prefill", notes, now)
-        self.kv.insert(slot, row_cache)
-
-        first = int(torch.argmax(logits[0]))
+        top = None
+        if self.kv.holds(slot):
+            # under a mesh with data > 1 only the ranks of the slot's pool
+            # prefill it; the others receive its first token
+            batch = self._to_device(host)
+            row_cache = self.kv.empty_row()
+            with attribution() as notes:
+                logits, row_cache = lm.prefill(
+                    self.cfg, self.base,
+                    {"tokens": batch[0:1], "positions": batch[1:2]},
+                    row_cache, deltas=deltas)
+            self._record_path(("prefill", bucket),
+                              _stack_signature(deltas) if deltas is not None else None,
+                              "prefill", notes, now)
+            self.kv.insert(slot, row_cache)
+            top = torch.argmax(logits[0])
+        first = int(self._from_owner(top, slot))
         t_first = self._now()
         slack = None if req.deadline is None else req.deadline - now
         self.bus.emit("admit", now, rid=req.rid, tenant=req.tenant, slot=slot,
@@ -1043,6 +1163,8 @@ class ContinuousEngine:
         self.bus.emit("first_token", t_first, rid=req.rid, tenant=req.tenant,
                       ttft=t_first - req.arrival)
         self.bus.emit("token", t_first, rid=req.rid, tenant=req.tenant)
+        if self.data > 1:
+            self.bus.emit("shard_token", t_first, shard=self.sched.shard_of(slot))
         req.t_first_token = t_first
         fin = req.emit(first)
 
@@ -1113,10 +1235,12 @@ class ContinuousEngine:
         # so their tenants are not dequantized and don't inflate the
         # unique-tenant segment count
         rows_eff = np.where(act, self._row, 0)
-        # every host-to-device copy of the step before its first launch
+        # every host-to-device copy of the step before its first launch;
+        # this rank's rows only (its pool's under a mesh with data > 1)
         sd, res_used = self._slot_delta(rows_eff)
-        dev = self._to_device(np.stack([self._tok, self._pos,
-                                        act.astype(np.int64)]))
+        lo, hi = self._here
+        dev = self._to_device(np.stack([self._tok[lo:hi], self._pos[lo:hi],
+                                        act[lo:hi].astype(np.int64)]))
         tok_d, pos_d, act_d = dev[0][:, None], dev[1], dev[2].bool()
         if task is not None:
             req = task.request
@@ -1133,7 +1257,7 @@ class ContinuousEngine:
             cd, _ = self._slot_delta(self._row[task.slot:task.slot + 1],
                                      resident=False)
         cache = self.kv.cache
-        masked = not act.all()
+        masked = not act[lo:hi].all()
         with attribution() as notes:
             # parked rows decode too (fixed batch); their ring entries are
             # saved first and put back after the step, bit for bit
@@ -1144,10 +1268,12 @@ class ContinuousEngine:
             if masked:
                 self.kv.restore_entries(pos_d, saved, act_d)
             cn = None
-            if task is not None:
+            if task is not None and self.kv.holds(task.slot):
                 # the chunk row is prefilled against its restored, clean
-                # ring, through views of the shared cache
-                row = lm.cache_rows(cache, task.slot, task.slot + 1)
+                # ring, through views of the shared cache (by the ranks of
+                # its pool)
+                i = self.kv.local(task.slot)
+                row = lm.cache_rows(cache, i, i + 1)
                 clog, _ = lm.prefill_chunk(
                     self.cfg, self.base,
                     {"tokens": chunk[0:1], "positions": chunk[1:2],
@@ -1161,12 +1287,15 @@ class ContinuousEngine:
             site = "combined"
         path_notes, recompiled = self._record_path(sig, self._group_shapes(), site,
                                                    notes, now)
-        nxt = nxt.cpu().numpy()
+        nxt = self._all_rows(nxt).cpu().numpy()
+        if task is not None and task.last:
+            first = int(self._from_owner(
+                cn[task.length - 1] if cn is not None else None, task.slot))
         t = self._now()
         self.bus.emit(
             "step", t, t_start=now, n_active=len(decode_slots),
             chunk_tokens=task.length if task is not None else 0,
-            shard_active=None,
+            shard_active=self.sched.shard_occupancy() if self.data > 1 else None,
             shard_unique=self.sched.shard_unique_tenants(rows_eff),
             residency_used=res_used,
             path="base" if sd is None else path_label(path_notes),
@@ -1181,6 +1310,8 @@ class ContinuousEngine:
             state.pos = int(self._pos[slot])
             fin = req.emit(tok)
             self.bus.emit("token", t, rid=req.rid, tenant=req.tenant)
+            if self.data > 1:
+                self.bus.emit("shard_token", t, shard=self.sched.shard_of(slot))
             if fin:
                 self._finish(slot, t)
         if task is not None:
@@ -1194,8 +1325,8 @@ class ContinuousEngine:
                           n_decode=len(decode_slots))
             if task.last:
                 # the final chunk's last real position predicts the first
-                # generated token, as whole-prompt prefill's last row does
-                first = int(cn[task.length - 1])
+                # generated token (``first`` above), as whole-prompt
+                # prefill's last row does
                 L = req.prompt_len
                 self.bus.emit("prefill", t, rid=req.rid, tenant=req.tenant,
                               t_start=self._chunk_t0.pop(req.rid, now),
@@ -1203,6 +1334,9 @@ class ContinuousEngine:
                 self.bus.emit("first_token", t, rid=req.rid,
                               tenant=req.tenant, ttft=t - req.arrival)
                 self.bus.emit("token", t, rid=req.rid, tenant=req.tenant)
+                if self.data > 1:
+                    self.bus.emit("shard_token", t,
+                                  shard=self.sched.shard_of(task.slot))
                 req.t_first_token = t
                 self._tok[task.slot] = first
                 self._pos[task.slot] = L
@@ -1240,12 +1374,22 @@ class ContinuousEngine:
             return None, None
         parts = []
         res_used = None
+        # a decode step's full slot vector with data > 1 takes the
+        # per-pool layout (each pool sorted on its own; a mesh rank then
+        # computes its own pool's block and rows); a prompt chunk's one row
+        # takes the single-pool form
+        pooled = self.data > 1 and len(rows) == self.n_slots
+        lo, hi = self._here if pooled else (0, len(rows))
         for g in self._groups:
             rows_g = g.lut[rows]
             seg = None
             values = res_map = None
             if self.slot_dispatch == "segments":
-                seg = tenant_segments(rows_g, skip_zero_row=True).to(self.device)
+                if pooled:
+                    seg = tenant_segments_sharded(rows_g, self.data,
+                                                  skip_zero_row=True).to(self.device)
+                else:
+                    seg = tenant_segments(rows_g, skip_zero_row=True).to(self.device)
                 if self.residency is not None and resident:
                     rm = None
                     if self.residency.device.type == "cpu":
@@ -1255,8 +1399,8 @@ class ContinuousEngine:
                         values = self.residency.values
                         res_map = self._to_device(rm.astype(np.int64))
             parts.append(wrap_slot_deltas(
-                g.stacked, self._to_device(rows_g.astype(np.int64)), segments=seg,
-                values=values, res_map=res_map))
+                g.stacked, self._to_device(rows_g[lo:hi].astype(np.int64)),
+                segments=seg, values=values, res_map=res_map))
         return combine_slot_deltas(parts), res_used
 
     def _group_shapes(self) -> tuple:
@@ -1269,7 +1413,8 @@ class ContinuousEngine:
             return
         self._refresh_stacked()
         sd, res_used = self._slot_delta(self._row)
-        dev = self._to_device(np.stack([self._tok, self._pos]))
+        lo, hi = self._here
+        dev = self._to_device(np.stack([self._tok[lo:hi], self._pos[lo:hi]]))
         with attribution() as notes:
             logits, _ = lm.decode_step(self.cfg, self.base, self.kv.cache,
                                        dev[0][:, None], dev[1], deltas=sd)
@@ -1277,11 +1422,11 @@ class ContinuousEngine:
         sig = ("decode", len(self._groups), bool(res_used))
         path_notes, recompiled = self._record_path(sig, self._group_shapes(), "decode",
                                                    notes, now)
-        nxt = nxt.cpu().numpy()
+        nxt = self._all_rows(nxt).cpu().numpy()
         t = self._now()
         self.bus.emit(
             "step", t, t_start=now, n_active=len(active),
-            shard_active=None,
+            shard_active=self.sched.shard_occupancy() if self.data > 1 else None,
             shard_unique=self.sched.shard_unique_tenants(self._row),
             residency_used=res_used,
             path="base" if sd is None else path_label(path_notes),
@@ -1296,12 +1441,15 @@ class ContinuousEngine:
             state.pos = int(self._pos[slot])
             fin = req.emit(tok)
             self.bus.emit("token", t, rid=req.rid, tenant=req.tenant)
+            if self.data > 1:
+                self.bus.emit("shard_token", t, shard=self.sched.shard_of(slot))
             if fin:
                 self._finish(slot, t)
 
     @torch.no_grad()
     def step(self, now: float) -> bool:
         """One scheduler iteration: admit into free slots, then decode."""
+        self._install_mesh()
         worked = False
         for slot, req in self.sched.admit(self.queue, now):
             self.kv.claim(slot)      # kv free list mirrors the slot table
@@ -1324,6 +1472,9 @@ class ContinuousEngine:
             if not len(self.queue) and not self.sched.n_active:
                 break
             now = self._now()
+            if self.mesh is not None:
+                # every rank admits against rank 0's clock
+                now = self.mesh.agree(now)
             worked = self.step(now)
             if self.telemetry is not None:
                 # driven by the same `now` as the step: zero extra clock
@@ -1362,7 +1513,7 @@ class ContinuousEngine:
         tracer/SLO consumer keeps its history. Memoised path notes stay
         (the reference's compiled jits do); the residency tier's counters
         reset with the metrics window while its rows stay warm."""
-        self.metrics = Metrics(self.n_slots, data_shards=1)
+        self.metrics = Metrics(self.n_slots, data_shards=self.data)
         self.bus = EventBus([self.metrics, self.trace, self.slo])
         if self.residency is not None:
             self.residency.reset_counters()

@@ -1,7 +1,8 @@
 """Continuous-batching scheduler: requests, length buckets, slot packing.
 
-Copy of ``repro/serve/scheduler.py`` (framework-free), less the
-per-data-shard segment layout, which comes with the mesh.
+Copy of ``repro/serve/scheduler.py`` (framework-free); the segment
+layouts build the port's ``core.apply`` classes, and both take
+``skip_zero_row``.
 
 The scheduler owns *admission policy only* — which pending request goes
 into which free KV slot, and when. All jax work (prefill, batched decode)
@@ -232,6 +233,44 @@ def tenant_segments(rows: np.ndarray, *, skip_zero_row: bool = False):
     seg_offsets[:len(uniq)] = starts
     return TenantSegments(order=order, inv_order=inv_order,
                           seg_rows=seg_rows, seg_offsets=seg_offsets)
+
+
+def tenant_segments_sharded(rows: np.ndarray, data_shards: int, *,
+                            skip_zero_row: bool = False):
+    """Per-data-shard tenant-segment layout for one decode step.
+
+    The ``data > 1`` companion of :func:`tenant_segments`: returns a
+    :class:`repro_torch.core.apply.ShardedTenantSegments` of [D, B_s] /
+    [D, B_s+1] numpy arrays — each contiguous shard pool's own stable
+    sort, pool-LOCAL permutation and pool-local segment list. Rows sort
+    by tenant only *within* a pool (the permutation never crosses a pool
+    boundary, so the sorted batch partitions over the mesh ``data`` axis
+    exactly like the unsorted slot rows) and each pool contributes its own
+    segments — a tenant hosted by two shards gets two segments, so each
+    data rank decodes exactly the tenants its pool hosts. A run over all
+    rows flattens it with ``global_order()`` / ``global_segments()``.
+    ``skip_zero_row`` leaves each pool's row-0 segment out, as
+    :func:`tenant_segments` does.
+    """
+    from repro_torch.core.apply import ShardedTenantSegments
+    rows = np.asarray(rows, np.int32)
+    B = rows.shape[0]
+    # ValueError (not assert): a bad split must fail loudly even under
+    # python -O, or np.empty garbage would flow into gather indices
+    per = shard_pool_size(B, data_shards)
+    order = np.empty((data_shards, per), np.int32)
+    inv_order = np.empty((data_shards, per), np.int32)
+    seg_rows = np.zeros((data_shards, per), np.int32)
+    seg_offsets = np.full((data_shards, per + 1), per, np.int32)
+    for s in range(data_shards):
+        pool = tenant_segments(rows[s * per:(s + 1) * per],
+                               skip_zero_row=skip_zero_row)
+        order[s] = pool.order
+        inv_order[s] = pool.inv_order
+        seg_rows[s] = pool.seg_rows
+        seg_offsets[s] = pool.seg_offsets
+    return ShardedTenantSegments(order=order, inv_order=inv_order,
+                                 seg_rows=seg_rows, seg_offsets=seg_offsets)
 
 
 # ---------------------------------------------------------------------------

@@ -72,7 +72,6 @@ EVENT_SCHEMA: Dict[str, str] = {
                      "length, last)",
     "first_token": "engine: first token surfaced for a request (rid, ttft)",
     "token": "engine: one generated token (rid, tenant)",
-    # deltalint: allow[DL004] only data>1 serving emits it, which waits for the mesh
     "shard_token": "engine: token attributed to a data shard (data>1 only)",
     "step": "engine: one batched decode step span (n_active, path, notes)",
     "done": "engine: request finished (rid, latency, ttft, n_tokens)",

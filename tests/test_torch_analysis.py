@@ -216,6 +216,8 @@ FIXTURES = [
     ("class HalfCodec:\n    name = 'half'\n    def compress_leaf(self): ...\n"
      "register_codec(HalfCodec())\n", "core/codecs.py"),
     (_FULL_CODEC, "core/codecs.py"),
+    # every member but the sharding twin leaf_axes: DL006 fires in both
+    (_FULL_CODEC.replace("    def leaf_axes(self): ...\n", ""), "core/codecs.py"),
     ("class Base:\n    name = 'b'\n    spec_cls = object\n    leaf_cls = object\n"
      "    def compress_leaf(self): ...\n    def reconstruct_dense(self): ...\n"
      "    def runtime_packed(self): ...\n    def storage_bits(self): ...\n"

@@ -98,7 +98,7 @@ def test_roundtrip_async_latest_and_bf16_bits(tmp_path):
     # a step directory without its manifest is not a checkpoint
     os.makedirs(tmp_path / "ck" / "step_00000009")
     assert ck.latest_step() == 7
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         ck.restore(_state(0), shardings={})
 
 
@@ -201,5 +201,5 @@ def test_launcher_resume_bitexact(tmp_path, capsys):
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         train_cli.main(["--device", "cpu", "--data", "2"])

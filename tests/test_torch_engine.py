@@ -38,7 +38,8 @@ SPEC = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=16)
 SERVING_MODULES = ("repro_torch.serve.kv", "repro_torch.serve.metrics",
                    "repro_torch.serve.telemetry", "repro_torch.serve.engine",
                    "repro_torch.serve.registry", "repro_torch.core.codecs",
-                   "repro_torch.launch.serve")
+                   "repro_torch.launch.serve", "repro_torch.launch.mesh",
+                   "repro_torch.dist.sharding")
 
 
 def _fleet(dtype, n=2):
@@ -165,12 +166,13 @@ def test_port_imports_no_jax_and_no_reference():
     assert res.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("module", SERVING_MODULES + ("chip_smoke",))
+@pytest.mark.parametrize("module", SERVING_MODULES + ("chip_smoke", "chip_mesh_phase"))
 def test_serving_sources_import_no_jax_and_no_reference(module):
     """No import of jax or ``repro`` anywhere in the source, function-level
     imports included (the subprocess check sees module-level ones)."""
     rel = module.replace(".", os.sep) + ".py"
-    path = os.path.join(REPO, rel if module == "chip_smoke" else os.path.join("src", rel))
+    top = module in ("chip_smoke", "chip_mesh_phase")
+    path = os.path.join(REPO, rel if top else os.path.join("src", rel))
     with open(path) as f:
         lines = [ln.strip() for ln in f]
     bad = [ln for ln in lines if ln.startswith(("import ", "from "))

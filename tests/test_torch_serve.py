@@ -356,8 +356,11 @@ def test_slot_kv_cache_claim_release_insert_reset():
     with pytest.raises(ValueError):
         kv.release(1)
     assert kv.n_free == 3
-    with pytest.raises(NotImplementedError):
-        SlotKVCache(cfg, 4, 16, data_shards=2, device="cpu")
+    # pools must split the slots evenly; a sharded cache needs its mesh rank
+    with pytest.raises(ValueError):
+        SlotKVCache(cfg, 3, 16, data_shards=2, device="cpu")
+    with pytest.raises(ValueError):
+        SlotKVCache(cfg, 4, 16, shardings=[], data_shards=2, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -487,10 +490,13 @@ def test_register_rejects_other_structure_and_packing():
         outs[1], static.generate("other", p[None], max_new_tokens=3)[0])
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(data=2)])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(data=3)])
 def test_options_of_later_slices_raise(kw):
+    """``mesh=`` and ``data=`` are served now: a mesh that is not a
+    ``launch.mesh.ServingMesh``, and pools that do not split the slots
+    evenly, still raise."""
     cfg, base, _ = _fleet()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises((TypeError, ValueError)):
         ContinuousEngine(cfg, base, n_slots=2, max_seq=16, **kw)
 
 

@@ -87,8 +87,10 @@ def packed_to_port(d: JaxPackedDelta, device=CPU):
 
 
 def packed_to_jax(d) -> JaxPackedDelta:
-    """The port's PackedDelta -> the reference's (arrays through numpy)."""
-    arrays = {k: jnp.asarray(getattr(d, k).detach().cpu().numpy())
+    """The port's PackedDelta -> the reference's (arrays copied through
+    numpy: a JAX array may alias the numpy buffer, which a tensor later
+    moved to shared memory would leave behind)."""
+    arrays = {k: jnp.array(getattr(d, k).detach().cpu().numpy(), copy=True)
               for k in ("idx", "codes", "scale", "zero")}
     meta = {k: getattr(d, k) for k in
             ("h_in", "h_out", "h_g", "keep", "alpha", "k_bits", "m", "codec")}
