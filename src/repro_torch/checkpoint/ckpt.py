@@ -12,15 +12,25 @@ fences it before the next save or exit. ``arrays.npz`` is written to a
 temporary file and renamed, and the manifest is written last, so a step
 without a manifest is not a checkpoint (``latest_step`` skips it).
 
-``restore(..., shardings=)`` (the reference's elastic re-mesh) waits for
-the port's mesh and refuses with a message.
+On a training mesh (``launch.mesh.ServingMesh``) ``save(shardings=,
+mesh=)`` gathers each leaf whole from every rank's slice and the mesh's
+first rank writes (on its background thread with ``blocking=False``);
+every rank fences at ``wait()``, which also waits for the whole mesh, so
+no rank reads a checkpoint before it is written. ``restore(shardings=,
+mesh=)`` reads whole arrays and returns this rank's ``local_slice`` under
+each placement, the reference's ``device_put(arr, sh)``: a checkpoint
+written on one mesh restores on any other, or on one device, unchanged
+(the elastic re-mesh).
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import tempfile
 import threading
+import zipfile
+import zlib
 from typing import Any, Optional
 
 import numpy as np
@@ -32,20 +42,74 @@ _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
 
 
+class _Npz:
+    """An ``np.savez`` file's arrays by name, each read from one memory map
+    of the file after its member's CRC-32 is checked, as ``np.load``
+    checks it (which copies every member through 16 MB chunks). Both
+    packages write with ``np.savez``, whose members are stored, not
+    compressed; any other member is refused."""
+
+    def __init__(self, path: str):
+        self._path = path
+        self._zf = zipfile.ZipFile(path)
+        self._mm = np.memmap(path, mode="r")
+
+    def __enter__(self) -> "_Npz":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._zf.close()
+        self._mm = None
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        fmt = np.lib.format
+        info = self._zf.getinfo(key + ".npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            raise ValueError(f"{self._path}: member {key!r} is compressed; checkpoints "
+                             f"are written by np.savez, which stores members")
+        h = info.header_offset
+        local = bytes(self._mm[h:h + 30])       # the member's local file header
+        start = h + 30 + int.from_bytes(local[26:28], "little") + \
+            int.from_bytes(local[28:30], "little")
+        data = self._mm[start:start + info.file_size]
+        if zlib.crc32(data) != info.CRC:
+            raise ValueError(f"{self._path}: member {key!r} fails its CRC-32")
+        fp = io.BytesIO(bytes(data[:65536 + 16]))
+        version = fmt.read_magic(fp)
+        read = fmt.read_array_header_1_0 if version == (1, 0) else fmt.read_array_header_2_0
+        shape, fortran, dtype = read(fp)
+        return np.ndarray(shape, dtype, buffer=data, offset=fp.tell(),
+                          order="F" if fortran else "C")
+
+
 class Checkpointer:
     def __init__(self, directory: str):
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state: Any, extra: Optional[dict] = None,
-             blocking: bool = True) -> str:
+             blocking: bool = True, shardings: Any = None, mesh=None) -> str:
+        """Write ``state`` as step ``step``. With ``shardings`` (a placement
+        tree mirroring ``state``) and ``mesh``, ``state`` holds this rank's
+        slices: every rank of the mesh must call this; the mesh's first
+        rank writes."""
+        from repro_torch.launch.mesh import gather_whole
         self.wait()
+        if (shardings is None) != (mesh is None):
+            raise ValueError("save on a mesh takes both shardings= and mesh=")
+        flat_s = flatten_with_paths(shardings) if shardings is not None else {}
+        writer = mesh is None or not any(mesh.coords.values())
         host, dtypes = {}, {}
         for k, v in flatten_with_paths(state).items():
             if v is None:
+                continue
+            if mesh is not None:
+                v = gather_whole(v.detach(), tuple(flat_s[k]), mesh)
+            if not writer:
                 continue
             # a copy, never a view: training goes on updating the state in
             # place while the background thread writes these arrays
@@ -53,6 +117,9 @@ class Checkpointer:
             if bit_dtype is not None:
                 dtypes[k] = bit_dtype
         path = os.path.join(self.directory, f"step_{step:08d}")
+        self._mesh = mesh
+        if not writer:
+            return path
         manifest = {"step": step, "extra": extra or {},
                     "leaves": sorted(host.keys()), "bit_dtypes": dtypes}
 
@@ -78,13 +145,18 @@ class Checkpointer:
         return path
 
     def wait(self):
-        """Fence the background write; re-raises its error, if any."""
+        """Fence the background write; re-raises its error, if any. After a
+        save on a mesh every rank calls it, and it returns on each once
+        the write is done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            mesh.barrier()
 
     # -- restore ------------------------------------------------------------
     def latest_step(self) -> Optional[int]:
@@ -101,24 +173,29 @@ class Checkpointer:
         return os.path.join(self.directory, f"step_{step:08d}")
 
     def restore(self, template: Any, step: Optional[int] = None, device=None,
-                shardings: Any = None) -> tuple[Any, dict]:
+                shardings: Any = None, mesh=None) -> tuple[Any, dict]:
         """Restore into the structure of ``template`` (a dict tree of tensors):
         each leaf in its template's dtype, on ``device`` (default: the
-        template leaf's device). -> (state, manifest)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=): elastic re-meshing comes with the training "
-                "mesh (ROADMAP item 8); restore onto one device")
+        template leaf's device). With ``shardings`` (a placement tree
+        mirroring ``template``) and ``mesh``, each leaf is this rank's
+        ``launch.mesh.local_slice`` of the whole array, whatever mesh wrote
+        it. -> (state, manifest)."""
+        from repro_torch.launch.mesh import local_slice
+        if (shardings is None) != (mesh is None):
+            raise ValueError("restore on a mesh takes both shardings= and mesh=")
+        flat_s = flatten_with_paths(shardings) if shardings is not None else {}
         path = self._step_dir(step)
         with open(os.path.join(path, _MANIFEST)) as f:
             manifest = json.load(f)
         bit_dtypes = manifest.get("bit_dtypes", {})
-        with np.load(os.path.join(path, _ARRAYS)) as data:
+        with _Npz(os.path.join(path, _ARRAYS)) as data:
             def leaf(k, tmpl):
                 if tmpl is None:
                     return None
                 t = tensor_from_numpy(data[k], bit_dtypes.get(k),
                                       device=tmpl.device if device is None else device)
+                if mesh is not None:
+                    t = local_slice(t, tuple(flat_s[k]), mesh)
                 return t.to(tmpl.dtype)
             restored = map_with_paths(leaf, template)
         return restored, manifest

@@ -1,13 +1,17 @@
-"""Distribution layer: the logical-axis sharding rules (port of
-``repro/dist``'s serving half).
+"""Distribution layer (port of ``repro/dist``): the logical-axis sharding
+rules and the int8 compressed gradient all-reduce.
 
 One logical-axis table (``sharding.py``) maps every parameter, input,
 cache and packed-delta leaf to a placement over a mesh;
-``launch/mesh.py`` assembles these into the serving layouts and pairs
-them with a live ``torch.distributed`` mesh. The compressed gradient
-all-reduce (``repro/dist/grad_compress.py``) comes with the training
-mesh.
+``launch/mesh.py`` assembles these into the serving and training layouts
+and pairs them with a live ``torch.distributed`` mesh.
+``grad_compress.py`` is the training mesh's int8 data-parallel reduce.
 """
+from repro_torch.dist.grad_compress import (
+    ErrorFeedback,
+    compressed_all_reduce,
+    make_compressed_allreduce,
+)
 from repro_torch.dist.sharding import (
     DEFAULT_RULES,
     LONG_CONTEXT_OVERRIDES,
@@ -23,6 +27,9 @@ from repro_torch.dist.sharding import (
 
 __all__ = [
     "DEFAULT_RULES",
+    "ErrorFeedback",
+    "compressed_all_reduce",
+    "make_compressed_allreduce",
     "LONG_CONTEXT_OVERRIDES",
     "SERVE_OVERRIDES",
     "TRAIN_OVERRIDES",

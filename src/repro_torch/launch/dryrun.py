@@ -1,10 +1,9 @@
-"""Single-card dry run: every (arch x shape) cell's bytes and roofline on one H100.
+"""Dry run: every (arch x shape x mesh) cell's bytes and roofline, per H100.
 
 The twin of ``repro/launch/dryrun.py``, which lowers and compiles every
-(arch x shape x mesh) cell on 512 placeholder devices. One card holds no
-mesh, so this one builds each cell on the ``meta`` device — nothing is
-allocated and nothing is computed — and reports, against the card's 80
-GB:
+(arch x shape x mesh) cell on 512 placeholder devices. This one builds
+each cell on the ``meta`` device — nothing is allocated, nothing is
+computed, no world is spawned — and reports, against one card's 80 GB:
 
 * the params (``lm.param_shapes``), AdamW's state for a train cell
   (``adamw.state_specs``: f32 m, v and master), the serving cache
@@ -22,9 +21,20 @@ GB:
   run on ``meta``). Compute divides by the f32 peak: the port keeps the
   reference's dtype rule, so bf16 weights are promoted to f32 products.
 
-A cell that needs a mesh (``--mesh pod|multipod``, or a model whose bytes
-exceed one card) reports its bytes with ``fits: false`` and names the
-mesh's queue item; nothing distributed is imported.
+``--mesh pod|multipod`` takes ``launch.mesh.make_production_mesh``'s
+abstract (16, 16) ``(data, model)`` and (2, 16, 16) ``(pod, data,
+model)`` meshes (:func:`mesh_cell_memory`): every leaf's bytes are its
+``local_shape`` under the reference's layouts (``_rules_for``: the
+``train`` overrides, the long-context ones for ``long_500k``, else
+serve), AdamW's state in ZeRO-1 over ``(pod, data)``, whichever the mesh
+has; a train cell adds the grads the port's mesh step holds on a device
+(``train/train_step.py``: its ZeRO-1 slice of the f32 grads, and the
+largest block's whole f32 gradients while its backward reduces them)
+and picks its microbatches (:func:`pick_n_micro`). The roofline terms are per device:
+FLOPs over the device count, the per-device bytes, and the collective
+bytes the port issues (:func:`train_collective_bytes`,
+:func:`serve_collective_bytes`). ``fits`` compares the per-device bytes
+with the card; a single-card cell that does not fit names the meshes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
         --shape decode_32k --out results/dryrun_torch
@@ -61,8 +71,30 @@ SHAPES = {
 # tenant's packed delta at the paper's flagship 128x setting
 SERVE_DELTA = DeltaDQSpec(alpha=8.0, k_bits=4, m=8, h_g=128)
 
-MESH_ITEM = ("a mesh: the dry run's mesh cells come with the training mesh "
-             "(ROADMAP section 1, item 8), from launch.mesh.make_production_mesh")
+MESH_ITEM = ("a mesh: --mesh pod or multipod (launch.mesh.make_production_mesh's "
+             "(16, 16) and (2, 16, 16))")
+# bytes of an output element the serving mesh gathers (bf16 weights are
+# promoted to f32 products, the reference's dtype rule)
+GATHERED_ITEMSIZE = 4
+
+
+def pick_n_micro(cfg: ArchConfig, batch: int, dp: int) -> int:
+    """Microbatches of a train cell (``repro/launch/dryrun.py:54-69``): more
+    for bigger models, halved until they divide the batch and its share
+    per data replica."""
+    per_dev = batch // dp
+    n = cfg.n_params()
+    if n > 5e10:
+        target = 8
+    elif n > 5e9:
+        target = 4
+    elif n > 1e9:
+        target = 2
+    else:
+        target = 1
+    while per_dev % target or batch % target:
+        target //= 2
+    return max(target, 1)
 
 
 def _unflatten(flat: dict) -> dict:
@@ -81,21 +113,22 @@ def param_specs(cfg: ArchConfig) -> dict:
     return _unflatten(lm.param_shapes(cfg))
 
 
-def _cache_lens(cfg: ArchConfig, shape: str) -> tuple:
+def _cache_lens(cfg: ArchConfig, shape) -> tuple:
     """(cache length, encoder frames) of a serving cell, as the
     reference's (``repro/launch/dryrun.py:223-224``, ``:240-242``): an
     encdec cell gives half its sequence to the encoder, and its decode
-    cache the other half."""
-    info = SHAPES[shape]
+    cache the other half. ``shape``: a SHAPES name or its dict."""
+    info = SHAPES[shape] if isinstance(shape, str) else shape
     seq = info["seq"]
     if cfg.family != "encdec":
         return seq, 0
     return (seq if info["kind"] == "prefill" else seq // 2), seq // 2
 
 
-def input_specs(cfg: ArchConfig, shape: str) -> dict:
-    """``(shape, dtype)`` stand-ins for every model input of this cell."""
-    info = SHAPES[shape]
+def input_specs(cfg: ArchConfig, shape) -> dict:
+    """``(shape, dtype)`` stand-ins for every model input of this cell
+    (``shape``: a SHAPES name or its dict)."""
+    info = SHAPES[shape] if isinstance(shape, str) else shape
     B, S = info["batch"], info["seq"]
     i64 = torch.int64
     pdt = getattr(torch, cfg.param_dtype)
@@ -111,8 +144,8 @@ def input_specs(cfg: ArchConfig, shape: str) -> dict:
     return {"tokens": ((B, 1), i64)}
 
 
-def _tokens_of(cfg: ArchConfig, shape: str) -> int:
-    info = SHAPES[shape]
+def _tokens_of(cfg: ArchConfig, shape) -> int:
+    info = SHAPES[shape] if isinstance(shape, str) else shape
     if info["kind"] in ("train", "prefill"):
         s = info["seq"] // 2 if cfg.family == "encdec" else info["seq"]
         return info["batch"] * s
@@ -182,6 +215,145 @@ def cell_memory(cfg: ArchConfig, shape: str) -> dict:
     mem["total_bytes"] = sum(mem.values())
     mem["card_bytes"] = roofline.HBM_BYTES
     return mem
+
+
+def _rules_for(mesh, kind: str, shape: str):
+    """The reference's layout of a cell (``repro/launch/dryrun.py:89-96``)."""
+    from repro_torch.dist import sharding as shd
+    rules = shd.ShardingRules(mesh)
+    if kind == "train":
+        return rules.with_overrides(**shd.TRAIN_OVERRIDES)
+    if shape == "long_500k":
+        return rules.with_overrides(**{**shd.SERVE_OVERRIDES, **shd.LONG_CONTEXT_OVERRIDES})
+    return rules.with_overrides(**shd.SERVE_OVERRIDES)
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _local_bytes(shape: tuple, dtype: torch.dtype, placement: tuple, mesh) -> int:
+    from repro_torch.launch.mesh import local_shape
+    return math.prod(local_shape(tuple(shape), tuple(placement), mesh)) * _itemsize(dtype)
+
+
+def _tree_local_bytes(rules, specs: Any, axes: Any) -> int:
+    """Per-device bytes of a spec tree (``(shape, dtype)`` leaves, or codec
+    leaves of them) under ``rules``, each leaf its ``local_shape``."""
+    from repro_torch.utils import is_spec
+    total = 0
+    for path, spec in iter_leaves(specs):
+        ax = axes
+        for k in path.split("/"):
+            ax = ax[k]
+        if spec is None:
+            continue
+        pairs = ([(spec, ax)] if is_spec(spec) else
+                 [(getattr(spec, f.name), getattr(ax, f.name))
+                  for f in dataclasses.fields(spec) if is_spec(getattr(spec, f.name))])
+        for (shape, dtype), a in pairs:
+            total += _local_bytes(shape, dtype, rules.spec_for(tuple(a), tuple(shape), path),
+                                  rules.mesh)
+    return total
+
+
+def _largest_gather(cfg: ArchConfig) -> int:
+    """Elements of the largest set of leaves one gather of the port's mesh
+    step makes whole (``train/train_step.py``): the leaves outside the
+    stacks together, or one layer row of a stack's leaves."""
+    axes = dict(iter_leaves(lm.param_axes(cfg)))
+    units: dict = {}
+    for path, (shape, _) in lm.param_shapes(cfg).items():
+        stacked = axes[path][:1] == ("layers",)
+        key = path.rsplit("/", 1)[0] if stacked else ""
+        units[key] = units.get(key, 0) + math.prod(shape[1:] if stacked else shape)
+    return max(units.values())
+
+
+def mesh_cell_memory(cfg: ArchConfig, mesh, info: dict, shape: str = "") -> dict:
+    """Per-device bytes of a cell on ``mesh`` (an abstract mesh), ``info``
+    a SHAPES dict: params, AdamW's ZeRO-1 state and the grads (train: the
+    device's ZeRO-1 slice of the f32 grads, which also sums the
+    microbatches, and the largest gather's whole f32 gradients twice,
+    autograd's and the all-reduce's buffer), the batch, the cache and one
+    tenant's delta (serving)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import zero_axes
+    rules = _rules_for(mesh, info["kind"], shape)
+    p_specs, p_axes = lm.param_specs(cfg), lm.param_axes(cfg)
+    b_specs = input_specs(cfg, info)
+    mem = {"param_bytes": _tree_local_bytes(rules, p_specs, p_axes),
+           "optimizer_bytes": 0, "grad_bytes": 0,
+           "batch_bytes": _tree_local_bytes(rules, b_specs, shd.batch_axes(b_specs)),
+           "cache_bytes": 0, "delta_bytes": 0}
+    if info["kind"] == "train":
+        z = shd.zero1_shardings(rules, p_specs, p_axes, zero_axes(mesh))
+        state = sum(_local_bytes(sp[0], torch.float32, pl, mesh)
+                    for (_, sp), (_, pl) in zip(iter_leaves(p_specs), iter_leaves(z)))
+        mem["optimizer_bytes"] = 3 * state + 4            # m, v, master; step
+        mem["grad_bytes"] = state + 2 * 4 * _largest_gather(cfg)
+    else:
+        from repro_torch.core.compress import delta_axes
+        max_seq, enc_len = _cache_lens(cfg, info)
+        cache = lm.init_cache(cfg, info["batch"], max_seq, enc_len=enc_len, device="meta")
+        total = [0]
+
+        def leaf(name, t, ax):
+            pl = rules.spec_for(tuple(ax), tuple(t.shape), name)
+            total[0] += _local_bytes(tuple(t.shape), t.dtype, pl, mesh)
+        shd.map_cache(leaf, cache, shd.cache_axes(cache))
+        mem["cache_bytes"] = total[0]
+        mem["delta_bytes"] = _tree_local_bytes(
+            rules, delta_specs(p_specs, SERVE_DELTA),
+            delta_axes(p_specs, p_axes, SERVE_DELTA, mesh.shape.get("model", 1)))
+    mem["total_bytes"] = sum(mem.values())
+    mem["card_bytes"] = roofline.HBM_BYTES
+    return mem
+
+
+def train_collective_bytes(cfg: ArchConfig, mesh, n_micro: int) -> float:
+    """Bytes one device receives in a step of the port's mesh train step:
+    every leaf all-gathered whole from its ``train``-layout slice each
+    microbatch (a stacked leaf twice: forward and the remat recompute),
+    each microbatch's whole f32 grads summed over the data replicas (ring
+    all-reduce: 2 (dp - 1) / dp of them) and the cast ZeRO-1 slices
+    gathered back to the param layout."""
+    from repro_torch.launch.mesh import train_shardings
+    sh = train_shardings(cfg, mesh)
+    dp = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+    axes = dict(iter_leaves(lm.param_axes(cfg)))
+    z = dict(iter_leaves(sh["opt"]["master"]))
+    shapes = lm.param_shapes(cfg)
+    total = 0.0
+    for path, pl in iter_leaves(sh["params"]):
+        shape, dtype = shapes[path]
+        whole = math.prod(shape) * _itemsize(dtype)
+        local = _local_bytes(shape, dtype, pl, mesh)
+        uses = 2 if axes[path][:1] == ("layers",) else 1
+        total += n_micro * uses * (whole - local)
+        total += n_micro * 2.0 * (dp - 1) / dp * 4 * math.prod(shape)
+        total += local - _local_bytes(shape, dtype, z[path], mesh)
+    return total
+
+
+def serve_collective_bytes(cfg: ArchConfig, mesh, info: dict) -> float:
+    """Bytes one device receives in one call of a serving cell on the
+    port's serving mesh: each column-parallel site's output all-gathered
+    over ``model`` (``core.apply``), on the device's share of the rows
+    (an expert stack: its top-k assignments)."""
+    from repro_torch.launch.mesh import param_shardings
+    M = mesh.shape.get("model", 1)
+    dp = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+    rows = _tokens_of(cfg, info) / dp
+    shapes = lm.param_shapes(cfg)
+    total = 0.0
+    for path, pl in iter_leaves(param_shardings(cfg, mesh)):
+        if not pl or pl[-1] != "model":
+            continue
+        shape = shapes[path][0]
+        r = rows * cfg.moe.top_k if len(shape) == 4 else rows
+        total += shape[0] * r * shape[-1] * (M - 1) / M * GATHERED_ITEMSIZE
+    return total
 
 
 def _meta_batch(cfg: ArchConfig, shape: str) -> dict:
@@ -265,13 +437,29 @@ def run_cell(arch: str, shape: str, mesh: str = "single",
                          skip_reason="pure full attention (DESIGN.md §4)")
     else:
         try:
-            mem = cell_memory(cfg, shape)
             notes: dict[str, Any] = {"n_params": cfg.n_params(),
                                      "n_active": cfg.n_active_params()}
-            fits = mem["total_bytes"] <= roofline.HBM_BYTES and mesh == "single"
+            n_dev, coll = 1, 0.0
+            if mesh == "single":
+                mem = cell_memory(cfg, shape)
+            else:
+                from repro_torch.launch.mesh import make_production_mesh
+                am = make_production_mesh(multi_pod=mesh == "multipod")
+                n_dev = am.size
+                notes["mesh"] = dict(am.shape)
+                if info["kind"] == "train":
+                    dp = am.shape.get("pod", 1) * am.shape["data"]
+                    notes["n_micro"] = pick_n_micro(cfg, info["batch"], dp)
+                    coll = train_collective_bytes(cfg, am, notes["n_micro"])
+                else:
+                    coll = serve_collective_bytes(cfg, am, info)
+                mem = mesh_cell_memory(cfg, am, info, shape)
+            fits = mem["total_bytes"] <= roofline.HBM_BYTES
             rl = None
-            if mesh != "single" or not fits:
-                notes["needs"] = MESH_ITEM
+            if not fits:
+                notes["needs"] = (MESH_ITEM if mesh == "single" else
+                                  f"{mem['total_bytes'] / 1e9:.2f} GB per device of "
+                                  f"{roofline.HBM_BYTES / 1e9:.0f} GB")
             else:
                 flops, notes["flops_source"] = base_flops(cfg, shape)
                 nbytes = mem["total_bytes"]
@@ -281,10 +469,10 @@ def run_cell(arch: str, shape: str, mesh: str = "single",
                     notes["correction_bytes"] = c_bytes
                     flops += c_flops
                 r = roofline.Roofline(
-                    flops=flops, bytes_accessed=float(nbytes), coll_bytes=0.0,
+                    flops=flops / n_dev, bytes_accessed=float(nbytes), coll_bytes=coll,
                     model_flops=roofline.model_flops_for(
                         info["kind"], notes["n_params"], notes["n_active"],
-                        _tokens_of(cfg, shape), 1),
+                        _tokens_of(cfg, shape), n_dev),
                     unit="f32")
                 rl = r.to_dict()
             res = CellResult(arch, shape, mesh, ok=True, fits=fits,
@@ -307,16 +495,21 @@ def format_cell(res: CellResult) -> str:
     if not res.ok:
         return f"[FAIL] {tag}: {res.error}"
     m = res.memory
-    gb = {k: m[k] / 1e9 for k in ("param_bytes", "optimizer_bytes", "cache_bytes",
-                                  "delta_bytes", "total_bytes")}
+    gb = {k: m.get(k, 0) / 1e9 for k in ("param_bytes", "optimizer_bytes", "grad_bytes",
+                                         "batch_bytes", "cache_bytes", "delta_bytes",
+                                         "total_bytes")}
+    per = " per device" if res.mesh != "single" else ""
+    extra = (f"grads {gb['grad_bytes']:.2f} GB, batch {gb['batch_bytes']:.3f} GB, "
+             if res.mesh != "single" else "")
     line = (f"[{'ok' if res.fits else 'does not fit'}] {tag}: params "
-            f"{gb['param_bytes']:.2f} GB, adamw {gb['optimizer_bytes']:.2f} GB, cache "
+            f"{gb['param_bytes']:.2f} GB, adamw {gb['optimizer_bytes']:.2f} GB, {extra}cache "
             f"{gb['cache_bytes']:.2f} GB, tenant delta {gb['delta_bytes']:.3f} GB, total "
-            f"{gb['total_bytes']:.2f} of {m['card_bytes'] / 1e9:.0f} GB")
+            f"{gb['total_bytes']:.2f}{per} of {m['card_bytes'] / 1e9:.0f} GB")
     if res.roofline:
         r = res.roofline
         line += (f"; bottleneck={r['bottleneck']} compute {1e3 * r['t_compute_s']:.3f} ms, "
-                 f"memory {1e3 * r['t_memory_s']:.3f} ms ({res.notes['flops_source']})")
+                 f"memory {1e3 * r['t_memory_s']:.3f} ms, collective "
+                 f"{1e3 * r['t_collective_s']:.3f} ms ({res.notes['flops_source']})")
     else:
         line += f"; needs {res.notes['needs']}"
     return line
@@ -327,7 +520,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all", choices=["all", *SHAPES])
     ap.add_argument("--mesh", default="single", choices=["single", "pod", "multipod"],
-                    help="pod/multipod cells need a mesh: bytes only, fits false")
+                    help="pod (16x16) / multipod (2x16x16): per-device bytes and roofline")
     ap.add_argument("--out", default=None, help="write one JSON file a cell here")
     args = ap.parse_args(argv)
     archs = list_archs() if args.arch == "all" else [args.arch]

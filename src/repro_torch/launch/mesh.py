@@ -33,6 +33,13 @@ Serving layout (the DeltaDQ deployment, Fig. 2 at scale):
   ``serve.kv.SlotKVCache`` does not take: every model rank runs the whole
   mixer, so it keeps the whole state.
 
+Training layout (:func:`train_shardings`, the reference's
+``launch/train.py``): params in the logical rules' ``train`` profile
+(FSDP over ``data`` plus Megatron's cuts over ``model``), AdamW's state
+in that layout plus ZeRO-1 over ``(pod, data)``; the training step
+(``train.make_train_step(mesh=)``) gathers what it uses whole
+(:func:`gather_leaves`).
+
 The process-group backend follows the layout, and is printed: ``nccl``
 when every rank has a card of its own, ``gloo`` on the CPU, and ``gloo``
 when ranks share one card (NCCL refuses two ranks on one device). gloo
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import queue
 import tempfile
@@ -72,7 +80,9 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 # A live rank's view of the mesh
 # ---------------------------------------------------------------------------
 class ServingMesh:
-    """One rank's view of a ``(data, model)`` serving mesh.
+    """One rank's view of a ``(data, model)`` mesh, for serving and for
+    training (``train.make_train_step(mesh=)``, ``launch.train --data
+    --model``).
 
     ``shape`` is the ``{axis: size}`` dict the layouts read, ``coords``
     this rank's ``{axis: index}``. ``device_mesh`` is the
@@ -83,12 +93,13 @@ class ServingMesh:
     gathered tensor (:func:`backend_for`)."""
 
     def __init__(self, abstract: AbstractMesh, coords: dict, *, device_mesh=None,
-                 backend: Optional[str] = None, transport: str = "none"):
+                 backend: Optional[str] = None, transport: str = "none", group=None):
         self.abstract = abstract
         self.coords = dict(coords)
         self.device_mesh = device_mesh
         self.backend = backend
         self.transport = transport
+        self.group = group          # every rank of the mesh, in coordinate order
 
     @classmethod
     def view(cls, data: int = 1, model: int = 1, *, data_index: int = 0,
@@ -115,14 +126,61 @@ class ServingMesh:
         n = self.shape.get(axis, 1)
         if n == 1:
             return t
-        if self.device_mesh is None:
-            raise RuntimeError(f"mesh view {self.shape} has no process group for "
-                               f"a collective over {axis!r}")
         import torch.distributed as dist
         src = t.contiguous()
         parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=self.device_mesh.get_group(axis))
+        dist.all_gather(parts, src, group=self._group(axis))
         return torch.cat(parts, dim=dim)
+
+    def _group(self, axis: str):
+        if self.device_mesh is None:
+            raise RuntimeError(f"mesh view {self.shape} has no process group for "
+                               f"a collective over {axis!r}")
+        return self.device_mesh.get_group(axis)
+
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """``op`` (``sum`` or ``max``) of every rank's ``t`` over the ranks
+        that share this rank's other coordinates, **in place** (``t``, which
+        must be contiguous, is returned)."""
+        if self.shape.get(axis, 1) == 1:
+            return t
+        if not t.is_contiguous():
+            raise ValueError("all_reduce works in place on a contiguous tensor")
+        import torch.distributed as dist
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        dist.all_reduce(t, op=ops[op], group=self._group(axis))
+        return t
+
+    def gather_all(self, t: torch.Tensor) -> list:
+        """Every rank's ``t`` (same shape and dtype on each), one a rank, in
+        coordinate order (row-major over the axes)."""
+        if self.size == 1:
+            return [t]
+        if self.group is None:
+            raise RuntimeError(f"mesh view {self.shape} has no process group")
+        import torch.distributed as dist
+        src = t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        return parts
+
+    def at(self, index: int) -> "ServingMesh":
+        """The mesh seen from the rank at coordinate-order ``index``, with
+        no process group (its coordinates, for layouts)."""
+        coords = {}
+        for name, n in reversed(list(zip(self.abstract.axis_names, self.abstract.sizes))):
+            coords[name] = index % n
+            index //= n
+        return ServingMesh(self.abstract, coords)
+
+    def barrier(self) -> None:
+        """Every rank of the mesh has reached this call."""
+        if self.size == 1:
+            return
+        if self.group is None:
+            raise RuntimeError(f"mesh view {self.shape} has no process group")
+        import torch.distributed as dist
+        dist.barrier(group=self.group)
 
     def agree(self, value: float) -> float:
         """Rank 0's ``value`` on every rank: host decisions that read a
@@ -176,6 +234,38 @@ def init_rank(rank: int, world: int, init_method: str, device="cpu", *,
     return backend
 
 
+def make_mesh(data: int = 1, model: int = 1, *, ranks: Optional[list] = None,
+              device=None) -> Optional[ServingMesh]:
+    """(data, model) mesh over ``ranks`` of the initialized world (default:
+    every rank, which must number ``data * model``), rank ``ranks[d *
+    model + m]`` at coordinates (d, m). Every rank of the world must call
+    it, in the same order (it creates the mesh's process groups); a rank
+    outside ``ranks`` (ascending) gets None."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(launch.mesh.init_rank / run_ranks)")
+    ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
+    if len(ranks) != data * model or ranks != sorted(set(ranks)):
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ascending "
+                         f"ranks, got {ranks}")
+    backend = dist.get_backend()
+    if device is None:
+        device = "cuda" if backend == "nccl" else "cpu"
+    dev_type = torch.device(device).type
+    dm = DeviceMesh(dev_type, torch.tensor(ranks).reshape(data, model),
+                    mesh_dim_names=("data", "model"))
+    group = dist.new_group(ranks) if len(ranks) > 1 else None
+    if dm.get_coordinate() is None:
+        return None
+    return ServingMesh(AbstractMesh((data, model), ("data", "model")),
+                       {"data": dm.get_local_rank("data"),
+                        "model": dm.get_local_rank("model")},
+                       device_mesh=dm, backend=backend,
+                       transport=_transport(backend, dev_type), group=group)
+
+
 def make_serving_mesh(devices: Optional[int] = None, *, data: int = 1,
                       device=None) -> ServingMesh:
     """(data, model) mesh over the ``devices`` ranks of the initialized
@@ -188,7 +278,6 @@ def make_serving_mesh(devices: Optional[int] = None, *, data: int = 1,
     ``launch.serve --devices n --data d``). Every rank of the world must
     call it, in the same order (it creates the axes' process groups)."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError("make_serving_mesh needs an initialized process group "
                            "(launch.mesh.init_rank / run_ranks)")
@@ -199,16 +288,7 @@ def make_serving_mesh(devices: Optional[int] = None, *, data: int = 1,
     if data < 1 or n % data:
         raise ValueError(f"data={data} must divide the device count {n} "
                          "(equal contiguous shard pools)")
-    backend = dist.get_backend()
-    if device is None:
-        device = "cuda" if backend == "nccl" else "cpu"
-    dev_type = torch.device(device).type
-    dm = init_device_mesh(dev_type, (data, n // data), mesh_dim_names=("data", "model"))
-    return ServingMesh(AbstractMesh((data, n // data), ("data", "model")),
-                       {"data": dm.get_local_rank("data"),
-                        "model": dm.get_local_rank("model")},
-                       device_mesh=dm, backend=backend,
-                       transport=_transport(backend, dev_type))
+    return make_mesh(data, n // data, device=device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, device=None) -> ServingMesh:
@@ -242,8 +322,9 @@ def param_shardings(cfg, mesh, profile: str = "serve", **overrides) -> Any:
     the single-card tokens.
 
     ``train``: the logical-rules layout (Megatron row+column TP plus the
-    FSDP overrides), for layouts and the dry run; the training mesh that
-    runs it is a later slice."""
+    FSDP overrides), which the training mesh stores its params in
+    (:func:`train_shardings`; ``train.make_train_step(mesh=)`` gathers
+    each block's weights whole on use)."""
     from repro_torch.core.compress import is_compressible
     from repro_torch.models import lm
     from repro_torch.utils import map_with_paths, materialize
@@ -265,6 +346,26 @@ def param_shardings(cfg, mesh, profile: str = "serve", **overrides) -> Any:
         return ()
 
     return map_with_paths(one, lm.param_specs(cfg))
+
+
+def zero_axes(mesh) -> tuple:
+    """The ZeRO-1 axes of a mesh: ``(pod, data)``, whichever it has (the
+    reference's ``launch/train.py`` and ``launch/dryrun.py``)."""
+    return tuple(a for a in ("pod", "data") if a in _abstract(mesh).shape)
+
+
+def train_shardings(cfg, mesh) -> dict:
+    """``{"params", "opt"}`` placement trees of a training state on
+    ``mesh``: params in the ``train`` profile, AdamW's m, v and f32
+    master in that layout plus ZeRO-1 over :func:`zero_axes`
+    (``dist.zero1_shardings``, the reference's ``o_sh``), ``step``
+    replicated."""
+    from repro_torch.models import lm
+    rules = shd.ShardingRules(_abstract(mesh)).with_overrides(**shd.TRAIN_OVERRIDES)
+    specs, axes = lm.param_specs(cfg), lm.param_axes(cfg)
+    z = shd.zero1_shardings(rules, specs, axes, zero_axes(mesh))
+    return {"params": shd.tree_shardings(rules, specs, axes),
+            "opt": {"m": z, "v": z, "master": z, "step": ()}}
 
 
 def cache_shardings(cfg, mesh, batch: int, max_seq: int, enc_len: int = 0,
@@ -342,6 +443,54 @@ def local_slice(t: torch.Tensor, placement: tuple, mesh: ServingMesh) -> torch.T
         out = out.narrow(dim, lo, hi - lo)
         cut = True
     return out.contiguous() if cut else t
+
+
+def gather_whole(t: torch.Tensor, placement: tuple, mesh: ServingMesh) -> torch.Tensor:
+    """The whole leaf from every rank's :func:`local_slice` of it under
+    ``placement``: an all-gather over each named axis along its dimension
+    (a dimension on several axes: the minor axis first). ``t`` itself
+    when nothing is cut."""
+    out = t
+    for dim, entry in enumerate(placement):
+        if entry is None:
+            continue
+        for a in reversed((entry,) if isinstance(entry, str) else tuple(entry)):
+            out = mesh.all_gather(out, a, dim=dim)
+    return out
+
+
+def gather_leaves(ts: list, placements: list, mesh: ServingMesh) -> list:
+    """Each leaf whole from every rank's :func:`local_slice` of it, all in
+    one all-gather of the cut leaves' bytes over the mesh
+    (:meth:`ServingMesh.gather_all`), each rank's piece written where its
+    coordinates put it. A leaf nothing cuts is returned as it is."""
+    cut = [i for i, pl in enumerate(placements)
+           if any(e is not None for e in pl)] if mesh.size > 1 else []
+    out = list(ts)
+    if not cut:
+        return out
+    # each leaf's bytes padded to 8, so every piece starts aligned for its dtype
+    nbytes = {i: ts[i].numel() * ts[i].element_size() for i in cut}
+    parts = mesh.gather_all(torch.cat(
+        [torch.nn.functional.pad(ts[i].contiguous().reshape(-1).view(torch.uint8),
+                                 (0, -nbytes[i] % 8)) for i in cut]))
+    wholes = {}
+    for i in cut:
+        k = [1 if e is None else math.prod(
+            mesh.shape[a] for a in ((e,) if isinstance(e, str) else e))
+             for e in placements[i]]
+        wholes[i] = ts[i].new_empty([n * f for n, f in zip(ts[i].shape, k)])
+    for r, part in enumerate(parts):
+        at, off = mesh.at(r), 0
+        for i in cut:
+            t, whole, n = ts[i], wholes[i], nbytes[i]
+            idx = tuple(slice(None) if e is None else slice(*_cut(at, e, whole.shape[d]))
+                        for d, e in enumerate(placements[i]))
+            whole[idx] = part[off:off + n].view(t.dtype).view(t.shape)
+            off += n + (-n % 8)
+    for i in cut:
+        out[i] = wholes[i]
+    return out
 
 
 def local_shape(shape: tuple, placement: tuple, mesh) -> tuple:

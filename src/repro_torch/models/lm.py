@@ -524,16 +524,19 @@ def _write_state(cache_l: tuple, new: tuple) -> None:
 # ---------------------------------------------------------------------------
 # Encoder (encdec family)
 # ---------------------------------------------------------------------------
-def encode(cfg: ArchConfig, params, feats: torch.Tensor, deltas=None) -> torch.Tensor:
+def encode(cfg: ArchConfig, params, feats: torch.Tensor, deltas=None,
+           gather=None) -> torch.Tensor:
     """Bidirectional encoder over precomputed frontend features [B,S,d],
     with the ``enc`` subtree of the deltas. The residual starts in
-    ``cfg.param_dtype``, as the reference's does."""
+    ``cfg.param_dtype``, as the reference's does. ``gather``: as
+    :func:`_walk`'s."""
+    g = gather or (lambda p: p)
     enc = params["enc"]
     denc = dget(deltas, "enc")
     x = feats.to(getattr(torch, cfg.param_dtype))
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_enc_layers):
-        p_a = _slice(enc["attn"], i)
+        p_a = g(_slice(enc["attn"], i))
         d_a = dindex(dget(denc, "attn"), i)
         u = rmsnorm(x, p_a["ln1"], cfg.norm_eps)
         q, k, v = qkv_project(u, p_a, d_a, cfg, positions)
@@ -541,7 +544,7 @@ def encode(cfg: ArchConfig, params, feats: torch.Tensor, deltas=None) -> torch.T
                         cap=cfg.attn_softcap)
         x = x + apply_linear(out.reshape(*x.shape[:-1], cfg.q_dim), p_a["wo"],
                              dget(d_a, "wo"))
-        x = _mlp_block(cfg, _slice(enc["mlp"], i), dindex(dget(denc, "mlp"), i), x)
+        x = _mlp_block(cfg, g(_slice(enc["mlp"], i)), dindex(dget(denc, "mlp"), i), x)
     return rmsnorm(x, enc["final_norm"]["scale"], cfg.norm_eps)
 
 
@@ -559,15 +562,23 @@ def _remat(fn):
 
 def _walk(cfg: ArchConfig, params, x, positions, deltas=None, caches=None,
           memory=None, decode_pos=None, chunk=False, chunk_valid=None,
-          remat=False):
+          remat=False, gather=None):
     """Python loop over the layers (train, prefill, chunk and decode
     paths). A layer's attention is row ``_attn_index`` of the attention
     stack, its MLP row ``_mlp_index`` of the mlp stack; a moe, ssm or rec
     layer's block is row ``j`` of its own kind's stack. The cross caches
     sit after the ``n_layers`` self-layer entries. ``remat`` (training,
     no cache) checkpoints each self block as the reference's ``mr`` does
-    (``repro/models/lm.py:503-504``)."""
-    mr = _remat if remat else (lambda fn: fn)
+    (``repro/models/lm.py:503-504``). ``gather`` (the training mesh's)
+    maps a block's param slice to whole weights; a self block calls it
+    inside its remat checkpoint, so backward gathers again instead of
+    holding every block's weights."""
+    g = gather or (lambda p: p)
+
+    def mr(fn):
+        run = (lambda x, p, d: fn(x, g(p), d)) if gather is not None else fn
+        return _remat(run) if remat else run
+
     decode = decode_pos is not None
     cross_after = _cross_after(cfg)
     ci = cfg.n_layers
@@ -609,21 +620,21 @@ def _walk(cfg: ArchConfig, params, x, positions, deltas=None, caches=None,
                 x, _slice(params["mlp"], mi), dindex(dget(deltas, "mlp"), mi))
 
         if li in cross_after:        # vlm: the gated cross block and its MLP
-            p_c = _slice(params["cross"], cross_i)
+            p_c = g(_slice(params["cross"], cross_i))
             d_c = dindex(dget(deltas, "cross"), cross_i)
             mem_kv = _cross_kv(cfg, p_c, d_c, memory,
                                caches[ci + cross_i] if caches is not None else None,
                                decode)
             x = _cross_block(cfg, p_c, d_c, x, mem_kv, gated=True)
             cmi = _count(cfg, ("attn", "rec")) + cross_i
-            p_m = _slice(params["mlp"], cmi)
+            p_m = g(_slice(params["mlp"], cmi))
             d_m = dindex(dget(deltas, "mlp"), cmi)
             u = rmsnorm(x, p_m["ln"], cfg.norm_eps)
             x = x + glu_mlp(u, p_m, d_m, cfg.act) * torch.tanh(p_c["gate_mlp"].to(x.dtype))
             cross_i += 1
 
         if cfg.family == "encdec":   # ungated cross block into the encoder's memory
-            p_c = _slice(params["dec_cross"], li)
+            p_c = g(_slice(params["dec_cross"], li))
             d_c = dindex(dget(deltas, "dec_cross"), li)
             mem_kv = _cross_kv(cfg, p_c, d_c, memory,
                                caches[ci + li] if caches is not None else None, decode)
@@ -650,35 +661,39 @@ def unembed(cfg, params, h, deltas=None) -> torch.Tensor:
     return softcap(logits.to(torch.float32), cfg.logit_softcap)
 
 
-def _memory(cfg, params, batch: dict, x: torch.Tensor, deltas):
+def _memory(cfg, params, batch: dict, x: torch.Tensor, deltas, gather=None):
     """The cross blocks' memory: the encoder's output (encdec), the image
     embeddings in the residual's dtype (vlm), else None."""
     if cfg.family == "encdec":
-        return encode(cfg, params, batch["enc_feats"], deltas)
+        return encode(cfg, params, batch["enc_feats"], deltas, gather=gather)
     if cfg.family == "vlm":
         return batch["image_embeds"].to(x.dtype)
     return None
 
 
 def forward(cfg: ArchConfig, params, batch: dict, deltas=None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, gather=None) -> torch.Tensor:
     """Training/scoring forward: full-sequence causal logits [B,S,V].
-    ``remat`` recomputes each block in backward (training)."""
+    ``remat`` recomputes each block in backward (training); ``gather``
+    as :func:`_walk`'s (the stacks' leaves are then what it takes, the
+    other leaves whole tensors)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h = _walk(cfg, params, x, positions, deltas=deltas,
-              memory=_memory(cfg, params, batch, x, deltas), remat=remat)
+              memory=_memory(cfg, params, batch, x, deltas, gather), remat=remat,
+              gather=gather)
     return unembed(cfg, params, h, deltas)
 
 
-def loss_fn(cfg: ArchConfig, params, batch: dict, deltas=None, remat: bool = False):
+def loss_fn(cfg: ArchConfig, params, batch: dict, deltas=None, remat: bool = False,
+            gather=None):
     """Mean next-token cross-entropy (``repro/models/lm.py:679-692``):
     default labels are the tokens shifted left with a 0 pad, the last
     position masked; ``loss_mask`` weighs positions. -> (loss, {"loss",
     "tokens"}), f32 scalars."""
-    logits = forward(cfg, params, batch, deltas, remat=remat)
+    logits = forward(cfg, params, batch, deltas, remat=remat, gather=gather)
     labels = batch.get("labels")
     mask = batch.get("loss_mask")
     if labels is None:

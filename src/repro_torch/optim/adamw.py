@@ -80,9 +80,15 @@ def _decay_mask(path: str) -> float:
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, params: Any, grads: Any, state: dict):
-    """Returns (new_params, state, metrics); ``state`` is updated in place."""
-    gnorm = global_norm(grads)
+def update(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+           gnorm: Optional[torch.Tensor] = None):
+    """Returns (new_params, state, metrics); ``state`` is updated in place.
+    ``gnorm``: the whole gradient tree's norm, where ``grads`` are one
+    rank's ZeRO-1 slices of it (the training mesh); each new param is
+    then that slice of the master, cast, and only ``dtype`` of
+    ``params`` is read."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state["step"] + 1
     mult = cfg.schedule(step) if cfg.schedule is not None else 1.0

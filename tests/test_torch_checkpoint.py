@@ -38,6 +38,8 @@ from repro_torch.utils import flatten_with_paths  # noqa: E402
 import torch_bridge as br  # noqa: E402
 
 ARCH = "llama3.2-1b"
+# losses on a mesh against one device (tests/test_torch_train.py states it)
+LOSS_RTOL = 1e-4
 
 
 def _bits(a) -> np.ndarray:
@@ -98,8 +100,16 @@ def test_roundtrip_async_latest_and_bf16_bits(tmp_path):
     # a step directory without its manifest is not a checkpoint
     os.makedirs(tmp_path / "ck" / "step_00000009")
     assert ck.latest_step() == 7
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ck.restore(_state(0), shardings={})
+    # restore(shardings=, mesh=) gives this rank's slice of each leaf: the
+    # training layouts seen from coordinate (1, 1) of a (2, 2) mesh view
+    from repro_torch.launch import mesh as mesh_lib
+    view = mesh_lib.ServingMesh.view(data=2, model=2, data_index=1, model_index=1)
+    sh = mesh_lib.train_shardings(t_smoke(ARCH), view)
+    got, _ = ck.restore(_state(0), shardings=sh, mesh=view)
+    want = {k: mesh_lib.local_slice(v, tuple(flatten_with_paths(sh)[k]), view)
+            for k, v in flatten_with_paths(s7).items()}
+    _assert_trees_bit_equal(got, want)
+    assert got["params"]["attn"]["wq"].shape == (2, 32, 32)
 
 
 def test_async_save_holds_the_state_at_save_time(tmp_path, monkeypatch):
@@ -201,5 +211,7 @@ def test_launcher_resume_bitexact(tmp_path, capsys):
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_cli.main(["--device", "cpu", "--data", "2"])
+    # --data 2 spawns two gloo ranks; their losses are the one device's
+    meshed = train_cli.main(args + ["--data", "2"])
+    assert meshed["mesh"] == {"data": 2, "model": 1} and meshed["backend"] == "gloo"
+    np.testing.assert_allclose(meshed["losses"], full["losses"], rtol=LOSS_RTOL)

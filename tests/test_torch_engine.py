@@ -39,7 +39,7 @@ SERVING_MODULES = ("repro_torch.serve.kv", "repro_torch.serve.metrics",
                    "repro_torch.serve.telemetry", "repro_torch.serve.engine",
                    "repro_torch.serve.registry", "repro_torch.core.codecs",
                    "repro_torch.launch.serve", "repro_torch.launch.mesh",
-                   "repro_torch.dist.sharding")
+                   "repro_torch.dist.sharding", "repro_torch.dist.grad_compress")
 
 
 def _fleet(dtype, n=2):

@@ -278,7 +278,11 @@ def test_dryrun_cells_run_on_meta(monkeypatch):
     big = dryrun.run_cell("llama3.2-1b", "decode_32k")
     assert big.ok and not big.fits and big.roofline is None and "mesh" in big.notes["needs"]
     pod = dryrun.run_cell("llama3.2-1b", "prefill_32k", mesh="pod")
-    assert not pod.fits and "mesh" in pod.notes["needs"]
+    assert pod.ok and pod.fits == (pod.memory["total_bytes"] <= rl.HBM_BYTES) and pod.fits
+    assert pod.notes["mesh"] == {"data": 16, "model": 16}
+    assert pod.memory["total_bytes"] < res.memory["total_bytes"] / 8
+    assert pod.roofline["flops_per_device"] == pytest.approx(
+        res.roofline["flops_per_device"] / 256, rel=1e-12)
     qwen = dryrun.get_config("qwen3-moe-30b-a3b")
     counted, source = dryrun.base_flops(qwen, "decode_32k")
     assert source == "FlopCounterMode"
@@ -292,6 +296,59 @@ def test_dryrun_cells_run_on_meta(monkeypatch):
                                        128, 1) + dryrun.analytic_decode_attention_flops(
         qwen, 128, 32768)
     assert dryrun.format_cell(res).startswith("[ok] llama3.2-1b__prefill_32k__single")
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_mesh_train_cell_layouts_equal_reference(multi_pod, monkeypatch):
+    """A pod and a multipod train cell of llama3.2-1b: every param's
+    placement and every ZeRO-1 placement equal the reference's
+    ``ShardingRules(...).spec_for`` and ``zero1_shardings`` (zero axes
+    ``(pod, data)`` on multipod), built from an object that carries only
+    the mesh's ``shape``; the reference wraps each in a ``NamedSharding``,
+    which needs devices, so the test stands a function returning the spec
+    in for it. The cell's per-device params and AdamW bytes are those
+    placements' ``local_shape`` sums."""
+    import math
+    import types
+
+    from repro.dist import sharding as jshd
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    am = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    monkeypatch.setattr(jshd, "NamedSharding", lambda mesh, spec: tuple(spec))
+    jcfg = j_get_config("llama3.2-1b")
+    jrules = jshd.ShardingRules(types.SimpleNamespace(shape=dict(am.shape))).with_overrides(
+        **jshd.TRAIN_OVERRIDES)
+    j_specs, j_axes = jlm.param_specs(jcfg), jlm.param_axes(jcfg)
+    want_p = flatten_with_paths(jshd.tree_shardings(jrules, j_specs, j_axes))
+    zaxes = ("pod", "data") if multi_pod else ("data",)
+    want_z = flatten_with_paths(jshd.zero1_shardings(jrules, j_specs, j_axes, zaxes))
+    cfg = dryrun.get_config("llama3.2-1b")
+    sh = mesh_lib.train_shardings(cfg, am)
+    assert mesh_lib.zero_axes(am) == zaxes
+    assert flatten_with_paths(sh["params"]) == want_p
+    assert flatten_with_paths(sh["opt"]["master"]) == want_z
+    shapes = {k: (tuple(v.shape), jnp.dtype(v.dtype).itemsize)
+              for k, v in flatten_with_paths(j_specs).items()}
+
+    def local(pls, f32):
+        return sum(math.prod(mesh_lib.local_shape(shapes[k][0], pl, am))
+                   * (4 if f32 else shapes[k][1]) for k, pl in pls.items())
+
+    cell = dryrun.run_cell("llama3.2-1b", "train_4k", mesh="multipod" if multi_pod else "pod")
+    mem = cell.memory
+    assert mem["param_bytes"] == local(want_p, False)
+    assert mem["optimizer_bytes"] == 3 * local(want_z, True) + 4
+    # the ZeRO-1 slice of the f32 grads (which also sums the microbatches),
+    # and the largest gather's whole f32 gradients twice: the leaves outside
+    # the stacks (the tied embedding and the final norm)
+    assert cell.notes["n_micro"] == 2
+    top = sum(math.prod(s) for k, (s, _) in shapes.items()
+              if not k.startswith(("attn/", "mlp/")))
+    assert top > max(sum(math.prod(s[1:]) for k, (s, _) in shapes.items()
+                         if k.startswith(stack)) for stack in ("attn/", "mlp/"))
+    assert mem["grad_bytes"] == local(want_z, True) + 2 * 4 * top
 
 
 # model_flops_for's 2*N_active counts every parameter (embedding rows,
