@@ -1,0 +1,211 @@
+"""Time single kernels of the port on one H100, outside chip_smoke.py.
+
+Each mode prints one JSON object a measurement (times in ms, CUDA-graph
+replays of a ring of distinct deltas, as chip_smoke.py's ``time_ms``) and,
+first, the card's name and power limit as nvidia-smi prints them:
+
+    python3 chip_kernel_probe.py --decode [--src DIR]
+        wizard-llama2-7b wi (4096 x 11008) at the 128x spec: delta_spmm at
+        T = 2 and 8, delta_spmm_segments on the mixed 8-row layout and
+        dequant, and dequant at h_g 256 (alpha 8, k_bits 4), through
+        ``ops``; ``--src`` imports ``repro_torch`` from another tree's
+        ``src`` (its kernels build under that tree).
+    python3 chip_kernel_probe.py --ab PARENT_SRC
+        ``--decode`` in four processes: PARENT_SRC, this tree, this tree,
+        PARENT_SRC; prints each side's median and range.
+    python3 chip_kernel_probe.py --dequant [--src DIR]
+        dequant at wi for the 128x spec, h_g 256 and 1024 (alpha 8, k_bits
+        4) and the row-wise default (f32 codes), through ``ops``.
+    python3 chip_kernel_probe.py --tiles
+        the decode route's row tile (1, 2, 4, 8) against time for the wide
+        packings at wizard wq, wi and MLP wo, T = 8 and 128, beside the
+        tile ``ops.spmm_row_tile`` takes.
+
+Needs a card; imports torch and the port only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+WI = (4096, 11008)
+SITES = {"wq": (4096, 4096), "wi": (4096, 11008), "wo": (11008, 4096)}
+SPEC_128X = dict(h_g=16, alpha=8.0, k_bits=4)
+MIXED_SLOT_ROWS = (0, 1, 2, 3, 1, 0, 3, 2)     # chip_smoke.py's mixed step
+RING = 8
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def time_reps(torch, fns, iters: int = 40, reps: int = 7) -> list:
+    """Per-call device ms of each of ``reps`` replays of one CUDA graph
+    that cycles ``iters`` times through ``fns``."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / iters)
+    return out
+
+
+def pack_ring(torch, h_in, h_out, gen, n=RING, **spec):
+    from repro_torch.core import dropout
+    ring = []
+    for _ in range(n):
+        delta = torch.randn((h_in, h_out), generator=gen, device="cuda") * 0.02
+        ring.append(dropout.groupwise_dropout_pack(delta, generator=gen, **spec))
+        del delta
+    return ring
+
+
+def decode(torch) -> list:
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import tenant_segments
+    import numpy as np
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    ring = pack_ring(torch, *WI, gen, **SPEC_128X)
+    out = []
+    for T in (2, 8):
+        x = torch.randn((T, WI[0]), generator=gen, device="cuda")
+        out.append({"kernel": "delta_spmm", "T": T, "h_g": 16, "ms": time_reps(
+            torch, [lambda d=d: ops.delta_spmm(x, d) for d in ring])})
+    rows = np.asarray(MIXED_SLOT_ROWS, np.int32)
+    seg = tenant_segments(rows).to("cuda")
+    x = torch.randn((len(rows), WI[0]), generator=gen, device="cuda").index_select(0, seg.order)
+    stacks = [stack_tenant_deltas([{"w": ring[(i + j) % RING]} for j in range(4)])["w"]
+              for i in range(RING)]
+    out.append({"kernel": "delta_spmm_segments", "T": len(rows), "h_g": 16, "ms": time_reps(
+        torch, [lambda s=s: ops.delta_spmm_segments(x, s, seg.seg_rows, seg.seg_offsets)
+                for s in stacks])})
+    out.append({"kernel": "dequant", "T": None, "h_g": 16, "ms": time_reps(
+        torch, [lambda d=d: ops.dequant(d) for d in ring], iters=16)})
+    del ring, stacks
+    ring = pack_ring(torch, *WI, gen, n=4, h_g=256, alpha=8.0, k_bits=4)
+    out.append({"kernel": "dequant", "T": None, "h_g": 256, "ms": time_reps(
+        torch, [lambda d=d: ops.dequant(d) for d in ring], iters=16)})
+    return out
+
+
+def ab(parent_src: str) -> list:
+    """--decode in the order parent, change, change, parent."""
+    runs = []
+    for side, src in (("parent", parent_src), ("change", os.path.join(HERE, "src")),
+                      ("change", os.path.join(HERE, "src")), ("parent", parent_src)):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--decode", "--src",
+                            os.path.abspath(src)], capture_output=True, text=True)
+        if p.returncode != 0:
+            raise SystemExit(f"--decode on {src} failed:\n{p.stdout}\n{p.stderr}")
+        for line in p.stdout.splitlines():
+            if line.startswith("{"):
+                runs.append(dict(json.loads(line), side=side))
+    out = []
+    for kernel, T, h_g in {(r["kernel"], r["T"], r["h_g"]) for r in runs}:
+        row = {"kernel": kernel, "T": T, "h_g": h_g}
+        for side in ("parent", "change"):
+            ms = [m for r in runs
+                  if (r["kernel"], r["T"], r["h_g"], r["side"]) == (kernel, T, h_g, side)
+                  for m in r["ms"]]
+            row[side] = {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
+                         "n": len(ms)}
+        row["change_over_parent"] = row["change"]["median"] / row["parent"]["median"]
+        out.append(row)
+    return sorted(out, key=lambda r: (r["kernel"], r["T"] or 0, r["h_g"]))
+
+
+def dequant(torch) -> list:
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = []
+    for h_g, k_bits in ((16, 4), (256, 4), (1024, 4), (WI[0], None)):
+        ring = pack_ring(torch, *WI, gen, n=4, h_g=h_g, alpha=8.0, k_bits=k_bits)
+        out.append({"kernel": "dequant", "h_g": h_g, "k_bits": k_bits, "ms": time_reps(
+            torch, [lambda d=d: ops.dequant(d) for d in ring], iters=16)})
+        del ring
+    return out
+
+
+def tiles(torch) -> list:
+    from repro_torch.kernels import delta_spmm as kern, ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = []
+    for pk, spec in (("row-wise", dict(alpha=8.0, k_bits=None)),
+                     ("h_g 1024", dict(h_g=1024, alpha=8.0, k_bits=4))):
+        for site, (h_in, h_out) in SITES.items():
+            kw = dict(spec, h_g=spec.get("h_g", h_in) if h_in % spec.get("h_g", h_in) == 0
+                      else 256)
+            ring = pack_ring(torch, h_in, h_out, gen, n=2, **kw)
+            for T in (8, 128):
+                x = torch.randn((T, h_in), generator=gen, device="cuda")
+                row = {"packing": pk, "site": site, "h_g": kw["h_g"], "T": T,
+                       "ops_tile": ops.spmm_row_tile(T, ring[0]), "tiles": {}}
+                for tb in kern.ROW_TILES:
+                    p = kern.decode_plan(ring[0], tb)
+                    ms = time_reps(torch, [lambda d=d: kern.delta_spmm_cuda(x, d, tb=tb)
+                                           for d in ring], iters=8 if T > 8 else 40, reps=5)
+                    row["tiles"][tb] = {"rows": p["rows"], "kc": p["kc"], "steps": p["steps"],
+                                        "smem_kb": p["smem_bytes"] // 1024,
+                                        "ms": statistics.median(ms)}
+                out.append(row)
+            del ring
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--decode", action="store_true")
+    mode.add_argument("--ab", metavar="PARENT_SRC")
+    mode.add_argument("--dequant", action="store_true")
+    mode.add_argument("--tiles", action="store_true")
+    ap.add_argument("--src", default=os.path.join(HERE, "src"))
+    args = ap.parse_args()
+    if args.ab:
+        rows = ab(args.ab)
+    else:
+        sys.path.insert(0, os.path.abspath(args.src))
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_kernel_probe: no CUDA device")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.inference_mode():
+            rows = decode(torch) if args.decode else dequant(torch) if args.dequant \
+                else tiles(torch)
+    print(card_line(), flush=True)
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,7 +26,11 @@ budget, packed on the card, equal to the packed run; resident values
 bit-equal to in-step decode), the storage layer (``[storage]``: tenant0's
 every matrix through the m-part parts and back onto the card), the
 group-size search and the baselines (``[groupsearch]``: the card against
-the CPU), the serving mesh (``[mesh]``: ``ContinuousEngine(mesh=)`` on
+the CPU), the packings past the TPU kernels' envelope (``[envelope]``:
+``DeltaDQSpec()``'s row-wise default and an h_g 1024 packing at wq, wi
+and MLP wo, every kernel against its plain version and the oracle's bits;
+a 128x, a row-wise, an h_g 1024 and an h_g* tenant served together at 8
+of 32 layers, mixed == alone), the serving mesh (``[mesh]``: ``ContinuousEngine(mesh=)`` on
 meshes (1, 2) and (2, 2) whose ranks share the card over gloo, against
 the single-card engine's tokens; the sharded correction bit for bit
 against the single-card kernels; the cuBLAS column-slice check), the
@@ -159,6 +163,20 @@ RESIDENCY_ROWS = 4
 STORAGE_THREADS = 8
 GROUPSEARCH_TOKENS = 256
 GROUPSEARCH_REL_TOL = 1e-4
+# [envelope]: packings past the reference's Pallas envelope (h_g above
+# 256 with int32 idx, up to h_in; keep above 128) as the compressor emits
+# them, at wizard's full-width SITES: DeltaDQSpec()'s row-wise default
+# (h_g = h_in, f32 codes: keep 512 at d_model inputs, 1376 at MLP wo) and a
+# 4-bit packing at h_g 1024 (256 at MLP wo, the largest halving dividing
+# 11008). Each kernel against its plain version at KERNEL_TOL, rows
+# bit-equal to the kernel-order oracle across decode tiles and in their
+# segment at ENVELOPE_CHECK_T; times at ENVELOPE_T and the mixed segments
+# layout; the merge kernels timed at ENVELOPE_MERGE_SITE. Then a fleet at
+# CODECS_DEPTH layers on the [engine] stream, mixed == alone.
+ENVELOPE_SPECS = {"rowwise": {}, "h1024": {"alpha": 8.0, "k_bits": 4, "m": 8, "h_g": 1024}}
+ENVELOPE_CHECK_T = (1, 8, 65, 128)
+ENVELOPE_T = (8, 128)
+ENVELOPE_MERGE_SITE = "wi"
 # [archs]: each config's site new to the kernels (block, leaf): gemma3's
 # wk (1152 x 256), gemma-7b's MLP wo (h_in 24576), phi3's wi (5120 x 17920)
 ARCH_SITES = {"gemma3-1b": ("attn", "wk"), "gemma-7b": ("mlp", "wo"),
@@ -1567,14 +1585,16 @@ def _alone_tokens(torch, kern, cfg, base, stream, name, deltas, chunked, tag) ->
     return run
 
 
-def _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, tag: str) -> dict:
-    """The fleet in one engine (whole-prompt, then chunked) against each
-    tenant alone, token for token; launch counts of the mixed runs."""
+def _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, tag: str,
+                    modes=("whole", "chunked"), phase: str = "codecs") -> dict:
+    """The fleet in one engine (whole-prompt, then chunked, as ``modes``
+    lists) against each tenant alone, token for token; launch counts of
+    the mixed runs; log lines and failures tagged ``[phase]``."""
     from repro_torch.serve import ContinuousEngine, VirtualClock
     sites = 7 * cfg.n_layers
     n_chunks = sum(-(-len(p) // ENGINE_CHUNK) for _, p, _ in stream)
     out = {}
-    for chunked in (False, True):
+    for chunked in [m == "chunked" for m in modes]:
         mode = "chunked" if chunked else "whole"
         gc.collect()
         torch.cuda.empty_cache()
@@ -1598,22 +1618,22 @@ def _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, tag: str) -> dict:
         want = {"delta_spmm": 0 if chunked else sites * len(stream),
                 "delta_spmm_segments": sites * G * (steps + (n_chunks if chunked else 0)),
                 "fused_base_delta": 0, "dequant": 0}
-        log(f"[codecs] {tag} {mode}: {G} codec groups "
+        log(f"[{phase}] {tag} {mode}: {G} codec groups "
             f"{[(g['codecs'], g['tenants'], round(g['gb'], 3)) for g in groups]} GB; "
             f"engine {run['memory']['engine_gb']:.2f} GB allocated, peak "
             f"{run['memory']['peak_gb']:.2f} GB; launches {run['launches']} (expected "
             f"{want}: segments {sites} sites x {G} groups x "
             f"{steps} steps{f' + {n_chunks} chunks' if chunked else ''})")
         if run["launches"] != want:
-            fail(f"[codecs] {tag} {mode}: launches {run['launches']}, expected {want}")
+            fail(f"[{phase}] {tag} {mode}: launches {run['launches']}, expected {want}")
         edge = [p for p in run["report"]["decode_paths"] or {} if "out-of-envelope" in p]
         if edge:
-            fail(f"[codecs] {tag} {mode}: steps took the out-of-envelope branch: {edge}")
+            fail(f"[{phase}] {tag} {mode}: steps took the out-of-envelope branch: {edge}")
         out[mode] = run
         del ce
     gc.collect()
     torch.cuda.empty_cache()
-    for mode in ("whole", "chunked"):
+    for mode in modes:
         bad = []
         for name, d in [(None, None)] + list(fleet):
             alone = _alone_tokens(torch, kern, cfg, base, stream, name, d, mode == "chunked",
@@ -1622,11 +1642,11 @@ def _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, tag: str) -> dict:
                 j = _first_mismatch(toks, out[mode]["tokens"][i])
                 if j is not None:
                     bad.append({"request": i, "tenant": name, "step": j})
-        log(f"[codecs] {tag} {mode}: mixed == alone, token for token: "
+        log(f"[{phase}] {tag} {mode}: mixed == alone, token for token: "
             f"{len(stream) - len(bad)}/{len(stream)} requests"
             + (f"; differ: {bad}" if bad else ""))
         if bad:
-            fail(f"[codecs] {tag} {mode}: mixed-codec serving differs from alone: {bad}")
+            fail(f"[{phase}] {tag} {mode}: mixed-codec serving differs from alone: {bad}")
         out[mode]["alone_mismatches"] = bad
     return out
 
@@ -2233,6 +2253,227 @@ def phase_groupsearch(torch, ctx: dict, report: dict) -> None:
                              "baselines": rows}
     del x, dq
     torch.cuda.empty_cache()
+
+
+def _spec_packed(torch, h_in, h_out, kw: dict, gen):
+    """A 0.02 N(0, 1) delta (the launcher's tenant noise) packed as the
+    compressor packs it at DeltaDQSpec(**kw) (the group size clamped to a
+    divisor of h_in as ``compress()`` clamps it)."""
+    from repro_torch.core import dropout
+    from repro_torch.core.codecs import DeltaDQSpec, _pick_hg
+    spec = DeltaDQSpec(**kw)
+    delta = torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02
+    return dropout.groupwise_dropout_pack(delta, h_g=_pick_hg(h_in, spec), alpha=spec.alpha,
+                                          k_bits=spec.k_bits, m=spec.m, generator=gen)
+
+
+def _envelope_kernels(torch, kern, report: dict) -> tuple:
+    """Each kernel on each ENVELOPE_SPECS packing at each of wizard's
+    SITES against its plain version, rows bit-equal to the kernel-order
+    oracle on every decode tile and in their segment, every call a launch
+    and no plain-out-of-envelope note; then the times. -> (worst error by
+    kernel, timed rows)."""
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.kernels import fallback as fb
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.scheduler import tenant_segments
+    from repro_torch.serve.trace import attribution
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2424)
+    worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0, "fused_base_delta": 0.0,
+             "dequant": 0.0}
+    times, plans = [], {}
+    kern.reset_launches()
+    n_calls = {k: 0 for k in worst}
+
+    def close(name, got, want, where):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst[name] = max(worst[name], err)
+        if not torch.allclose(got, want, **KERNEL_TOL):
+            fail(f"[envelope] {name} {where}: max err {err:.3e}")
+
+    def bits(a, b, what):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"[envelope] {what}: {int((a != b).sum().item())} elements differ")
+
+    for spec_name, kw in ENVELOPE_SPECS.items():
+        for site, (h_in, h_out) in SITES.items():
+            where = f"{spec_name} {site}"
+            ring = [_spec_packed(torch, h_in, h_out, kw, gen) for _ in range(8)]
+            d = ring[0]
+            if ops.card_envelope_miss(d) is not None or d.idx.dtype != kern.idx_dtype(d.h_g):
+                fail(f"[envelope] {where}: h_g={d.h_g} keep={d.keep} idx {d.idx.dtype} is "
+                     f"not a packing the kernels take")
+            plans[where] = {tb: kern.decode_plan(d, tb) for tb in kern.ROW_TILES}
+            p8 = plans[where][8]
+            log(f"[envelope] {where}: h_g={d.h_g} (G={d.n_groups}) keep={d.keep} "
+                f"k_bits={d.k_bits} idx {str(d.idx.dtype)[6:]}, "
+                f"{sum(t.numel() * t.element_size() for t in (d.idx, d.codes)) / 1e6:.1f} MB "
+                f"packed; reference envelope: {ops.envelope_miss(d) or 'inside'}; decode "
+                f"plan at tb=8: {p8['cluster']} blocks a cluster, {p8['rows']} rows a block, "
+                f"{p8['sg']} groups x {p8['kc']} "
+                f"slots a step, {p8['steps']} steps a class chain, {p8['stages']} stages, "
+                f"{p8['smem_bytes']} B shared, x from {'global' if p8['x_global'] else 'a slab'}")
+            stack = stack_tenant_deltas([{"w": t} for t in ring[:4]])["w"]
+            with attribution() as notes:
+                for T in ENVELOPE_CHECK_T:
+                    x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+                    y = ops.delta_spmm(x, d)
+                    n_calls["delta_spmm"] += 1
+                    close("delta_spmm", y, fb.correction(x, d), f"{where} T={T}")
+                    bits(y, ref.correction_kernel_order(x, d), f"delta_spmm {where} T={T} "
+                         f"against correction_kernel_order")
+                    for tb in kern.ROW_TILES:
+                        bits(kern.delta_spmm_cuda(x, d, tb=tb), y,
+                             f"delta_spmm {where} T={T} tb={tb} against ops' tile")
+                    n_calls["delta_spmm"] += len(kern.ROW_TILES)
+                rows = _mixed_rows(8)
+                seg = tenant_segments(rows).to(DEVICE)
+                x8 = torch.randn((8, h_in), generator=gen, device=DEVICE)
+                xs = x8.index_select(0, seg.order)
+                ys = ops.delta_spmm_segments(xs, stack, seg.seg_rows, seg.seg_offsets)
+                n_calls["delta_spmm_segments"] += 1
+                close("delta_spmm_segments", ys,
+                      _plain_segments(torch, fb, xs, stack, seg.seg_rows, seg.seg_offsets),
+                      f"{where} mixed T=8")
+                bits(ys, ref.segments_kernel_order(xs, stack, seg.seg_rows, seg.seg_offsets),
+                     f"segments {where} against segments_kernel_order")
+                sorted_rows = torch.as_tensor(rows, device=DEVICE)[seg.order]
+                for t in range(4):
+                    sel = sorted_rows == t
+                    bits(ys[sel], ops.delta_spmm(xs, stack.index(t))[sel],
+                         f"segment rows of tenant {t} against delta_spmm rows ({where})")
+                    n_calls["delta_spmm"] += 1
+                dense = ops.dequant(d)
+                n_calls["dequant"] += 1
+                bits(dense, fb.dequant(d), f"dequant {where} against its plain version")
+                worst["dequant"] = max(worst["dequant"],
+                                       (dense - fb.dequant(d)).abs().max().item())
+                del dense
+                w = (torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02).to(
+                    torch.bfloat16)
+                for T in ENVELOPE_T:
+                    x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+                    close("fused_base_delta", ops.fused_base_delta(x, w, d),
+                          fb.fused_base_delta(x, w, d), f"{where} T={T}")
+                    n_calls["fused_base_delta"] += 1
+                del w
+            # the entry points' notes (the plain versions called beside them
+            # note their own sites)
+            edge = [n for n in notes if n.get("formulation") == "plain-out-of-envelope"]
+            forms = sorted({n["formulation"] for n in notes if n["site"] in (
+                "delta_spmm", "delta_spmm_segments", "fused_base_delta", "dequant")})
+            if edge or forms != ["cuda", "cuda-3xtf32", "segments-cuda"]:
+                fail(f"[envelope] {where}: formulations {forms}, out-of-envelope notes {edge}")
+            torch.cuda.synchronize()
+            if dict(kern.LAUNCHES) != n_calls or kern.ROUTES["delta_spmm_prefill"] != 0:
+                fail(f"[envelope] {where}: launches {dict(kern.LAUNCHES)} routes "
+                     f"{dict(kern.ROUTES)}, expected {n_calls} and no prefill route")
+            # times: delta_spmm at ENVELOPE_T, the mixed segments layout, and
+            # at ENVELOPE_MERGE_SITE the merge kernels, on the ring
+            dense = [reconstruct_dense(t) for t in ring]
+            for T in ENVELOPE_T:
+                times.append({"packing": spec_name, **_time_spmm(
+                    torch, ops, fb, ring, dense, gen, site, T, None)})
+            times.append({"packing": spec_name, **_time_segments(
+                torch, ops, fb, ring, gen, site, "mixed", 8)})
+            if site == ENVELOPE_MERGE_SITE:
+                times += [{"packing": spec_name, **t} for t in _time_merge_kernels(
+                    torch, ring, dense, gen, site, h_in, h_out)]
+            kern.reset_launches()
+            n_calls = {k: 0 for k in worst}
+            del ring, dense, stack, d
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"[envelope] every kernel within atol/rtol 1e-4 of its plain version at "
+        f"{list(ENVELOPE_SPECS)} x {list(SITES)} (worst |err| "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())}); delta_spmm at T "
+        f"{list(ENVELOPE_CHECK_T)} == correction_kernel_order on every decode tile "
+        f"{list(kern.ROW_TILES)}, segment rows == segments_kernel_order == delta_spmm "
+        f"rows, dequant bit-equal; every call a launch, no prefill-route launch, no "
+        f"plain-out-of-envelope note")
+    report["envelope"] = {"plans": {k: {str(tb): p for tb, p in v.items()}
+                                    for k, v in plans.items()}, "worst": worst,
+                          "times": times}
+    return worst, times
+
+
+def phase_envelope(torch, kern, ctx: dict, report: dict) -> dict:
+    """[envelope]: packings past the reference's Pallas envelope on the
+    card. The kernels at wizard's full-width sites (:func:`_envelope_kernels`);
+    then wizard at CODECS_DEPTH layers serving one 128x tenant (h_g 16,
+    the [main] fleet's tenant0), one DeltaDQSpec() row-wise tenant, one
+    at h_g 1024 and one at [groupsearch]'s h_g*, each its own codec group,
+    on the [engine] stream, mixed == alone token for token; and the
+    row-wise and h_g 1024 tenants merged (dequant) against their packed
+    prefill logits."""
+    from repro_torch.core.apply import merge_delta
+    from repro_torch.core.codecs import DeltaDQSpec
+    from repro_torch.launch.serve import synth_tenants
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_bytes
+
+    t_phase = time.perf_counter()
+    worst, _ = _envelope_kernels(torch, kern, report)
+    t_kernels = time.perf_counter() - t_phase
+    h_star = report["groupsearch"]["h_g_star"]
+    cfg, base, (t128,) = _first_layers(ctx["cfg"], ctx["base"],
+                                       [ctx["eng"].store.get("tenant0").deltas], CODECS_DEPTH)
+    specs = {"rowwise": DeltaDQSpec(), "h1024": DeltaDQSpec(**ENVELOPE_SPECS["h1024"]),
+             "hstar": DeltaDQSpec(alpha=ALPHA, k_bits=4, m=8, h_g=h_star)}
+    t0 = time.perf_counter()
+    made = synth_tenants(cfg, base, len(specs), list(specs.values()), seed=24)
+    torch.cuda.synchronize()
+    log(f"[envelope] {len(specs)} tenants at {CODECS_DEPTH} of {ctx['cfg'].n_layers} layers "
+        f"compressed in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+            f"{n} {tree_bytes(d) / 1e9:.3f} GB ({rep.summary()})"
+            for n, (_, d, rep) in zip(specs, made)))
+    fleet = [("t128", t128)] + [(n, d) for n, (_, d, _) in zip(specs, made)]
+    stream = _engine_stream(cfg, names=(None, *[n for n, _ in fleet]))
+    runs = _mixed_vs_alone(torch, kern, cfg, base, fleet, stream,
+                           f"{CODECS_DEPTH} of {ctx['cfg'].n_layers} layers", modes=("whole",),
+                           phase="envelope")
+
+    # merged (dequant) against packed, prefill logits of a 64-token prompt
+    import numpy as np
+    prompt = torch.as_tensor(np.random.default_rng(24).integers(0, cfg.vocab, (1, 64)),
+                             dtype=torch.int64, device=DEVICE)
+    f32 = {k: {n: w.float() for n, w in v.items()} for k, v in base.items()}
+    merge = {}
+    for name in ("rowwise", "h1024"):
+        d = dict(fleet)[name]
+        kern.reset_launches()
+        merged = merge_delta(f32, d)
+        torch.cuda.synchronize()
+        n_dq = kern.LAUNCHES["dequant"]
+        cache = lm.init_cache(cfg, 1, 96, device=DEVICE)
+        sep, _ = lm.prefill(cfg, base, {"tokens": prompt}, cache, deltas=d)
+        cache = lm.init_cache(cfg, 1, 96, device=DEVICE)
+        mlog, _ = lm.prefill(cfg, merged, {"tokens": prompt}, cache)
+        err = (sep - mlog).abs().max().item()
+        scale = sep.abs().max().item()
+        merge[name] = {"dequant_launches": n_dq, "rel": err / scale}
+        log(f"[envelope] {name} merged (dequant, {n_dq} launches) vs packed prefill "
+            f"logits: max|diff| {err:.4e}, rel {err / scale:.3e} (bound {MERGED_REL_TOL})")
+        if n_dq != 7 * cfg.n_layers or not err <= MERGED_REL_TOL * scale:
+            fail(f"[envelope] {name}: merged vs packed rel {err / scale:.3e}, "
+                 f"{n_dq} dequant launches")
+        del merged, cache
+    del f32, fleet, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[envelope] phase {secs:.1f} s (kernels {t_kernels:.1f} s)")
+    report["envelope"].update({
+        "h_g_star": h_star, "engine": {k: runs["whole"][k] for k in (
+            "wall_s", "decode_steps", "ms_per_step", "tokens_per_s", "launches", "memory",
+            "alone_mismatches")}, "merge": merge, "seconds": secs,
+        "kernel_seconds": t_kernels})
+    return runs["whole"]["launches"], worst
+
 
 
 def _window_stream(cfg) -> list:
@@ -4269,6 +4510,16 @@ def kernel_times(torch) -> list:
     return out
 
 
+# each kernel's translation units under src/repro_torch/kernels/csrc (all
+# include common.cuh; delta_spmm.cu holds the C interface)
+KERNEL_SOURCES = {
+    "delta_spmm": ("decode.cuh", "decode_spmm_u8.cu", "decode_spmm_i32.cu", "prefill.cu"),
+    "delta_spmm_segments": ("decode.cuh", "decode_segments_u8.cu", "decode_segments_i32.cu"),
+    "fused_base_delta": ("fused.cu",),
+    "dequant": ("delta_spmm.cu",),
+}
+
+
 def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list:
     """The ``kernels`` JSON line: each kernel at the wi site and at a
     shape its main path gives it, with ``launches`` from that path
@@ -4335,6 +4586,11 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
                 for a in report["train"]["times"] if a["kernel"] == name]
             extra["train_launches"] = {p: l[name] for p, l in by_path.items()
                                        if p.startswith("train:")}
+        # [envelope]: the packings past the reference's envelope
+        extra["envelope_sites"] = [
+            {k: a[k] for k in ("packing", "site", "h_in", "h_out", "T", "layout", "tb",
+                               *keys) if k in a}
+            for a in report["envelope"]["times"] if a["kernel"] == name]
         if name == "delta_spmm_segments":   # the chunked engine's prompt chunks
             c = by[(name, "wi", ENGINE_CHUNK, "chunk")]
             extra["chunk_layout"] = {
@@ -4343,7 +4599,8 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
                 **{k: c[k] for k in keys}}
         entries.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/delta_spmm.cu",
+            "source": f"src/repro_torch/kernels/csrc/{KERNEL_SOURCES[name][0]}",
+            "sources": [f"src/repro_torch/kernels/csrc/{f}" for f in KERNEL_SOURCES[name]],
             "replaces": f"src/repro/kernels/delta_spmm.py:{line}",
             "launches": main[name][name],
             "launches_by_path": {p: l[name] for p, l in by_path.items() if l.get(name)},
@@ -4432,6 +4689,8 @@ def main(argv: list) -> int:
             phase_done("storage")
             phase_groupsearch(torch, ctx, report)
             phase_done("groupsearch")
+            envelope_launches, envelope_worst = phase_envelope(torch, kern, ctx, report)
+            phase_done("envelope")
             mesh_launches = phase_mesh(torch, kern, ctx, report)
             phase_done("mesh")
             main_launches, merge_launches = ctx["launches"], ctx["merge_launches"]
@@ -4454,7 +4713,8 @@ def main(argv: list) -> int:
     finally:
         _write_report(report, t_start)
 
-    for k, v in list(codec_worst.items()) + list(families_worst.items()):
+    for k, v in (list(codec_worst.items()) + list(families_worst.items()) +
+                 list(envelope_worst.items())):
         worst[k] = max(worst[k], v)
     worst["delta_spmm_segments"] = max(worst["delta_spmm_segments"],
                                        *(r["worst"] for r in report["moe"].values()))
@@ -4463,7 +4723,8 @@ def main(argv: list) -> int:
         "fused_base_delta": demo_launches, "dequant": merge_launches}, {
         "engine": engine_launches, "codecs": codecs_launches,
         "lifecycle": lifecycle_launches, "residency": residency_launches,
-        "storage": storage_launches, "generate": main_launches,
+        "storage": storage_launches, "envelope": envelope_launches,
+        "generate": main_launches,
         "mixed_step": mixed_launches, "merge": merge_launches,
         "quickstart": quickstart_launches, "demo": demo_launches, **arch_launches,
         **moe_launches, **families_launches, **train_launches, **mesh_launches})

@@ -4,5 +4,6 @@ The module tree mirrors ``repro``: each file's reference is the file of
 the same path there. The package imports torch and numpy only — never
 jax, never ``repro``. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; on the card the delta correction runs the
-hand-written kernels of ``kernels/csrc/delta_spmm.cu``.
+hand-written kernels under ``kernels/csrc/`` (design notes and C
+interface in ``delta_spmm.cu``).
 """

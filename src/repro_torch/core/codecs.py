@@ -367,9 +367,8 @@ class DeltaDQCodec(DeltaCodec):
         dev = resolve_device(device)
         if meta["k_bits"] is None:
             hg = meta["h_g"]
-            idx_dtype = torch.uint8 if hg <= 256 else torch.int32
             return PackedDelta(
-                idx=torch.from_numpy(np.asarray(parts["idx"])).to(idx_dtype).to(dev),
+                idx=torch.from_numpy(np.asarray(parts["idx"])).to(pack_lib.idx_dtype(hg)).to(dev),
                 codes=torch.from_numpy(np.asarray(parts["values"], np.float32)).to(dev),
                 scale=pack_lib.scalar_tensor(meta["scale"], torch.float32, dev),
                 zero=pack_lib.scalar_tensor(meta["zero"], torch.int32, dev),
@@ -394,7 +393,7 @@ class DeltaDQCodec(DeltaCodec):
         else:
             codes = ((*lead, G, quant.packed_len(keep, spec.k_bits), h_out), torch.uint8)
         return PackedDelta(
-            idx=((*lead, G, keep, h_out), torch.uint8 if hg <= 256 else torch.int32),
+            idx=((*lead, G, keep, h_out), pack_lib.idx_dtype(hg)),
             codes=codes, scale=(lead, torch.float32), zero=(lead, torch.int32),
             h_in=h_in, h_out=h_out, h_g=hg, keep=keep, alpha=float(spec.alpha),
             k_bits=spec.k_bits, m=spec.m)

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.pack import PackedDelta
+from repro_torch.core.pack import PackedDelta, idx_dtype
 
 
 def keep_count(h_g: int, alpha: float) -> int:
@@ -80,9 +80,8 @@ def groupwise_dropout_pack(
         codes = quant.pack_bits(q, quant.pack_width(k_bits), axis=q.ndim - 2)
         scale, zero = qp.scale, qp.zero
 
-    idx_dtype = torch.uint8 if h_g <= 256 else torch.int32
     return PackedDelta(
-        idx=sel.to(idx_dtype), codes=codes, scale=scale, zero=zero,
+        idx=sel.to(idx_dtype(h_g)), codes=codes, scale=scale, zero=zero,
         h_in=h_in, h_out=h_out, h_g=h_g, keep=keep,
         alpha=float(alpha), k_bits=k_bits, m=m,
     )

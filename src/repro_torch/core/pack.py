@@ -23,6 +23,13 @@ from repro_torch.core import quant
 from repro_torch.utils import resolve_device
 
 
+def idx_dtype(h_g: int) -> torch.dtype:
+    """The ``idx`` dtype for groups of ``h_g`` rows: uint8 up to 256, int32
+    above (the reference packer's rule). Every packer and the kernels read
+    it from here."""
+    return torch.uint8 if h_g <= 256 else torch.int32
+
+
 @dataclass
 class PackedDelta:
     """Structured-sparse, quantized delta for one [h_in, h_out] weight.
@@ -234,9 +241,8 @@ def from_storage_parts(parts: list[StoragePart], *, h_in: int, h_out: int, h_g: 
     q = dense_q[r, c].reshape(G, h_out, keep).transpose(0, 2, 1)
     codes = quant.pack_bits(torch.from_numpy(np.ascontiguousarray(q)),
                             quant.pack_width(k_bits), axis=1)
-    idx_dtype = torch.uint8 if h_g <= 256 else torch.int32
     return PackedDelta(
-        idx=torch.from_numpy(np.ascontiguousarray(ix)).to(idx_dtype).to(dev),
+        idx=torch.from_numpy(np.ascontiguousarray(ix)).to(idx_dtype(h_g)).to(dev),
         codes=codes.contiguous().to(dev),
         scale=scalar_tensor(scale, torch.float32, dev),
         zero=scalar_tensor(zero, torch.int32, dev),

@@ -1,6 +1,7 @@
 """CUDA kernels for the DeltaDQ hot path: build, binding and wrappers.
 
-Kernels (source: ``csrc/delta_spmm.cu``, CUDA C++ for ``sm_90a``):
+Kernels (sources under ``csrc/``, CUDA C++ for ``sm_90a``; the design
+notes and the C interface are in ``csrc/delta_spmm.cu``):
 
     delta_spmm           y = x @ dequant(delta)
                          (replaces repro/kernels/delta_spmm.py:122); the
@@ -17,9 +18,11 @@ Kernels (source: ``csrc/delta_spmm.cu``, CUDA C++ for ``sm_90a``):
     dequant              the dense delta [h_in, h_out] f32, merge path
                          (replaces repro/kernels/delta_spmm.py:311)
 
-The source has a plain C interface: it is compiled with ``nvcc`` into a
-shared library at first use, under ``build/kernels/<source hash>/`` at
-the repo root, and loaded with ``ctypes``. Nothing is compiled or loaded
+The sources have a plain C interface: each translation unit
+(:data:`SOURCES`) is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library at first
+use, under ``build/kernels/<sources hash>/`` at the repo root, and
+loaded with ``ctypes``. Nothing is compiled or loaded
 at import, so CPU-only hosts import this module freely. A failed build
 or launch raises; there is no fallback to the plain version here — the
 plain versions live in ``kernels/fallback.py`` and ``kernels/ops.py``
@@ -27,6 +30,13 @@ takes them only for tensors on the CPU.
 
 Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else.
+
+The kernels take every packing the compressor emits: any ``h_g``
+dividing ``h_in`` up to ``h_in`` itself (the row-wise default), any
+``keep`` up to ``h_g``, ``idx`` uint8 up to ``h_g = 256`` and int32 above
+(the packer's rule, ``core.pack.idx_dtype``), codes at widths 1/2/4/8 or raw
+f32. The 128-row prefill tile alone stays within ``h_g <= 256`` (uint8
+``idx``) and its shared memory (:func:`prefill_fits`).
 """
 from __future__ import annotations
 
@@ -40,15 +50,19 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.pack import PackedDelta
+from repro_torch.core.pack import PackedDelta, idx_dtype
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "delta_spmm.cu")
+CSRC = os.path.join(_HERE, "csrc")
+# the translation units (the C interface in delta_spmm.cu) and the
+# headers they include; all of them key the build
+SOURCES = tuple(sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")))
+HEADERS = tuple(sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")))
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_ROOT = os.path.join(_REPO, "build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # row tiles of the decode route (delta_spmm up to 64 rows) and of the
 # segments kernel: the most rows one block computes; a block computes
@@ -89,29 +103,44 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    """Where the shared library for the current source lives."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_ROOT, digest[:16], "libdelta_spmm.so")
+    """Where the shared library for the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES + HEADERS:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], "libdelta_spmm.so")
 
 
 def build() -> str:
-    """Compile the kernels if this source has no library yet; returns its
-    path. The compiler's register/spill report goes to ``build.log``
+    """Compile the kernels if these sources have no library yet; returns
+    its path. One ``nvcc`` process a translation unit, all at once, then
+    one link. The compiler's register/spill report goes to ``build.log``
     beside the library. Raises on a failed build."""
     path = library_path()
     if os.path.exists(path):
         return path
     out_dir = os.path.dirname(path)
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{os.path.basename(src)[:-3]}.{tag}.o") for src in SOURCES]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [(src, p.communicate()[0], p.returncode) for src, p in zip(SOURCES, procs)]
+    tmp = f"{path}.{tag}"
+    if all(rc == 0 for _, _, rc in logs):
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(("link", link.stdout + link.stderr, link.returncode))
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) on {SOURCE}:\n"
-                           f"{res.stderr[-4000:]}")
+        f.write("".join(f"== {os.path.basename(src)}\n{out}" for src, out, _ in logs))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    bad = [(src, out, rc) for src, out, rc in logs if rc != 0]
+    if bad:
+        src, out, rc = bad[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {src}:\n{out[-4000:]}")
     os.replace(tmp, path)   # atomic: concurrent builders agree on one file
     return path
 
@@ -123,24 +152,24 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.delta_spmm_launch.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_launch.restype = i
             ll = ctypes.c_longlong
             lib.delta_spmm_segments_launch.argtypes = [
                 p, p, p, p, p, i, ll, ll, ll, ll, p, p, i, p,
-                i, i, i, i, i, i, i, i, p]
+                i, i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_segments_launch.restype = i
             lib.fused_base_delta_launch.argtypes = [
-                p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+                p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
             lib.fused_base_delta_launch.restype = i
             lib.delta_spmm_prefill_ok.argtypes = [i, i, i]
             lib.delta_spmm_prefill_ok.restype = i
-            lib.delta_spmm_decode_plan.argtypes = [i, i, i, i, i, i, i,
+            lib.delta_spmm_decode_plan.argtypes = [i, i, i, i, i, i, i, i,
                                                    ctypes.POINTER(i)]
             lib.delta_spmm_decode_plan.restype = i
             lib.fused_base_delta_splits.argtypes = [i, i, i, i]
             lib.fused_base_delta_splits.restype = i
-            lib.dequant_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.dequant_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.dequant_launch.restype = i
             _lib = lib
     return _lib
@@ -156,18 +185,25 @@ def prefill_fits(tb: int, h_g: int, keep: int) -> bool:
 def decode_plan(d: PackedDelta, tb: int) -> dict | None:
     """The decode route's launch plan for ``d`` at row tile ``tb`` (as
     ``delta_spmm`` and the segments kernel take it): groups a step holds
-    (``sg``), ring depth (``stages``), rows a block computes at most
-    (``rows``; below ``tb`` where the shared memory does not fit) and its
-    dynamic shared memory bytes; None where no plan fits. Asks the
-    library."""
+    (``sg``), kept slots a step holds of each (``kc``: ``keep``, or a run
+    of a group's slots where a whole group does not fit), ring depth
+    (``stages``), rows a block computes at most (``rows``; below ``tb``
+    where the shared memory does not fit), its dynamic shared memory
+    bytes, the steps of a class chain (``steps``), whether x is read
+    from global memory (``x_global``) and the blocks of a cluster
+    (``cluster``: min(G, 8), one a class chain that has a group); None
+    for a packing the kernels do not take. Host arithmetic in the library:
+    launches nothing."""
     from repro_torch.core.quant import pack_width, packed_len
     kp, wbits = (d.keep, 0) if d.k_bits is None else (packed_len(d.keep, d.k_bits),
                                                       pack_width(d.k_bits))
-    out = (ctypes.c_int * 4)()
-    if not _load().delta_spmm_decode_plan(d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb,
-                                          out):
+    out = (ctypes.c_int * 8)()
+    if not _load().delta_spmm_decode_plan(d.h_in, d.h_out, d.h_g, d.keep, kp, wbits,
+                                          idx_dtype(d.h_g).itemsize, tb, out):
         return None
-    return {"tb": tb, "sg": out[0], "stages": out[1], "rows": out[2], "smem_bytes": out[3]}
+    return {"tb": tb, "sg": out[0], "kc": out[1], "stages": out[2], "rows": out[3],
+            "smem_bytes": out[4], "steps": out[5], "x_global": bool(out[6]),
+            "cluster": out[7]}
 
 
 def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, int]:
@@ -187,12 +223,17 @@ def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, 
 
 def check_delta(d: PackedDelta, device: torch.device, stacked: bool) -> tuple[int, int]:
     """The packed-delta half of :func:`check_inputs`: every array of ``d``
-    on ``device``; returns (kp, wbits)."""
+    on ``device``, ``idx`` of the packer's dtype for its ``h_g``
+    (:func:`idx_dtype`); returns (kp, wbits)."""
     G, keep, O = d.n_groups, d.keep, d.h_out
     stack = (d.idx.shape[0],) if stacked else ()
-    if d.idx.dtype != torch.uint8 or tuple(d.idx.shape) != (*stack, G, keep, O):
-        raise ValueError(f"idx must be uint8 {(*stack, G, keep, O)}, got "
+    idt = idx_dtype(d.h_g)
+    if d.idx.dtype != idt or tuple(d.idx.shape) != (*stack, G, keep, O):
+        raise ValueError(f"idx must be {idt} {(*stack, G, keep, O)} at h_g={d.h_g}, got "
                          f"{d.idx.dtype} {tuple(d.idx.shape)}")
+    if d.h_g * G != d.h_in or not 1 <= keep <= d.h_g:
+        raise ValueError(f"packing h_in={d.h_in} h_g={d.h_g} keep={keep}: h_g must "
+                         "divide h_in and keep lie in 1..h_g")
     if d.k_bits is None:
         kp, wbits, cdt = keep, 0, torch.float32
     else:
@@ -254,7 +295,7 @@ def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tenso
         x2.data_ptr(), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(), y.data_ptr(),
         None if xT is None else xT.data_ptr(),
-        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
+        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(), tb, stream)
     _raise_on(err, "delta_spmm")
     LAUNCHES["delta_spmm"] += 1
     ROUTES["delta_spmm_prefill" if tb in PREFILL_TILES else "delta_spmm_decode"] += 1
@@ -290,10 +331,11 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
     err = lib.delta_spmm_segments_launch(
         x2.data_ptr(), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(),
-        d.idx.shape[0], d.idx.stride(0), d.codes.stride(0) * d.codes.element_size(),
+        d.idx.shape[0], d.idx.stride(0) * d.idx.element_size(),
+        d.codes.stride(0) * d.codes.element_size(),
         d.scale.stride(0), d.zero.stride(0),
         seg_rows.data_ptr(), seg_offsets.data_ptr(), S, y.data_ptr(),
-        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
+        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(), tb, stream)
     _raise_on(err, "delta_spmm_segments")
     LAUNCHES["delta_spmm_segments"] += 1
     return y
@@ -332,7 +374,7 @@ def fused_base_delta_cuda(x2: torch.Tensor, w: torch.Tensor, d: PackedDelta, *,
         x2.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(), y.data_ptr(),
         None if ws is None else ws.data_ptr(), splits,
-        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, tb, stream)
+        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(), tb, stream)
     _raise_on(err, "fused_base_delta")
     LAUNCHES["fused_base_delta"] += 1
     return y
@@ -348,7 +390,8 @@ def dequant_cuda(d: PackedDelta) -> torch.Tensor:
     stream = torch.cuda.current_stream(d.idx.device).cuda_stream
     err = lib.dequant_launch(
         d.idx.data_ptr(), d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(),
-        out.data_ptr(), d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, stream)
+        out.data_ptr(), d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(),
+        stream)
     _raise_on(err, "dequant")
     LAUNCHES["dequant"] += 1
     return out

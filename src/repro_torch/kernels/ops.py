@@ -3,11 +3,16 @@
 Device rule: a CUDA tensor launches the CUDA kernel
 (``kernels/delta_spmm.py``) and raises if it cannot; a CPU tensor takes
 the kernel's plain torch version (``kernels/fallback.py``). Outside the
-envelope (h_g > 256, keep > 128, k_bits outside 1-8, a stacked delta) a
-CPU tensor takes the plain gather/dense formulation, as the reference's
-``ops.delta_spmm`` does (``ops.py:129-131``), and leaves a
-``plain-out-of-envelope`` trace note naming the dimension; a CUDA tensor
-there raises ``ValueError``: no plain version runs on the card.
+reference's Pallas envelope (:func:`envelope_miss`: h_g > 256, keep >
+128, k_bits outside 1-8, a stacked delta) a CPU tensor takes the plain
+gather/dense formulation, as the reference's ``ops.delta_spmm`` does
+(``ops.py:129-131``), and leaves a ``plain-out-of-envelope`` trace note
+naming the dimension. The CUDA kernels' envelope is wider
+(:func:`card_envelope_miss`): they take every packing the compressor
+emits (any h_g dividing h_in, up to h_in; any keep up to h_g; int32 idx
+above h_g = 256), so on the card only what no producer emits raises
+``ValueError`` (k_bits outside 1-8, a stacked delta at a single-delta
+entry point): no plain version runs on the card.
 
 ``fused_base_delta`` and ``dequant`` (``ops.py:390-431`` of the
 reference) follow the same rule; ``dequant`` is the merge path's
@@ -100,15 +105,32 @@ def kernel_supported(d: PackedDelta) -> bool:
     return envelope_miss(d) is None
 
 
+def card_envelope_miss(d: PackedDelta) -> str | None:
+    """The first dimension of ``d`` outside the CUDA kernels' envelope, or
+    None. The kernels take every packing a producer emits; outside are a
+    stacked delta at a single-delta entry point (the reference reaches one
+    only through its dense reconstruction) and k_bits outside 1-8
+    (``quant.pack_width`` has no wider width)."""
+    if d.stack_shape():
+        return "stack"
+    if d.k_bits is not None and not 1 <= d.k_bits <= 8:
+        return "k_bits"
+    return None
+
+
 def _out_of_envelope(site: str, d: PackedDelta, x: torch.Tensor) -> bool:
-    """True when ``d`` is outside the envelope and ``x`` lies on the CPU,
-    after the trace note; raises on any other device."""
+    """True when ``d`` is outside the reference's envelope and ``x`` lies
+    on the CPU, after the trace note. On the card False inside the CUDA
+    kernels' envelope (:func:`card_envelope_miss`); raises outside it."""
     miss = envelope_miss(d)
     if miss is None:
         return False
     if _device_kind(x) != "cpu":
+        card_miss = card_envelope_miss(d)
+        if card_miss is None:
+            return False
         raise ValueError(f"{site}: packing h_g={d.h_g} keep={d.keep} k_bits={d.k_bits} "
-                         f"is outside the CUDA kernels' envelope ({miss}); the "
+                         f"is outside the CUDA kernels' envelope ({card_miss}); the "
                          "plain formulation runs on the CPU only")
     _note(site, formulation="plain-out-of-envelope", codec=d.codec, dim=miss)
     return True
@@ -133,8 +155,10 @@ def fused_row_tile(T: int) -> int:
 
 def spmm_row_tile(T: int, d: PackedDelta) -> int:
     """delta_spmm's row tile: the prefill kernel's 128 rows from
-    :data:`PREFILL_MIN_T` rows where its shared memory fits, else
-    :func:`row_tile`. Every tile gives a row the same bits."""
+    :data:`PREFILL_MIN_T` rows where its shared memory fits (never above
+    h_g = 256 or keep = 128), else :func:`row_tile`: a wide packing's
+    prefill rows take decode tiles. Every tile gives a row the same
+    bits."""
     tb = _k.PREFILL_TILES[0]
     if T >= PREFILL_MIN_T and _k.prefill_fits(tb, d.h_g, d.keep):
         return tb

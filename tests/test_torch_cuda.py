@@ -134,7 +134,15 @@ DECODE_CASES = [   # the envelope's edges: (h_in, h_out, h_g, alpha, k_bits)
     (128, 256, 16, 2, None),    # raw f32 codes
     (4096, 160, 64, 2, 8),      # a class share over 48 KB: a ring of 4 stages
     (4096, 96, 256, 2, None),   # f32 codes, 80 KB a group: a ring of 2 stages
+    # past the reference's Pallas envelope, as the compressor emits them
+    (1024, 136, 512, 2, 4),     # h_g 512: int32 idx, keep 256, G = 2, ragged h_out
+    (2048, 256, 2048, 8, None),  # h_g = h_in (DeltaDQSpec()'s default): f32 codes, G = 1
+    (4096, 128, 1024, 8, 1),    # G = 4, int32 idx, 1-bit codes
+    (2048, 200, 512, 2, None),  # a 256 KB group, past shared memory: runs of kept slots
+    (11008, 128, 11008, 8, None),  # wizard's MLP wo row-wise: keep 1376, a 44 KB slab row
 ]
+# the wide packings every route is held on (DECODE_CASES' last five)
+WIDE_CASES = DECODE_CASES[-5:]
 
 
 def _bits_equal(a, b):
@@ -157,6 +165,132 @@ def test_decode_route_equals_kernel_order(cuda, T, h_in, h_out, h_g, alpha, k):
     assert kern.ROUTES["delta_spmm_decode"] == before + 1
     assert _bits_equal(got, ref.correction_kernel_order(x, d))
     assert _bits_equal(got, ops.delta_spmm(x, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h_in,h_out,h_g,alpha,k", WIDE_CASES)
+def test_wide_packing_every_route(cuda, h_in, h_out, h_g, alpha, k):
+    """A packing past the reference's envelope on every route of the
+    card: delta_spmm at DECODE_T and at 65 and 128 rows (decode tiles: the
+    prefill tile does not take it), the segments kernel (uncovered rows
+    and an out-of-stack tenant zero), the slots and the expert route (with
+    counts), all bit-equal to the kernel-order oracle and so to each
+    other; dequant bit-equal to its plain version, fused_base_delta
+    within the kernel tolerance; every call a kernel launch."""
+    tenants = [_pack(h_in, h_out, h_g, alpha, k, 90 + t, cuda) for t in range(3)]
+    d = tenants[0]
+    assert d.idx.dtype == kern.idx_dtype(h_g) and ops.card_envelope_miss(d) is None
+    assert ops.envelope_miss(d) is not None
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    x = _x(128, h_in, 91, cuda)
+    wants = [ref.correction_kernel_order(x, t) for t in tenants]
+    kern.reset_launches()
+    Ts = (*DECODE_T, 65, 128)
+    for T in Ts:
+        assert ops.spmm_row_tile(T, d) in kern.ROW_TILES
+        assert _bits_equal(ops.delta_spmm(x[:T], d), wants[0][:T]), T
+    rows = torch.tensor([1, 0, 2, 5], dtype=torch.int32, device=cuda)
+    offs = torch.tensor([1, 4, 8, 11, 12], dtype=torch.int32, device=cuda)
+    got = ops.delta_spmm_segments(x[:13], stack, rows, offs)
+    want = torch.zeros_like(got)
+    for t, lo, hi in ((1, 1, 4), (0, 4, 8), (2, 8, 11)):
+        want[lo:hi] = wants[t][lo:hi]
+    assert _bits_equal(got, want)
+    pick = [1, 0, 2, 1]
+    slot = stack_tenant_deltas([{"w": tenants[t]} for t in pick])["w"]
+    got = ops.delta_spmm_slots(x[:4, None], slot)
+    for b, t in enumerate(pick):
+        assert _bits_equal(got[b, 0], wants[t][b])
+    counts = torch.tensor([4, 1, 0], device=cuda)
+    got = ops.delta_spmm_experts(x[:12].reshape(3, 4, h_in), stack, counts)
+    for e in range(3):
+        live = int(counts[e])
+        assert _bits_equal(got[e, :live], wants[e][4 * e:4 * e + live])
+        assert not got[e, live:].any()
+    assert torch.equal(ops.dequant(d).view(torch.int32), fb.dequant(d).view(torch.int32))
+    for w_dtype in (torch.bfloat16, torch.float32):
+        w = (_x(h_in, h_out, 92, cuda) * 0.05).to(w_dtype)
+        for T in (8, 128):
+            torch.testing.assert_close(ops.fused_base_delta(x[:T], w, d),
+                                       fb.fused_base_delta(x[:T], w, d), **TOL)
+    torch.cuda.synchronize()
+    assert kern.ROUTES == {"delta_spmm_decode": len(Ts), "delta_spmm_prefill": 0}
+    assert kern.LAUNCHES == {"delta_spmm": len(Ts), "delta_spmm_segments": 3,
+                             "fused_base_delta": 4, "dequant": 1}
+
+
+@pytest.mark.gpu
+def test_unsorted_kept_slots_on_every_kernel(cuda):
+    """Kept slots in another order than by index (no producer emits one;
+    the fused kernel walks sorted slots with a cursor and checks the order
+    first): each kernel still matches its plain version, the correction
+    kernels to the oracle's bits, dequant bit for bit."""
+    d = _pack(2048, 136, 2048, 8, None, 95, cuda)   # G = 1, f32 codes
+    flip = d.with_arrays(d.idx.flip(-2).contiguous(), d.codes.flip(-2).contiguous(),
+                         d.scale, d.zero)
+    x = _x(128, 2048, 96, cuda)
+    w = (_x(2048, 136, 97, cuda) * 0.05).to(torch.bfloat16)
+    for T in (8, 128):
+        got = ops.fused_base_delta(x[:T], w, flip)
+        torch.testing.assert_close(got, fb.fused_base_delta(x[:T], w, flip), **TOL)
+        torch.testing.assert_close(got, ops.fused_base_delta(x[:T], w, d), **TOL)
+        assert _bits_equal(ops.delta_spmm(x[:T], flip), ref.correction_kernel_order(x[:T], flip))
+    assert torch.equal(ops.dequant(flip).view(torch.int32), fb.dequant(flip).view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_decode_route_reads_x_from_global_where_one_slab_row_does_not_fit(cuda):
+    """G = 1 at h_in = 65536: one row's x slab (256 KB) exceeds shared
+    memory, so the plan reads x from global memory, one row a block; the
+    rows keep the oracle's bits."""
+    d = _pack(65536, 96, 65536, 64, 4, 93, cuda)
+    plan = kern.decode_plan(d, 8)
+    assert plan["x_global"] and plan["rows"] == 1 and plan["kc"] < d.keep
+    x = _x(8, 65536, 94, cuda)
+    want = ref.correction_kernel_order(x, d)
+    for T in (1, 3, 8):
+        assert _bits_equal(ops.delta_spmm(x[:T], d), want[:T])
+
+
+@pytest.mark.gpu
+def test_decode_plan_found_for_every_emitted_packing(cuda):
+    """The decode route's plan exists, within shared memory, for every
+    packing the compressor emits at the full-width sites of every config:
+    each compressible leaf's (h_in, h_out), each group size the search
+    tries for alpha 2, 4 and 8, each code width, each row tile. Host
+    arithmetic in the library: nothing launches."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.core.compress import is_compressible
+    from repro_torch.core.dropout import keep_count
+    from repro_torch.core.groupsearch import candidate_group_sizes
+    from repro_torch.launch.dryrun import param_specs
+    from repro_torch.utils import map_with_paths, materialize
+    sites = set()
+
+    def site(path, leaf):
+        if leaf is not None and is_compressible(path, leaf):
+            sites.add(tuple(leaf.shape[-2:]))
+
+    for arch in list_archs():
+        map_with_paths(site, materialize(param_specs(get_config(arch))))
+    assert (4096, 11008) in sites and (24576, 3072) in sites
+    n = 0
+    for h_in, h_out in sorted(sites):
+        for alpha in (2, 4, 8):
+            for h_g in candidate_group_sizes(h_in, alpha):
+                for k in (None, 1, 2, 4, 8):
+                    d = SimpleNamespace(h_in=h_in, h_out=h_out, h_g=h_g,
+                                        keep=keep_count(h_g, alpha), k_bits=k)
+                    for tb in kern.ROW_TILES:
+                        plan = kern.decode_plan(d, tb)
+                        assert plan is not None, (h_in, h_out, h_g, alpha, k, tb)
+                        assert plan["smem_bytes"] <= 232448 and 1 <= plan["rows"] <= tb
+                        assert not plan["x_global"]
+                        assert plan["cluster"] == min(h_in // h_g, 8)
+                        n += 1
+    assert n > 1000
 
 
 @pytest.mark.gpu
@@ -671,11 +805,18 @@ def test_table_row_write_leaves_other_rows_unchanged(cuda):
                                    "delta_spmm_experts"])
 def test_out_of_envelope_on_the_card_raises(cuda, entry):
     """No plain formulation runs on the card: every entry point refuses a
-    packing outside the envelope, naming the dimension."""
+    packing outside the CUDA kernels' envelope, naming the dimension. The
+    kernels take every packing a producer emits (h_g 512 runs, see
+    test_wide_packing_every_route); what is left outside is what none
+    emits: k_bits above 8 (no packed width holds it) and a stacked delta
+    at a single-delta entry point."""
+    import dataclasses
     g = torch.Generator().manual_seed(61)
-    d = groupwise_dropout_pack(torch.randn(512, 32, generator=g) * 0.02, h_g=512,
-                               alpha=8.0, generator=g).to(cuda)
-    assert ops.envelope_miss(d) == "h_g"
+    wide = groupwise_dropout_pack(torch.randn(512, 32, generator=g) * 0.02, h_g=512,
+                                  alpha=8.0, generator=g).to(cuda)
+    assert ops.envelope_miss(wide) == "h_g" and ops.card_envelope_miss(wide) is None
+    d = dataclasses.replace(_pack(512, 32, 16, 8, 4, 61, cuda), k_bits=12)
+    assert ops.envelope_miss(d) == ops.card_envelope_miss(d) == "k_bits"
     x = _x(4, 512, 62, cuda)
     stack = stack_tenant_deltas([{"w": d}, {"w": d}])["w"]
     calls = {
@@ -688,8 +829,16 @@ def test_out_of_envelope_on_the_card_raises(cuda, entry):
         "dequant": lambda: ops.dequant(d),
         "delta_spmm_experts": lambda: ops.delta_spmm_experts(x.reshape(2, 2, 512), stack),
     }
-    with pytest.raises(ValueError, match=rf"{entry}: .*envelope \(h_g\)"):
+    with pytest.raises(ValueError, match=rf"{entry}: .*envelope \(k_bits\)"):
         calls[entry]()
+    if entry in ("delta_spmm", "fused_base_delta", "dequant"):
+        wide_stack = stack_tenant_deltas([{"w": wide}, {"w": wide}])["w"]
+        single = {"delta_spmm": lambda: ops.delta_spmm(x, wide_stack),
+                  "fused_base_delta": lambda: ops.fused_base_delta(
+                      x, torch.zeros(512, 32, device=cuda), wide_stack),
+                  "dequant": lambda: ops.dequant(wide_stack)}
+        with pytest.raises(ValueError, match=rf"{entry}: .*envelope \(stack\)"):
+            single[entry]()
 
 
 @pytest.mark.gpu
@@ -998,13 +1147,16 @@ def test_routes_without_backward_raise_under_grad(cuda):
             assert call().grad_fn is None, name
 
 
-def _route_case(route, device):
+def _route_case(route, device, packing="128x"):
     """(call(x, w), plain(x, w), x, w, n_dequant) for one route at a full
-    wizard wi site (4096 x 11008, 128x spec): two tenants' segments with
-    rows outside every segment, four one-row slots, or the fused kernel
-    with a bf16 base weight that requires grad."""
+    wizard wi site (4096 x 11008, the 128x spec or, ``wide``,
+    DeltaDQSpec()'s row-wise default: h_g = h_in, int32 idx, f32 codes):
+    two tenants' segments with rows outside every segment, four one-row
+    slots, or the fused kernel with a bf16 base weight that requires
+    grad."""
     h_in, h_out = 4096, 11008
-    tenants = [_pack(h_in, h_out, 16, 8, 4, 60 + t, device) for t in range(2)]
+    h_g, k = (16, 4) if packing == "128x" else (h_in, None)
+    tenants = [_pack(h_in, h_out, h_g, 8, k, 60 + t, device) for t in range(2)]
     stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
     if route == "segments":
         rows = torch.tensor([1, 0, -1], dtype=torch.int32, device=device)
@@ -1024,13 +1176,15 @@ def _route_case(route, device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packing", ["128x", "wide"])
 @pytest.mark.parametrize("route", ["segments", "slots", "fused"])
-def test_route_backward_matches_native_autograd(cuda, route):
+def test_route_backward_matches_native_autograd(cuda, route, packing):
     """The three routes' CUDA backward (one dequant kernel a tenant, row
     or merge, and one dense product) against native autograd through
-    their plain versions: input gradients, and the fused kernel's weight
-    gradient; rows outside every segment get a zero gradient."""
-    call, plain, x, w, n_dequant = _route_case(route, cuda)
+    their plain versions, at the 128x spec and at the row-wise default
+    (wide): input gradients, and the fused kernel's weight gradient; rows
+    outside every segment get a zero gradient."""
+    call, plain, x, w, n_dequant = _route_case(route, cuda, packing)
     x = x.requires_grad_()
     if w is not None:
         w = w.requires_grad_()

@@ -401,3 +401,176 @@ def test_kernels_demo_plain_versions_agree_with_oracles():
     assert set(out) == {"delta_spmm", "delta_spmm_segments", "fused_base_delta",
                         "dequant"}
     assert all(r["ok"] for r in out.values()), out
+
+
+# ---------------------------------------------------------------------------
+# packings past the reference's Pallas envelope: the CUDA kernels take them
+# ---------------------------------------------------------------------------
+WIDE = [   # (T, h_in, h_out, h_g, alpha, k_bits)
+    (5, 1024, 40, 512, 8, 4),      # h_g 512: int32 idx, G = 2
+    (3, 512, 40, 512, 8, None),    # h_g = h_in, DeltaDQSpec()'s row-wise default: f32 codes, G = 1
+    (4, 2048, 24, 512, 2, 1),      # G = 4, alpha 2: keep 256, 1-bit codes
+]
+
+
+@pytest.mark.parametrize("T,h_in,h_out,h_g,alpha,k", WIDE)
+def test_wide_packing_oracles_match_reference(T, h_in, h_out, h_g, alpha, k):
+    """The CUDA kernels' bit-exact oracles at packings the reference
+    serves through its XLA branch (int32 idx, G = 1/2/4, keep 256):
+    ``correction_kernel_order`` and ``segments_kernel_order`` within the
+    kernel tolerance of the reference's ``delta_spmm`` /
+    ``delta_spmm_segments``, ``dequant_tile_ref`` bit for bit equal to
+    its ``dequant``; the card's envelope takes the packing, the
+    reference's does not."""
+    from repro_torch.core.codecs import DeltaDQSpec
+    if h_g == h_in:
+        spec = DeltaDQSpec()
+        assert (spec.h_g, spec.alpha, spec.k_bits) == (None, alpha, k)
+    stk = _stacked(2, h_in=h_in, h_out=h_out, h_g=h_g, alpha=alpha, k=k)
+    p0 = jax.tree.map(lambda a: a[0], stk)
+    tstk = br.packed_to_port(stk)
+    tp = tstk.index(0)
+    assert tp.idx.dtype == torch.int32 and tp.keep == h_g // alpha
+    assert not jops.kernel_supported(p0)
+    assert tops.envelope_miss(tp) == "h_g" and tops.card_envelope_miss(tp) is None
+    x = _x(T, h_in, 1)
+    seg = j_segments(np.asarray([1, 0, 1, 1, 0][:T], np.int32))
+    xs = x[np.asarray(seg.order)]
+    # one jit for the reference's three calls: eager JAX compiles per primitive
+    want, dense, want_seg = jax.jit(lambda x, p, xs, s, r, o: (
+        jops.delta_spmm(x, p, interpret=True), jops.dequant(p, interpret=True),
+        jops.delta_spmm_segments(xs, s, r, o, interpret=True)))(
+        jnp.asarray(x), p0, jnp.asarray(xs), stk, jnp.asarray(seg.seg_rows),
+        jnp.asarray(seg.seg_offsets))
+    np.testing.assert_allclose(tref.correction_kernel_order(torch.from_numpy(x), tp).numpy(),
+                               np.asarray(want), **TOL)
+    np.testing.assert_array_equal(tref.dequant_tile_ref(tp).numpy().view(np.int32),
+                                  np.asarray(dense).view(np.int32))
+    got = tref.segments_kernel_order(torch.from_numpy(xs), tstk,
+                                     torch.from_numpy(seg.seg_rows),
+                                     torch.from_numpy(seg.seg_offsets))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_seg), **TOL)
+
+
+@pytest.mark.parametrize("h_g", [256, 512])
+def test_check_delta_takes_int32_idx_exactly_above_256(h_g):
+    """The kernels read idx of the packer's dtype: uint8 up to h_g = 256,
+    int32 above; the other dtype raises."""
+    from repro_torch.kernels import delta_spmm as kern
+    d = br.packed_to_port(_pack(1024, 16, h_g, 8, 4))
+    want = torch.uint8 if h_g <= 256 else torch.int32
+    assert d.idx.dtype == want == kern.idx_dtype(h_g)
+    assert kern.check_delta(d, d.idx.device, stacked=False) == (h_g // 16, 4)
+    other = torch.int32 if want == torch.uint8 else torch.uint8
+    with pytest.raises(ValueError, match="idx must be"):
+        kern.check_delta(d.with_arrays(d.idx.to(other), d.codes, d.scale, d.zero),
+                         d.idx.device, stacked=False)
+
+
+def _meta_packings(h_in, alpha, k):
+    """One port and one reference PackedDelta (arrays on the meta device /
+    shape structs) per candidate group size of the search."""
+    from repro.core.pack import PackedDelta as JPacked
+    from repro.core.groupsearch import candidate_group_sizes as j_cands
+    from repro_torch.core.dropout import keep_count
+    from repro_torch.core.groupsearch import candidate_group_sizes
+    from repro_torch.core.pack import PackedDelta
+    from repro_torch.core.quant import packed_len
+    cands = candidate_group_sizes(h_in, alpha)
+    assert cands == j_cands(h_in, alpha)
+    for h_g in cands:
+        G, keep, O = h_in // h_g, keep_count(h_g, alpha), 8
+        kp = keep if k is None else packed_len(keep, k)
+        idt = torch.uint8 if h_g <= 256 else torch.int32
+        cdt = torch.float32 if k is None else torch.uint8
+        meta = dict(h_in=h_in, h_out=O, h_g=h_g, keep=keep, alpha=float(alpha), k_bits=k,
+                    m=1)
+        port = PackedDelta(idx=torch.empty((G, keep, O), dtype=idt, device="meta"),
+                           codes=torch.empty((G, kp, O), dtype=cdt, device="meta"),
+                           scale=torch.empty((), device="meta"),
+                           zero=torch.empty((), dtype=torch.int32, device="meta"), **meta)
+        ref = JPacked(idx=jax.ShapeDtypeStruct((G, keep, O), jnp.int32),
+                      codes=jax.ShapeDtypeStruct((G, kp, O), jnp.uint8),
+                      scale=jax.ShapeDtypeStruct((), jnp.float32),
+                      zero=jax.ShapeDtypeStruct((), jnp.int32), **meta)
+        yield port, ref
+
+
+@pytest.mark.parametrize("alpha", [2, 4, 8])
+def test_card_envelope_takes_every_searched_group_size(alpha):
+    """Every group size the search tries (alpha up to h_in) at wizard's
+    input widths, at every code width, lies inside the CUDA kernels'
+    envelope; the reference's Pallas envelope, which picks the CPU
+    formulation, is unchanged."""
+    n = 0
+    for h_in in (4096, 11008):
+        for k in (None, 1, 2, 4, 8):
+            for port, ref in _meta_packings(h_in, alpha, k):
+                assert tops.card_envelope_miss(port) is None, (h_in, port.h_g, k)
+                assert tops.kernel_supported(port) == jops.kernel_supported(ref)
+                n += 1
+    assert n > 5 * 2 * 5
+
+
+def test_wide_packings_take_the_kernels_on_the_card(monkeypatch):
+    """On a CUDA tensor every entry point sends a wide packing to its
+    kernel wrapper and leaves no plain-out-of-envelope note; only what
+    no producer emits raises (k_bits outside 1-8, a stacked delta at a
+    single-delta entry point). The CPU host has no card: the device kind
+    is stood in for, and the wrappers by their oracles, which count."""
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.kernels import delta_spmm as kern
+    from repro_torch.serve.trace import attribution
+    calls = []
+
+    def stand(name, fn):
+        def call(*a, **kw):
+            calls.append(name)
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(tops, "_device_kind", lambda x: "cuda")
+    monkeypatch.setattr(kern, "prefill_fits", lambda tb, h_g, keep: h_g <= 256 and keep <= 64)
+    monkeypatch.setattr(kern, "delta_spmm_cuda", stand("delta_spmm", tref.correction_kernel_order))
+    monkeypatch.setattr(kern, "delta_spmm_segments_cuda",
+                        stand("delta_spmm_segments", tref.segments_kernel_order))
+    monkeypatch.setattr(kern, "fused_base_delta_cuda",
+                        stand("fused_base_delta", tfb.fused_base_delta))
+    monkeypatch.setattr(kern, "dequant_cuda", stand("dequant", tfb.dequant))
+    tstk = br.packed_to_port(_stacked(2, h_in=1024, h_out=24, h_g=512, alpha=8, k=None))
+    d = tstk.index(0)
+    x = torch.from_numpy(_x(4, 1024, 3))
+    w = torch.zeros((1024, 24))
+    rows, offs = torch.tensor([1, 0], dtype=torch.int32), torch.tensor([0, 1, 4], dtype=torch.int32)
+    with attribution() as notes:
+        assert torch.equal(tops.delta_spmm(x, d), tref.correction_kernel_order(x, d))
+        assert torch.equal(tops.delta_spmm(torch.from_numpy(_x(70, 1024, 4)), d).view(torch.int32),
+                           tref.correction_kernel_order(torch.from_numpy(_x(70, 1024, 4)), d)
+                           .view(torch.int32))
+        tops.delta_spmm_segments(x, tstk, rows, offs)
+        tops.delta_spmm_slots(x[:2, None], tstk)
+        tops.delta_spmm_experts(x.reshape(2, 2, 1024), tstk)
+        tops.fused_base_delta(x, w, d)
+        tops.dequant(d)
+    assert calls == ["delta_spmm", "delta_spmm", "delta_spmm_segments", "delta_spmm_segments",
+                     "delta_spmm_segments", "fused_base_delta", "dequant"]
+    assert not [n for n in notes if n.get("formulation") == "plain-out-of-envelope"]
+    assert {n["formulation"] for n in notes if n["site"] == "delta_spmm"} == {"cuda"}
+    bad = d.with_arrays(d.idx, d.codes, d.scale, d.zero)
+    bad = type(d)(**{**bad.__dict__, "k_bits": 12})
+    bad_stack = stack_tenant_deltas([{"w": bad}, {"w": bad}])["w"]
+    for site, call in (("delta_spmm", lambda: tops.delta_spmm(x, bad)),
+                       ("delta_spmm_segments",
+                        lambda: tops.delta_spmm_segments(x, bad_stack, rows, offs)),
+                       ("delta_spmm_slots", lambda: tops.delta_spmm_slots(x[:2, None], bad_stack)),
+                       ("delta_spmm_experts",
+                        lambda: tops.delta_spmm_experts(x.reshape(2, 2, 1024), bad_stack)),
+                       ("fused_base_delta", lambda: tops.fused_base_delta(x, w, bad)),
+                       ("dequant", lambda: tops.dequant(bad))):
+        with pytest.raises(ValueError, match=rf"{site}: .*envelope \(k_bits\)"):
+            call()
+    for call in (lambda: tops.delta_spmm(x, tstk), lambda: tops.dequant(tstk),
+                 lambda: tops.fused_base_delta(x, w, tstk)):
+        with pytest.raises(ValueError, match=r"envelope \(stack\)"):
+            call()
+    assert len(calls) == 7
