@@ -23,14 +23,20 @@ tenant lifecycle (``[lifecycle]``: a tenant table and a
 promoting tenants mid-traffic, against engines built up front), the
 pre-decoded residency tier (``[residency]``: the engine with a 4-row
 budget, packed on the card, equal to the packed run; resident values
-bit-equal to in-step decode), the storage layer (``[storage]``: tenant0's
-every matrix through the m-part parts and back onto the card), the
+bit-equal to in-step decode), the storage layer (``[storage]``: every matrix of
+tenant0's first 8 layers through the m-part parts and back onto the
+card), the
 group-size search and the baselines (``[groupsearch]``: the card against
 the CPU), the packings past the TPU kernels' envelope (``[envelope]``:
 ``DeltaDQSpec()``'s row-wise default and an h_g 1024 packing at wq, wi
 and MLP wo, every kernel against its plain version and the oracle's bits;
 a 128x, a row-wise, an h_g 1024 and an h_g* tenant served together at 8
-of 32 layers, mixed == alone), the serving mesh (``[mesh]``: ``ContinuousEngine(mesh=)`` on
+of 32 layers, mixed == alone), the autotune sweep (``[autotune]``:
+``kernels/autotune.py::sweep_point`` live at wizard's 128x wi and its
+row-wise MLP wo, T = 8 and 128, every tile bit-equal to the rule's, beside
+the committed table's choice, which ``ops`` takes on a card the table
+names, so every path's route counts come from ``ops``' choice), the
+serving mesh (``[mesh]``: ``ContinuousEngine(mesh=)`` on
 meshes (1, 2) and (2, 2) whose ranks share the card over gloo, against
 the single-card engine's tokens; the sharded correction bit for bit
 against the single-card kernels; the cuBLAS column-slice check), the
@@ -72,6 +78,7 @@ needs CUDA, and the checkout's ``src/`` beside it. Details go to
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -157,10 +164,14 @@ LOWRANK_LEAVES = ("attn/wq", "mlp/wo")
 LIFECYCLE_CAPACITY = 4
 # [residency]: the tier's budget in rows of f32 values (3.24 GB a row at
 # full wizard-llama2-7b width); [storage]: host threads for the m-part
-# round trip of tenant0's 224 matrices; [groupsearch]: calibration tokens
-# and the card-vs-CPU bound on the proxy error (f32, summation order)
+# round trip of tenant0's matrices, and the layers whose 7 matrices go
+# (8 of 32: the whole tenant took 50-59 s of host time, the same code
+# path per matrix, and [engine]'s chunked alone runs needed the time);
+# [groupsearch]: calibration tokens and the card-vs-CPU bound on the
+# proxy error (f32, summation order)
 RESIDENCY_ROWS = 4
 STORAGE_THREADS = 8
+STORAGE_LAYERS = 8
 GROUPSEARCH_TOKENS = 256
 GROUPSEARCH_REL_TOL = 1e-4
 # [envelope]: packings past the reference's Pallas envelope (h_g above
@@ -492,6 +503,26 @@ def _check_order(torch, kern, ref, x, d, where: str) -> int:
             fail(f"delta_spmm {where} tb={tb}: {n_bad} elements differ from "
                  f"correction_kernel_order")
     return len(tiles)
+
+
+def _spmm_routes(ops, kern, deltas, calls: dict, times: int = 1) -> dict:
+    """delta_spmm launches by route that ``ops``' choice (the autotune
+    table where it applies, else the rules) gives ``times`` runs of ``n``
+    calls at each T of ``calls`` ({T: n}) at every layer of every packed
+    leaf of ``deltas`` with one leading (layer) axis; expert stacks (two
+    leading axes) take the expert route and are left out."""
+    from repro_torch.core.pack import PackedDelta
+    from repro_torch.utils import iter_leaves
+    out = {"delta_spmm_decode": 0, "delta_spmm_prefill": 0}
+    for _, leaf in iter_leaves(deltas):
+        if not isinstance(leaf, PackedDelta) or len(leaf.stack_shape()) != 1:
+            continue
+        for layer in range(leaf.stack_shape()[0]):
+            for T, n in calls.items():
+                tb = ops.spmm_row_tile(T, leaf.index(layer))
+                out["delta_spmm_prefill" if tb in kern.PREFILL_TILES
+                    else "delta_spmm_decode"] += n * times
+    return out
 
 
 def _check_prefill_bits(torch, kern, ops, x, d, where: str) -> None:
@@ -895,6 +926,7 @@ def phase_main_path(torch, kern, report: dict) -> dict:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.apply import merge_delta
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import RATIO_SPECS, synth_tenants
     from repro_torch.models import lm
     from repro_torch.serve import Engine
@@ -936,21 +968,22 @@ def phase_main_path(torch, kern, report: dict) -> dict:
     decode_launches = kern.ROUTES["delta_spmm_decode"]
     sites = 7 * cfg.n_layers
     expect = 3 * sites * NEW          # prefill + (NEW - 1) decode steps per tenant
+    # the T = B * S prefill and the T = B decode steps, each site on the
+    # route ops takes for its packing (the swept table where it applies)
+    want_routes = _spmm_routes(ops, kern, eng.store.get("tenant0").deltas,
+                               {B * S: 1, B: NEW - 1}, times=3)
     log(f"[main] Engine.generate base + 3 tenants, B={B} S={S} new={NEW}: "
         f"{wall:.2f} s; launches {launches} (expected delta_spmm {expect}: "
         f"{sites} sites x {NEW} calls x 3 tenants), of which {prefill_launches} on "
-        f"the prefill route (expected {3 * sites}: the T={B * S} prefill) and "
-        f"{decode_launches} on the decode route (expected {expect - 3 * sites}: "
-        f"T={B} decode steps)")
+        f"the prefill route and {decode_launches} on the decode route (expected "
+        f"{want_routes}: ops' choice at the T={B * S} prefill and the T={B} decode "
+        f"steps, site by site)")
     if launches["delta_spmm"] <= 0:
         fail("the main path never launched delta_spmm")
     if launches["delta_spmm"] != expect:
         fail(f"delta_spmm launched {launches['delta_spmm']} times, expected {expect}")
-    if prefill_launches != 3 * sites:
-        fail(f"the prefill route launched {prefill_launches} times, expected {3 * sites}")
-    if decode_launches != expect - 3 * sites:
-        fail(f"the decode route launched {decode_launches} times, expected "
-             f"{expect - 3 * sites}")
+    if dict(kern.ROUTES) != want_routes:
+        fail(f"the routes launched {dict(kern.ROUTES)}, expected {want_routes}")
     for tenant, gen in outputs.items():
         if gen.shape != (B, NEW) or gen.min() < 0 or gen.max() >= cfg.vocab:
             fail(f"bad tokens for {tenant}: shape {gen.shape}")
@@ -1230,6 +1263,7 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
     much of the difference that rounding is."""
     from repro_torch.models import lm
     from repro_torch.serve import ContinuousEngine, Engine, VirtualClock
+    from repro_torch.kernels import ops
 
     cfg, base, store = ctx["cfg"], ctx["base"], ctx["eng"].store
     sites = 7 * cfg.n_layers
@@ -1259,10 +1293,13 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
     n_small = sum(b <= 64 for b in buckets)
     want = {"delta_spmm": sites * len(stream), "delta_spmm_segments":
             sites * rep["decode_steps"], "fused_base_delta": 0, "dequant": 0}
-    want_routes = {"delta_spmm_decode": sites * n_small,
-                   "delta_spmm_prefill": sites * (len(stream) - n_small)}
+    # each prefill (base requests on the zero tree, the same packing) on
+    # the route ops takes for its site at its bucket
+    want_routes = _spmm_routes(ops, kern, store.get("tenant0").deltas,
+                               collections.Counter(buckets))
     log(f"[engine] buckets {sorted(set(buckets))} ({n_small} of 64, "
-        f"{len(stream) - n_small} of 128); expected launches {want}, routes {want_routes}")
+        f"{len(stream) - n_small} of 128); expected launches {want}, routes {want_routes} "
+        f"(ops' choice, site by site)")
     if rep["prefills"] != len(stream) or rep["total_tokens"] != len(stream) * ENGINE_NEW:
         fail(f"[engine] report: {rep['prefills']} prefills, {rep['total_tokens']} tokens")
     if launches != want or routes != want_routes:
@@ -1351,6 +1388,23 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
     if got_c != want_c or chunked["launches"]["delta_spmm"] != 0 or \
             chunked["launches"]["delta_spmm_segments"] != len(seg_rows):
         fail(f"[engine] chunked launches {chunked['launches']}, by rows {got_c}")
+    # each tenant's requests, and the base's, alone through the chunked
+    # engine: token-exact, as the whole-prompt runs (the chunk rows' and
+    # the decode rows' tiles come from ops' choice, the table's included)
+    chunk_alone_bad = []
+    for name in (None, "tenant0", "tenant1", "tenant2"):
+        cc.reset_metrics()
+        idx = [i for i, (t, _, _) in enumerate(stream) if t == name]
+        run = _engine_run(torch, kern, cc, stream, idx, f"chunked alone {name or 'base'}")
+        for i in idx:
+            j = _first_mismatch(run["tokens"][i], chunked["tokens"][i])
+            if j is not None:
+                chunk_alone_bad.append({"request": i, "tenant": name, "step": j})
+    log(f"[engine] chunked: mixed == alone, token for token: "
+        f"{len(stream) - len(chunk_alone_bad)}/{len(stream)} requests"
+        + (f"; differ: {chunk_alone_bad}" if chunk_alone_bad else ""))
+    if chunk_alone_bad:
+        fail(f"[engine] chunked mixed serving differs from serving alone: {chunk_alone_bad}")
     # the chunked engine against B=1 greedy decode through the same
     # chunked prefill (other extents: tie-aware, as against generate)
     chunk_rows, chunk_full, whole_full, rel_bf16, rel_f32 = [], 0, 0, [], []
@@ -1416,6 +1470,7 @@ def phase_engine(torch, kern, ctx: dict, report: dict) -> dict:
         "compile_guard": guard_report,
         "generate": {"wall_s": gen_wall, "full_match": gen_full, "rows": gen_rows},
         "chunked": {**summary(chunked), "report": crep, "segment_rows": got_c,
+                    "alone_mismatches": chunk_alone_bad,
                     "full_match_b1_chunked": chunk_full, "full_match_whole": whole_full,
                     "rows": chunk_rows},
         "tokens": {str(i): t.tolist() for i, t in mixed["tokens"].items()},
@@ -2099,8 +2154,9 @@ def _storage_roundtrip(torch, d):
 
 
 def phase_storage(torch, kern, ctx: dict, report: dict) -> dict:
-    """tenant0 at full width, every matrix of every leaf, through the m-part
-    storage layer (numpy on the host, matrices on STORAGE_THREADS threads)
+    """tenant0 at full width, every matrix of every leaf in its first
+    STORAGE_LAYERS layers, through the m-part storage layer (numpy on
+    the host, matrices on STORAGE_THREADS threads)
     and back onto the card: idx, codes, scale and zero equal the packing;
     delta_spmm on a reloaded matrix equals the original bit for bit; one
     BitDelta leaf the same way."""
@@ -2113,7 +2169,8 @@ def phase_storage(torch, kern, ctx: dict, report: dict) -> dict:
     base = ctx["base"]
     deltas = ctx["eng"].store.get("tenant0").deltas
     jobs = [(path, layer, d.index(layer)) for path, d in iter_leaves(deltas)
-            if isinstance(d, PackedDelta) for layer in range(d.stack_shape()[0])]
+            if isinstance(d, PackedDelta)
+            for layer in range(min(STORAGE_LAYERS, d.stack_shape()[0]))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(STORAGE_THREADS) as pool:
         results = list(pool.map(lambda j: _storage_roundtrip(torch, j[2]), jobs))
@@ -2125,9 +2182,9 @@ def phase_storage(torch, kern, ctx: dict, report: dict) -> dict:
     bits = sum(r[0] for r in results)
     nbytes = sum(r[1] for r in results)
     codec = get_codec("deltadq")
-    paper = sum(codec.storage_bits(d)["value_bits"] for _, d in iter_leaves(deltas)
-                if isinstance(d, PackedDelta))
-    log(f"[storage] tenant0: {len(jobs)} matrices round-tripped in {wall:.1f} s "
+    paper = sum(codec.storage_bits(d)["value_bits"] for _, _, d in jobs)
+    log(f"[storage] tenant0: {len(jobs)} matrices (its first {STORAGE_LAYERS} layers) "
+        f"round-tripped in {wall:.1f} s "
         f"({STORAGE_THREADS} host threads); idx, codes, scale, zero equal; storage parts "
         f"{bits / 8e9:.3f} GB (values + log2(h_g)-bit indices + 64-bit group offsets) "
         f"against {nbytes / 1e9:.3f} GB packed runtime arrays; paper value bits "
@@ -2399,6 +2456,57 @@ def _envelope_kernels(torch, kern, report: dict) -> tuple:
                                     for k, v in plans.items()}, "worst": worst,
                           "times": times}
     return worst, times
+
+
+# [autotune]: the sweep live at two points the table holds, at two buckets
+AUTOTUNE_POINTS = {"wizard 128x wi": (16, 2, 4, 4096, 11008),
+                   "row-wise MLP wo": (11008, 1376, None, 11008, 4096)}
+AUTOTUNE_T = (8, 128)
+
+
+def phase_autotune(torch, report: dict) -> float:
+    """[autotune]: ``autotune.sweep_point`` live at AUTOTUNE_POINTS and
+    AUTOTUNE_T (every candidate tile bit-equal to the rule's, or the sweep
+    raises), each bucket's live best beside the committed table's entry
+    and the rule's tile, with live times, and whether the table names this
+    card (then ``ops`` takes it). -> seconds."""
+    from repro_torch.kernels import autotune
+    t0 = time.perf_counter()
+    tab = autotune.load_table()
+    applies = bool(tab) and tab.get("device") == autotune.card_name()
+    log(f"[autotune] table {os.path.relpath(autotune.table_path(), HERE)}: "
+        + (f"swept on {tab.get('device')!r} at {tab.get('power_limit')}; this card "
+           f"{autotune.card_name()!r}: {'applied' if applies else 'NOT applied (rules)'}"
+           if tab else "absent (rules)"))
+    rows = []
+    for name, point in AUTOTUNE_POINTS.items():
+        try:
+            _, overlays = autotune.sweep_point(*point, seed=11, ts=AUTOTUNE_T)
+        except RuntimeError as e:
+            fail(f"[autotune] {name}: {e}")
+        for T, ov in overlays.items():
+            entry = tab.get("entries", {}).get(autotune.envelope_key(*point, t=T), {})
+            live = {int(tb): ms for tb, ms in ov["ms"].items()}
+            swept = autotune.swept_tb(*point, T, device=DEVICE)    # what ops takes
+            row = {"point": autotune.envelope_key(*point), "site": name, "T": T,
+                   "live_tb": ov["tb"], "rule_tb": ov["rule_tb"], "table_tb": entry.get("tb"),
+                   "table_ms": entry.get("ms", {}).get(str(entry.get("tb"))),
+                   "ops_tb": ov["rule_tb"] if swept is None else swept,
+                   "ops_source": "rule" if swept is None else "table", "live_ms": live}
+            rows.append(row)
+            tb_t = row["table_tb"]
+            table = "no entry" if tb_t not in live else \
+                f"live {live[tb_t]:.4f} ms, swept {row['table_ms']:.4f} ms"
+            log(f"[autotune] {name} T={T}: {len(live)} tiles bit-equal to the rule's; "
+                f"live best tb={ov['tb']} {live[ov['tb']]:.4f} ms, table tb={tb_t} ({table}), "
+                f"rule tb={ov['rule_tb']} {live[ov['rule_tb']]:.4f} ms; ops takes "
+                f"tb={row['ops_tb']} ({row['ops_source']}); all "
+                + ", ".join(f"{tb}: {ms:.4f}" for tb, ms in sorted(live.items())))
+    wall = time.perf_counter() - t0
+    log(f"[autotune] {len(rows)} buckets, every candidate bit-equal, {wall:.1f} s")
+    report["autotune"] = {"applied": applies, "device": tab.get("device"),
+                          "power_limit": tab.get("power_limit"), "rows": rows, "wall_s": wall}
+    return wall
 
 
 def phase_envelope(torch, kern, ctx: dict, report: dict) -> dict:
@@ -2940,6 +3048,7 @@ def _moe_grouped(torch, kern, cfg, base, fleet) -> dict:
     Engine.serve_batch on the same requests, which falls back to
     per-tenant grouping and must equal generate token for token."""
     import numpy as np
+    from repro_torch.kernels import ops
     from repro_torch.serve import Engine
     from repro_torch.serve.trace import attribution
     B, S, NEW = 2, 64, 16
@@ -2967,8 +3076,9 @@ def _moe_grouped(torch, kern, cfg, base, fleet) -> dict:
     n_t, dense = len(fleet), _moe_dense_sites(cfg)
     want = {"delta_spmm": n_t * NEW * dense * L, "delta_spmm_segments": n_t * NEW * 3 * L,
             "fused_base_delta": 0, "dequant": 0}
-    want_routes = {"delta_spmm_prefill": n_t * dense * L,
-                   "delta_spmm_decode": n_t * (NEW - 1) * dense * L}
+    want_routes = _spmm_routes(ops, kern, fleet[0][1], {B * S: 1, B: NEW - 1}, times=n_t)
+    if sum(want_routes.values()) != n_t * NEW * dense * L:
+        fail(f"[moe] {want_routes}: not {dense} dense sites x {L} layers")
     log(f"[moe] {cfg.name} Engine.generate base + {n_t} tenants, B={B} S={S} new={NEW}, cf "
         f"{cfg.moe.capacity_factor}: {sum(walls.values()):.2f} s ({walls}); "
         f"{B * NEW / walls[str(names[1])]:.1f} tokens per wall s a tenant; launches "
@@ -3936,6 +4046,7 @@ def _mesh_correction_check(torch, ops, store) -> dict:
     kernel, bit for bit: a shared delta at every MESH_SITES site and T,
     and the mixed step's segments layout, global and per data shard."""
     import numpy as np
+    from repro_torch.kernels import delta_spmm as kern
     from repro_torch.core.apply import dget, stack_tenant_deltas, zero_delta_like
     from repro_torch.launch.mesh import ServingMesh, shard_delta
     from repro_torch.serve.scheduler import tenant_segments, tenant_segments_sharded
@@ -3954,7 +4065,7 @@ def _mesh_correction_check(torch, ops, store) -> dict:
                              for c, v in zip(cuts, views)], dim=-1)
             eq = torch.equal(got, want)
             worst = max(worst, (got - want).abs().max().item())
-            route = "prefill" if T >= ops.PREFILL_MIN_T else "decode"
+            route = "decode" if ops.spmm_row_tile(T, d) in kern.ROW_TILES else "prefill"
             log(f"[mesh] sharded correction {site} T={T} ({route} route): 2 column "
                 f"slices {'bit-equal to' if eq else 'DIFFER from'} the single-card kernel")
             rows_out.append({"site": site, "T": T, "route": route, "layout": "shared",
@@ -4541,7 +4652,7 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
             extra.update(replaced_ms=None, replaced_note=REPLACED_NOTE)
         if name == "delta_spmm":   # both routes, at the engine's prefill buckets
             d64, d2 = by[(name, "wi", 64, None)], by[(name, "wi", 2, None)]
-            extra["ops_route"] = "prefill (128-row tile)"
+            extra["ops_route"] = f"{t['route']} (tb {t['tb']})"
             extra["decode_route"] = {
                 "T": 64, "launches": eng_routes["delta_spmm_decode"],
                 **{k: d64[k] for k in keys}, "prefill_route_ms": d64.get("other_route_ms")}
@@ -4691,6 +4802,8 @@ def main(argv: list) -> int:
             phase_done("groupsearch")
             envelope_launches, envelope_worst = phase_envelope(torch, kern, ctx, report)
             phase_done("envelope")
+            phase_autotune(torch, report)
+            phase_done("autotune")
             mesh_launches = phase_mesh(torch, kern, ctx, report)
             phase_done("mesh")
             main_launches, merge_launches = ctx["launches"], ctx["merge_launches"]

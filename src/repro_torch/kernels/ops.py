@@ -50,8 +50,15 @@ block computes only real rows, so the tile is the smallest holding the
 whole batch up to 8 rows — the decode fast path of ``ops.py:220-223`` —
 and 8 above (:func:`row_tile`); segments are tiled from their own first
 row. ``delta_spmm`` takes its prefill kernel's 128-row tile above 64 rows
-(:func:`spmm_row_tile`); the fused kernel keeps its caps 8/16/32
-(:func:`fused_row_tile`). Output columns go 128 to a tile on the decode
+(:func:`rule_spmm_tile`); the fused kernel keeps its caps 8/16/32
+(:func:`fused_row_tile`). On a CUDA tensor the swept table
+(``kernels/autotune.py``) comes first: ``delta_spmm`` takes the ``tb``
+it holds for the delta's envelope point and the call's token-count
+bucket (a decode tile or the prefill tile, :func:`spmm_tile`), the
+segments kernel takes it where it is a decode tile
+(:func:`segments_tile`); without a table, an entry or a matching card
+the rules above decide. The expert route, the fused kernel and dequant
+keep their rules. Output columns go 128 to a tile on the decode
 route (one cluster of 8 blocks, one per class chain), 32 or 64 in the
 prefill kernel, 128 in the fused kernel and 32 in dequant. No choice
 changes a row's bits in the correction kernels.
@@ -153,8 +160,8 @@ def fused_row_tile(T: int) -> int:
     return _smallest_holding(T, _k.FUSED_TILES)
 
 
-def spmm_row_tile(T: int, d: PackedDelta) -> int:
-    """delta_spmm's row tile: the prefill kernel's 128 rows from
+def rule_spmm_tile(T: int, d: PackedDelta) -> int:
+    """delta_spmm's row tile by rule: the prefill kernel's 128 rows from
     :data:`PREFILL_MIN_T` rows where its shared memory fits (never above
     h_g = 256 or keep = 128), else :func:`row_tile`: a wide packing's
     prefill rows take decode tiles. Every tile gives a row the same
@@ -163,6 +170,44 @@ def spmm_row_tile(T: int, d: PackedDelta) -> int:
     if T >= PREFILL_MIN_T and _k.prefill_fits(tb, d.h_g, d.keep):
         return tb
     return row_tile(T)
+
+
+def _swept_tb(T: int, d: PackedDelta) -> int | None:
+    """The table's ``tb`` for ``d`` at T rows (None off the card, without
+    a table for this card or without an entry); a column slice keys on
+    the whole matrix's width, as :func:`_gather_max_t`."""
+    return autotune.swept_tb(d.h_g, d.keep, d.k_bits, d.h_in, d.h_out * d.shards, T,
+                             device=d.idx.device)
+
+
+def spmm_tile(T: int, d: PackedDelta) -> tuple[int, str]:
+    """delta_spmm's row tile for T rows of ``d`` and where it came from:
+    ``"table"`` (the swept entry, which decides the route too) or
+    ``"rule"`` (:func:`rule_spmm_tile`). A table entry naming a tile the
+    packing does not take raises ``ValueError``."""
+    tb = _swept_tb(T, d)
+    if tb is None:
+        return rule_spmm_tile(T, d), "rule"
+    if tb not in _k.SPMM_TILES or (tb in _k.PREFILL_TILES and
+                                   not _k.prefill_fits(tb, d.h_g, d.keep)):
+        raise ValueError(f"the autotune table ({autotune.table_path()}) names tb={tb} at "
+                         f"h_g={d.h_g} keep={d.keep}, T={T}: not a tile this packing takes")
+    return tb, "table"
+
+
+def spmm_row_tile(T: int, d: PackedDelta) -> int:
+    """delta_spmm's row tile (:func:`spmm_tile`)."""
+    return spmm_tile(T, d)[0]
+
+
+def segments_tile(T: int, d: PackedDelta) -> tuple[int, str]:
+    """The segments kernel's row tile for segments of at most T rows of
+    the (stacked) ``d``, and where it came from: the table's ``tb`` where
+    it is a decode tile, else :func:`row_tile`."""
+    tb = _swept_tb(T, d)
+    if tb in _k.ROW_TILES:
+        return tb, "table"
+    return row_tile(T), "rule"
 
 
 def _gather_max_t(d: PackedDelta) -> int:
@@ -225,11 +270,12 @@ def _delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
     if _device_kind(x2) == "cpu":
         y = fallback.correction(x2, d, gather_max_t=gmax)
     else:
-        tb = spmm_row_tile(x2.shape[0], d)
+        tb, src = spmm_tile(x2.shape[0], d)
         if tb in _k.ROW_TILES:
-            _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb, ob=KERNEL_OB)
+            _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb, ob=KERNEL_OB,
+                  tile=src)
         else:   # the prefill kernel picks 64 or 32 columns by the SM count
-            _note("delta_spmm", formulation="cuda-prefill", codec=d.codec, tb=tb)
+            _note("delta_spmm", formulation="cuda-prefill", codec=d.codec, tb=tb, tile=src)
         # the kernels take f32 activations (the TPU kernel upcasts x itself)
         y = _k.delta_spmm_cuda(x2.to(torch.float32).contiguous(), d, tb=tb)
     return y.reshape(*lead, d.h_out)
@@ -304,7 +350,8 @@ class _SegmentCorrection(torch.autograd.Function):
         return dx.to(ctx.x_dtype), None, None, None, None
 
 
-def _delta_spmm_segments(x_sorted, d, seg_rows, seg_offsets, values, res_map, max_rows):
+def _delta_spmm_segments(x_sorted, d, seg_rows, seg_offsets, values, res_map, max_rows,
+                         table: bool = True):
     if values is not None:
         if _device_kind(x_sorted) != "cpu":
             raise ValueError(
@@ -316,9 +363,10 @@ def _delta_spmm_segments(x_sorted, d, seg_rows, seg_offsets, values, res_map, ma
     if _out_of_envelope("delta_spmm_segments", d.index(0), x_sorted) or \
             _device_kind(x_sorted) == "cpu":
         return fallback.segment_correction(x_sorted, d, seg_rows, seg_offsets)
-    tb = row_tile(x_sorted.shape[0] if max_rows is None else max_rows)
+    T = x_sorted.shape[0] if max_rows is None else max_rows
+    tb, src = segments_tile(T, d) if table else (row_tile(T), "rule")
     _note("delta_spmm_segments", formulation="segments-cuda", codec=d.codec,
-          residency="packed", tb=tb, ob=KERNEL_OB)
+          residency="packed", tb=tb, ob=KERNEL_OB, tile=src)
     return _k.delta_spmm_segments_cuda(
         x_sorted.to(torch.float32).contiguous(), d,
         seg_rows.to(torch.int32).contiguous(),
@@ -407,7 +455,10 @@ def _delta_spmm_experts(x: torch.Tensor, d: PackedDelta,
                         counts: torch.Tensor | None) -> torch.Tensor:
     E, C, h_in = x.shape
     seg_rows, seg_offsets = expert_segments(E, C, counts, x.device)
-    y = delta_spmm_segments(x.reshape(E * C, h_in), d, seg_rows, seg_offsets, max_rows=C)
+    # no grad here (the caller or _ExpertCorrection.forward); the route
+    # keeps its rule tile: the table is swept for dense sites, not experts
+    y = _delta_spmm_segments(x.reshape(E * C, h_in), d, seg_rows, seg_offsets, None, None,
+                             max_rows=C, table=False)
     where = "torch" if _device_kind(x) == "cpu" else "cuda"
     _note("delta_spmm_experts", formulation=f"experts-{where}", codec=d.codec,
           E=int(E), C=int(C), counts=counts is not None)

@@ -219,7 +219,7 @@ def _transport(backend: str, device_type: str) -> str:
     return "host memory"
 
 
-def init_rank(rank: int, world: int, init_method: str, device="cpu", *,
+def init_rank(rank: int, world: int, init_method: str, device="cuda", *,
               timeout_s: float = RANK_TIMEOUT_S) -> str:
     """Join the world as ``rank``: the backend :func:`backend_for` picks,
     a ``timeout`` on the rendezvous and every collective. On CUDA each
@@ -583,7 +583,7 @@ def _rank_entry(rank: int, world: int, init_method: str, device: str,
             dist.destroy_process_group()
 
 
-def run_ranks(fn: Callable, world: int, args: tuple = (), *, device="cpu",
+def run_ranks(fn: Callable, world: int, args: tuple = (), *, device="cuda",
               timeout_s: float = 600.0, rank_timeout_s: float = RANK_TIMEOUT_S,
               rendezvous_dir: Optional[str] = None) -> list:
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined

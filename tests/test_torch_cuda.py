@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.apply import merge_delta, stack_tenant_deltas  # noqa: E402
 from repro_torch.core.dropout import groupwise_dropout_pack  # noqa: E402
 from repro_torch.core.pack import reconstruct_dense  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels import delta_spmm as kern  # noqa: E402
 from repro_torch.kernels import fallback as fb  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -673,11 +674,27 @@ def test_engine_mixed_equals_alone_on_card(engine_fleet, chunked):
             np.testing.assert_array_equal(r.output(), mixed[i].output())
 
 
+def spmm_routes(deltas, Ts) -> dict:
+    """delta_spmm launches by route that ``ops``' choice gives one call at
+    each T of ``Ts`` at every layer of every packed leaf of ``deltas``."""
+    from repro_torch.core.pack import PackedDelta
+    from repro_torch.utils import iter_leaves
+    out = {"delta_spmm_decode": 0, "delta_spmm_prefill": 0}
+    for _, leaf in iter_leaves(deltas):
+        if isinstance(leaf, PackedDelta):
+            for layer in range(leaf.stack_shape()[0]):
+                for T in Ts:
+                    tb = ops.spmm_row_tile(T, leaf.index(layer))
+                    out["delta_spmm_prefill" if tb in kern.PREFILL_TILES
+                        else "delta_spmm_decode"] += 1
+    return out
+
+
 @pytest.mark.gpu
 def test_engine_launch_counts_on_card(engine_fleet):
     """Every prefill launches delta_spmm once per linear site (base
     requests on the zero tree), every decode step delta_spmm_segments
-    once per site; the buckets decide delta_spmm's route."""
+    once per site; each site's route is ops' choice at its bucket."""
     cfg = engine_fleet[0]
     sites = 7 * cfg.n_layers
     eng = _cuda_engine(engine_fleet)
@@ -688,7 +705,8 @@ def test_engine_launch_counts_on_card(engine_fleet):
     torch.cuda.synchronize()
     assert rep["prefills"] == len(stream) and rep["total_tokens"] == 6 * len(stream)
     assert kern.LAUNCHES["delta_spmm"] == sites * len(stream)
-    assert kern.ROUTES["delta_spmm_decode"] == sites * len(stream)    # buckets 8, 16
+    buckets = [eng.buckets.bucket(len(p)) for _, p in stream]      # 8 and 16
+    assert dict(kern.ROUTES) == spmm_routes(engine_fleet[2][0][1], buckets)
     assert kern.LAUNCHES["delta_spmm_segments"] == sites * rep["decode_steps"]
     assert kern.LAUNCHES["fused_base_delta"] == kern.LAUNCHES["dequant"] == 0
     assert rep["decode_paths"] == {"segments-cuda+packed": rep["decode_steps"]}
@@ -1208,3 +1226,62 @@ def test_route_backward_matches_native_autograd(cuda, route, packing):
         torch.testing.assert_close(a.float(), b.float(), atol=rel * scale, rtol=0)
     if route == "segments":
         assert not got[0][12:].any()
+
+
+# ---------------------------------------------------------------------------
+# the autotune table (kernels/autotune.py)
+# ---------------------------------------------------------------------------
+BUCKET_EDGES = (1, 2, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 256, 300)
+
+
+@pytest.mark.gpu
+def test_sweep_point_finds_every_candidate_bit_equal(cuda):
+    """The sweep at a small point: every candidate bit-equal to the rule's
+    tile (the sweep raises otherwise), a legal fastest tb at every bucket."""
+    from types import SimpleNamespace
+    point = (16, 2, 4, 256, 384)
+    base, overlays = autotune.sweep_point(*point, seed=3)
+    cands = autotune.candidates(16, 2)
+    assert 128 in cands and base["sweep_s"] > 0
+    assert sorted(overlays) == list(autotune.T_GRID)
+    stand_in = SimpleNamespace(h_g=16, keep=2)
+    for T, ov in overlays.items():
+        assert ov["tb"] in cands and sorted(map(int, ov["ms"])) == sorted(cands)
+        assert ov["ms"][str(ov["tb"])] == min(ov["ms"].values())
+        assert ov["rule_tb"] == ops.rule_spmm_tile(T, stand_in)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("point", autotune.DEFAULT_POINTS)
+def test_committed_table_keeps_every_bit(cuda, monkeypatch, tmp_path, point):
+    """At each committed point, ops.delta_spmm and the segments kernel
+    give the same bits with the committed table as by the rules, at both
+    edges of every bucket (the table is applied where it names this card)."""
+    monkeypatch.delenv(autotune.TABLE_ENV, raising=False)
+    autotune.invalidate_cache()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    tenants = [autotune.pack_point(*point, generator=gen) for _ in range(2)]
+    d, stack = tenants[0], stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    x = torch.randn((BUCKET_EDGES[-1], d.h_in), generator=gen, device=cuda)
+
+    def run():
+        out = []
+        for T in BUCKET_EDGES:
+            offs = torch.tensor([0, T // 2, T], dtype=torch.int32, device=cuda)
+            rows = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+            out.append((ops.delta_spmm(x[:T], d),
+                        ops.delta_spmm_segments(x[:T], stack, rows, offs)))
+        return out
+
+    applies = autotune.load_table().get("device") == autotune.card_name()
+    tiles = [ops.spmm_tile(T, d) for T in BUCKET_EDGES]
+    assert all(src == ("table" if applies else "rule") for _, src in tiles)
+    with_table = run()
+    monkeypatch.setenv(autotune.TABLE_ENV, str(tmp_path / "absent.json"))
+    autotune.invalidate_cache()
+    assert all(src == "rule" for _, src in (ops.spmm_tile(T, d) for T in BUCKET_EDGES))
+    by_rule = run()
+    autotune.invalidate_cache()
+    for T, (a, b) in zip(BUCKET_EDGES, zip(with_table, by_rule)):
+        assert _bits_equal(a[0], b[0]) and _bits_equal(a[1], b[1]), T
