@@ -8,11 +8,20 @@ first, the card's name and power limit as nvidia-smi prints them:
         wizard-llama2-7b wi (4096 x 11008) at the 128x spec: delta_spmm at
         T = 2 and 8, delta_spmm_segments on the mixed 8-row layout and
         dequant, and dequant at h_g 256 (alpha 8, k_bits 4), through
-        ``ops``; ``--src`` imports ``repro_torch`` from another tree's
-        ``src`` (its kernels build under that tree).
+        ``ops``, and delta_spmm at T = 128 on the 128-row tile; ``--src``
+        imports ``repro_torch`` from another tree's ``src`` (its kernels
+        build under that tree).
+    python3 chip_kernel_probe.py --wide [--src DIR]
+        the packings the compressor and the group search emit past the
+        128x spec: DeltaDQSpec()'s row-wise default and h_g 1024 (alpha 8,
+        k_bits 4; 256 at MLP wo) at wizard wq, wi and MLP wo for T = 8
+        and 128, and the BitDelta and LowRank lowerings (keep = h_g =
+        128) at wi for T = 128: delta_spmm through ``ops`` (its tile
+        beside it) and on each tile the packing takes, and
+        delta_spmm_segments at the mixed 8-row layout through ``ops``.
     python3 chip_kernel_probe.py --ab PARENT_SRC
-        ``--decode`` in four processes: PARENT_SRC, this tree, this tree,
-        PARENT_SRC; prints each side's median and range.
+        ``--decode --wide`` in four processes: PARENT_SRC, this tree, this
+        tree, PARENT_SRC; prints each side's median and range.
     python3 chip_kernel_probe.py --dequant [--src DIR]
         dequant at wi for the 128x spec, h_g 256 and 1024 (alpha 8, k_bits
         4) and the row-wise default (f32 codes), through ``ops``.
@@ -87,6 +96,7 @@ def pack_ring(torch, h_in, h_out, gen, n=RING, **spec):
 
 def decode(torch) -> list:
     from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.kernels import delta_spmm as kern
     from repro_torch.kernels import ops
     from repro_torch.serve.scheduler import tenant_segments
     import numpy as np
@@ -112,33 +122,97 @@ def decode(torch) -> list:
     ring = pack_ring(torch, *WI, gen, n=4, h_g=256, alpha=8.0, k_bits=4)
     out.append({"kernel": "dequant", "T": None, "h_g": 256, "ms": time_reps(
         torch, [lambda d=d: ops.dequant(d) for d in ring], iters=16)})
+    del ring
+    ring = pack_ring(torch, *WI, gen, n=4, **SPEC_128X)
+    x = torch.randn((128, WI[0]), generator=gen, device="cuda")
+    out.append({"kernel": "delta_spmm", "T": 128, "h_g": 16, "tile": 128, "ms": time_reps(
+        torch, [lambda d=d: kern.delta_spmm_cuda(x, d, tb=128) for d in ring], iters=16)})
     return out
 
 
+WIDE_SPECS = {"row-wise": dict(alpha=8.0, k_bits=None),
+              "h_g 1024": dict(h_g=1024, alpha=8.0, k_bits=4)}
+CODEC_POINTS = {"bitdelta": 2, "lowrank": None}    # k_bits at keep = h_g = 128
+
+
+def wide(torch) -> list:
+    """--wide: every row's ms on the packings past the 128x spec."""
+    from repro_torch.core.apply import stack_tenant_deltas
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import delta_spmm as kern
+    from repro_torch.serve.scheduler import tenant_segments
+    import numpy as np
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cases = []
+    for pk, spec in WIDE_SPECS.items():
+        for site, (h_in, h_out) in SITES.items():
+            h_g = spec.get("h_g", h_in)
+            cases.append((pk, site, dict(spec, h_g=h_g if h_in % h_g == 0 else 256), (8, 128)))
+    for codec, k in CODEC_POINTS.items():
+        cases.append((codec, "wi", dict(h_g=128, alpha=1.0, k_bits=k), (128,)))
+    rows = np.asarray(MIXED_SLOT_ROWS, np.int32)
+    seg = tenant_segments(rows).to("cuda")
+    out = []
+    for pk, site, kw, ts in cases:
+        h_in, h_out = SITES[site]
+        ring = pack_ring(torch, h_in, h_out, gen, n=2 if kw["k_bits"] is None else 4, **kw)
+        d = ring[0]
+        tiles = autotune.candidates(d.h_g, d.keep)
+        for T in ts:
+            x = torch.randn((T, h_in), generator=gen, device="cuda")
+            iters = 40 if T <= 8 else 8
+            base = {"kernel": "delta_spmm", "packing": pk, "site": site, "h_g": d.h_g, "T": T}
+            out.append(dict(base, tile="ops", tb=ops.spmm_row_tile(T, d), ms=time_reps(
+                torch, [lambda d=d: ops.delta_spmm(x, d) for d in ring], iters=iters, reps=5)))
+            for tb in tiles:
+                out.append(dict(base, tile=tb, ms=time_reps(
+                    torch, [lambda d=d, tb=tb: kern.delta_spmm_cuda(x, d, tb=tb) for d in ring],
+                    iters=iters, reps=5)))
+        if 8 in ts:
+            x = torch.randn((len(rows), h_in), generator=gen, device="cuda").index_select(
+                0, seg.order)
+            stacks = [stack_tenant_deltas([{"w": ring[(i + j) % len(ring)]} for j in range(4)])
+                      ["w"] for i in range(2)]
+            out.append({"kernel": "delta_spmm_segments", "packing": pk, "site": site,
+                        "h_g": d.h_g, "T": len(rows), "tile": "ops", "ms": time_reps(
+                            torch, [lambda s=s: ops.delta_spmm_segments(
+                                x, s, seg.seg_rows, seg.seg_offsets) for s in stacks],
+                            iters=40, reps=5)})
+            del stacks
+        del ring, d
+        torch.cuda.empty_cache()
+    return out
+
+
+_KEYS = ("kernel", "packing", "site", "h_g", "T", "tile")
+
+
 def ab(parent_src: str) -> list:
-    """--decode in the order parent, change, change, parent."""
+    """--decode --wide in the order parent, change, change, parent."""
     runs = []
     for side, src in (("parent", parent_src), ("change", os.path.join(HERE, "src")),
                       ("change", os.path.join(HERE, "src")), ("parent", parent_src)):
-        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--decode", "--src",
-                            os.path.abspath(src)], capture_output=True, text=True)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--decode", "--wide",
+                            "--src", os.path.abspath(src)], capture_output=True, text=True)
         if p.returncode != 0:
-            raise SystemExit(f"--decode on {src} failed:\n{p.stdout}\n{p.stderr}")
+            raise SystemExit(f"--decode --wide on {src} failed:\n{p.stdout}\n{p.stderr}")
         for line in p.stdout.splitlines():
             if line.startswith("{"):
                 runs.append(dict(json.loads(line), side=side))
     out = []
-    for kernel, T, h_g in {(r["kernel"], r["T"], r["h_g"]) for r in runs}:
-        row = {"kernel": kernel, "T": T, "h_g": h_g}
+    for key in {tuple(r.get(k) for k in _KEYS) for r in runs}:
+        row = dict(zip(_KEYS, key))
         for side in ("parent", "change"):
-            ms = [m for r in runs
-                  if (r["kernel"], r["T"], r["h_g"], r["side"]) == (kernel, T, h_g, side)
-                  for m in r["ms"]]
+            mine = [r for r in runs if tuple(r.get(k) for k in _KEYS) == key and
+                    r["side"] == side]
+            ms = [m for r in mine for m in r["ms"]]
             row[side] = {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
-                         "n": len(ms)}
-        row["change_over_parent"] = row["change"]["median"] / row["parent"]["median"]
+                         "n": len(ms), "tb": mine[0].get("tb")} if ms else None
+        if row["parent"] and row["change"]:
+            row["change_over_parent"] = row["change"]["median"] / row["parent"]["median"]
         out.append(row)
-    return sorted(out, key=lambda r: (r["kernel"], r["T"] or 0, r["h_g"]))
+    return sorted(out, key=lambda r: tuple(str(r[k]) for k in _KEYS))
 
 
 def dequant(torch) -> list:
@@ -183,13 +257,16 @@ def tiles(torch) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    mode = ap.add_mutually_exclusive_group(required=True)
-    mode.add_argument("--decode", action="store_true")
-    mode.add_argument("--ab", metavar="PARENT_SRC")
-    mode.add_argument("--dequant", action="store_true")
-    mode.add_argument("--tiles", action="store_true")
+    ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--ab", metavar="PARENT_SRC")
+    ap.add_argument("--dequant", action="store_true")
+    ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--src", default=os.path.join(HERE, "src"))
     args = ap.parse_args()
+    modes = [m for m in ("decode", "wide", "dequant", "tiles") if getattr(args, m)]
+    if bool(args.ab) == bool(modes):
+        ap.error("give --ab PARENT_SRC, or one or more of --decode --wide --dequant --tiles")
     if args.ab:
         rows = ab(args.ab)
     else:
@@ -198,9 +275,11 @@ def main() -> int:
         if not torch.cuda.is_available():
             raise SystemExit("chip_kernel_probe: no CUDA device")
         torch.backends.cuda.matmul.allow_tf32 = False
+        run = {"decode": decode, "wide": wide, "dequant": dequant, "tiles": tiles}
+        rows = []
         with torch.inference_mode():
-            rows = decode(torch) if args.decode else dequant(torch) if args.dequant \
-                else tiles(torch)
+            for m in modes:
+                rows += run[m](torch)
     print(card_line(), flush=True)
     for r in rows:
         print(json.dumps(r), flush=True)

@@ -1515,10 +1515,10 @@ def phase_codec_parity(torch, report: dict) -> dict:
     """Both correction kernels on the codec packings at every full-width
     site: delta_spmm and a two-group segments layout (rows of the other
     group mapped to this group's zero row) against their plain versions
-    at KERNEL_TOL; a row's bits equal under every decode tile and in its
-    segment; the zero row exactly 0.0; the 128-row prefill tile does not
-    fit keep = 128, so every T takes the decode route; no call reaches
-    the out-of-envelope branch."""
+    at KERNEL_TOL; a row's bits equal under every tile the packing takes
+    (the decode tiles, and the 128-row tile's windowed walk, which keep =
+    h_g = 128 takes since it has one) and in its segment; the zero row
+    exactly 0.0; no call reaches the out-of-envelope branch."""
     import numpy as np
     from repro_torch.core.apply import stack_tenant_deltas, zero_delta_like
     from repro_torch.kernels import delta_spmm as kern
@@ -1530,8 +1530,8 @@ def phase_codec_parity(torch, report: dict) -> dict:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4321)
     pre = kern.PREFILL_TILES[0]
-    if kern.prefill_fits(pre, 128, 128):
-        fail(f"prefill_fits({pre}, 128, 128) is true; the codec rows expect the decode route")
+    if not kern.prefill_fits(pre, 128, 128):
+        fail(f"prefill_fits({pre}, 128, 128) is false; the windowed walk takes keep = 128")
     worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0}
     rows_out = []
     with attribution() as notes:
@@ -1545,8 +1545,6 @@ def phase_codec_parity(torch, report: dict) -> dict:
                 stack = stack_tenant_deltas([zero_delta_like({"w": d}), {"w": d}])["w"]
                 for T in CODEC_T:
                     where = f"{codec} {site} T={T}"
-                    if ops.spmm_row_tile(T, d) not in kern.ROW_TILES:
-                        fail(f"{where}: delta_spmm would take the prefill tile")
                     x = torch.randn((T, h_in), generator=gen, device=DEVICE)
                     y = ops.delta_spmm(x, d)
                     # keep = h_g: the gather formulation above 8 rows would
@@ -1557,7 +1555,7 @@ def phase_codec_parity(torch, report: dict) -> dict:
                     worst["delta_spmm"] = max(worst["delta_spmm"], err)
                     if not torch.allclose(y, want, **KERNEL_TOL):
                         fail(f"delta_spmm {where}: max err {err:.3e}")
-                    for tb in kern.ROW_TILES:
+                    for tb in kern.SPMM_TILES:
                         if not torch.equal(kern.delta_spmm_cuda(x, d, tb=tb), y):
                             fail(f"delta_spmm {where}: rows differ at tb={tb}")
                     rows = (np.arange(T) % 3 == 1).astype(np.int32)
@@ -1585,17 +1583,18 @@ def phase_codec_parity(torch, report: dict) -> dict:
     log(f"[parity] codec packings (BitDelta k=2, LowRank f32; h_g = keep = 128): "
         f"{len(rows_out)} cases x 2 kernels within atol/rtol 1e-4 (worst |err| spmm "
         f"{worst['delta_spmm']:.3e}, segments {worst['delta_spmm_segments']:.3e}) at "
-        f"T {list(CODEC_T)}, all sites; rows equal under tiles {list(kern.ROW_TILES)} "
+        f"T {list(CODEC_T)}, all sites; rows equal under tiles {list(kern.SPMM_TILES)} "
         f"and in their segment, zero row exactly 0.0; prefill_fits({pre}, 128, 128) "
-        f"false; no out-of-envelope note")
+        f"true; no out-of-envelope note")
     report["codec_parity"] = rows_out
     return worst
 
 
 def _time_codecs(torch, report: dict) -> list:
-    """delta_spmm (decode route: the 128-row tile does not fit keep 128)
-    and the segments kernel's mixed decode layout on the codec packings,
-    on rings of 8 distinct deltas, with bounds and library times."""
+    """delta_spmm (on the tile ops names: at T = 128 the 128-row tile's
+    windowed walk by rule) and the segments kernel's mixed decode layout
+    on the codec packings, on rings of 8 distinct deltas, with bounds and
+    library times."""
     from repro_torch.core.pack import reconstruct_dense
     from repro_torch.kernels import fallback as fb
     from repro_torch.kernels import ops
@@ -1612,9 +1611,8 @@ def _time_codecs(torch, report: dict) -> list:
                 t = _time_spmm(torch, ops, fb, ring, dense, gen, site, T, None)
                 times.append(t)
                 if T >= PREFILL_T[0]:
-                    log(f"[route] delta_spmm {site:6s} T={T:3d} [{codec}]: decode tb="
-                        f"{t['tb']} {t['ms']:.4f} ms; the 128-row prefill tile does not "
-                        f"fit h_g = keep = 128")
+                    log(f"[route] delta_spmm {site:6s} T={T:3d} [{codec}]: {t['route']} "
+                        f"tb={t['tb']} {t['ms']:.4f} ms (ops' tile)")
             del dense
             times.append(_time_segments(torch, ops, fb, ring, gen, site, "mixed", 8))
             del ring
@@ -2327,9 +2325,11 @@ def _spec_packed(torch, h_in, h_out, kw: dict, gen):
 def _envelope_kernels(torch, kern, report: dict) -> tuple:
     """Each kernel on each ENVELOPE_SPECS packing at each of wizard's
     SITES against its plain version, rows bit-equal to the kernel-order
-    oracle on every decode tile and in their segment, every call a launch
-    and no plain-out-of-envelope note; then the times. -> (worst error by
-    kernel, timed rows)."""
+    oracle on every tile the packing takes (the decode tiles and the
+    128-row tile) and in their segment, every call a launch on the route
+    ``ops.spmm_tile`` names (the 128-row tile at row-wise wi and MLP wo
+    from 65 rows), no plain-out-of-envelope note; then the times. ->
+    (worst error by kernel, timed rows)."""
     from repro_torch.core.apply import stack_tenant_deltas
     from repro_torch.core.pack import reconstruct_dense
     from repro_torch.kernels import fallback as fb
@@ -2341,9 +2341,13 @@ def _envelope_kernels(torch, kern, report: dict) -> tuple:
     gen.manual_seed(2424)
     worst = {"delta_spmm": 0.0, "delta_spmm_segments": 0.0, "fused_base_delta": 0.0,
              "dequant": 0.0}
-    times, plans = [], {}
+    times, plans, tiles = [], {}, {}
     kern.reset_launches()
     n_calls = {k: 0 for k in worst}
+    n_routes = {"delta_spmm_decode": 0, "delta_spmm_prefill": 0}
+
+    def route(tb):
+        n_routes["delta_spmm_prefill" if tb in kern.PREFILL_TILES else "delta_spmm_decode"] += 1
 
     def close(name, got, want, where):
         torch.cuda.synchronize()
@@ -2370,23 +2374,34 @@ def _envelope_kernels(torch, kern, report: dict) -> tuple:
                 f"k_bits={d.k_bits} idx {str(d.idx.dtype)[6:]}, "
                 f"{sum(t.numel() * t.element_size() for t in (d.idx, d.codes)) / 1e6:.1f} MB "
                 f"packed; reference envelope: {ops.envelope_miss(d) or 'inside'}; decode "
-                f"plan at tb=8: {p8['cluster']} blocks a cluster, {p8['rows']} rows a block, "
-                f"{p8['sg']} groups x {p8['kc']} "
+                f"plan at tb=8: {p8['cluster']} blocks a cluster of {p8['cols']} columns, "
+                f"{p8['rows']} rows a block, {p8['sg']} groups x {p8['kc']} "
                 f"slots a step, {p8['steps']} steps a class chain, {p8['stages']} stages, "
                 f"{p8['smem_bytes']} B shared, x from {'global' if p8['x_global'] else 'a slab'}")
             stack = stack_tenant_deltas([{"w": t} for t in ring[:4]])["w"]
+            # every tile the packing takes: the decode tiles and the 128-row tile
+            takes = [tb for tb in kern.SPMM_TILES
+                     if tb in kern.ROW_TILES or kern.prefill_fits(tb, d.h_g, d.keep)]
             with attribution() as notes:
                 for T in ENVELOPE_CHECK_T:
                     x = torch.randn((T, h_in), generator=gen, device=DEVICE)
+                    tb_ops, src = ops.spmm_tile(T, d)
+                    tiles[f"{where} T={T}"] = {"tb": tb_ops, "from": src}
+                    if T >= ops.PREFILL_MIN_T and spec_name == "rowwise" and \
+                            site in ("wi", "mlp_wo") and tb_ops not in kern.PREFILL_TILES:
+                        fail(f"[envelope] {where} T={T}: ops names tb={tb_ops} ({src}), "
+                             f"not the 128-row tile")
                     y = ops.delta_spmm(x, d)
                     n_calls["delta_spmm"] += 1
+                    route(tb_ops)
                     close("delta_spmm", y, fb.correction(x, d), f"{where} T={T}")
                     bits(y, ref.correction_kernel_order(x, d), f"delta_spmm {where} T={T} "
                          f"against correction_kernel_order")
-                    for tb in kern.ROW_TILES:
+                    for tb in takes:
                         bits(kern.delta_spmm_cuda(x, d, tb=tb), y,
                              f"delta_spmm {where} T={T} tb={tb} against ops' tile")
-                    n_calls["delta_spmm"] += len(kern.ROW_TILES)
+                        route(tb)
+                    n_calls["delta_spmm"] += len(takes)
                 rows = _mixed_rows(8)
                 seg = tenant_segments(rows).to(DEVICE)
                 x8 = torch.randn((8, h_in), generator=gen, device=DEVICE)
@@ -2404,6 +2419,7 @@ def _envelope_kernels(torch, kern, report: dict) -> tuple:
                     bits(ys[sel], ops.delta_spmm(xs, stack.index(t))[sel],
                          f"segment rows of tenant {t} against delta_spmm rows ({where})")
                     n_calls["delta_spmm"] += 1
+                    route(ops.spmm_row_tile(xs.shape[0], d))
                 dense = ops.dequant(d)
                 n_calls["dequant"] += 1
                 bits(dense, fb.dequant(d), f"dequant {where} against its plain version")
@@ -2423,12 +2439,18 @@ def _envelope_kernels(torch, kern, report: dict) -> tuple:
             edge = [n for n in notes if n.get("formulation") == "plain-out-of-envelope"]
             forms = sorted({n["formulation"] for n in notes if n["site"] in (
                 "delta_spmm", "delta_spmm_segments", "fused_base_delta", "dequant")})
-            if edge or forms != ["cuda", "cuda-3xtf32", "segments-cuda"]:
+            want_forms = {"cuda", "cuda-3xtf32", "segments-cuda"} | (
+                {"cuda-prefill"} if any(tiles[f"{where} T={T}"]["tb"] in kern.PREFILL_TILES
+                                        for T in ENVELOPE_CHECK_T) else set())
+            if edge or forms != sorted(want_forms):
                 fail(f"[envelope] {where}: formulations {forms}, out-of-envelope notes {edge}")
             torch.cuda.synchronize()
-            if dict(kern.LAUNCHES) != n_calls or kern.ROUTES["delta_spmm_prefill"] != 0:
+            if dict(kern.LAUNCHES) != n_calls or dict(kern.ROUTES) != n_routes:
                 fail(f"[envelope] {where}: launches {dict(kern.LAUNCHES)} routes "
-                     f"{dict(kern.ROUTES)}, expected {n_calls} and no prefill route")
+                     f"{dict(kern.ROUTES)}, expected {n_calls} and {n_routes}")
+            log(f"[envelope] {where}: ops' tile " + ", ".join(
+                f"T={T} tb={tiles[f'{where} T={T}']['tb']} ({tiles[f'{where} T={T}']['from']})"
+                for T in ENVELOPE_CHECK_T) + f"; routes {dict(kern.ROUTES)}")
             # times: delta_spmm at ENVELOPE_T, the mixed segments layout, and
             # at ENVELOPE_MERGE_SITE the merge kernels, on the ring
             dense = [reconstruct_dense(t) for t in ring]
@@ -2442,19 +2464,20 @@ def _envelope_kernels(torch, kern, report: dict) -> tuple:
                     torch, ring, dense, gen, site, h_in, h_out)]
             kern.reset_launches()
             n_calls = {k: 0 for k in worst}
+            n_routes = {k: 0 for k in n_routes}
             del ring, dense, stack, d
             gc.collect()
             torch.cuda.empty_cache()
     log(f"[envelope] every kernel within atol/rtol 1e-4 of its plain version at "
         f"{list(ENVELOPE_SPECS)} x {list(SITES)} (worst |err| "
         f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())}); delta_spmm at T "
-        f"{list(ENVELOPE_CHECK_T)} == correction_kernel_order on every decode tile "
-        f"{list(kern.ROW_TILES)}, segment rows == segments_kernel_order == delta_spmm "
-        f"rows, dequant bit-equal; every call a launch, no prefill-route launch, no "
+        f"{list(ENVELOPE_CHECK_T)} == correction_kernel_order on every tile "
+        f"{list(kern.SPMM_TILES)}, segment rows == segments_kernel_order == delta_spmm "
+        f"rows, dequant bit-equal; every call a launch on the route ops names, no "
         f"plain-out-of-envelope note")
     report["envelope"] = {"plans": {k: {str(tb): p for tb, p in v.items()}
                                     for k, v in plans.items()}, "worst": worst,
-                          "times": times}
+                          "times": times, "tiles": tiles}
     return worst, times
 
 
@@ -4624,7 +4647,8 @@ def kernel_times(torch) -> list:
 # each kernel's translation units under src/repro_torch/kernels/csrc (all
 # include common.cuh; delta_spmm.cu holds the C interface)
 KERNEL_SOURCES = {
-    "delta_spmm": ("decode.cuh", "decode_spmm_u8.cu", "decode_spmm_i32.cu", "prefill.cu"),
+    "delta_spmm": ("decode.cuh", "decode_spmm_u8.cu", "decode_spmm_i32.cu", "prefill.cuh",
+                   "prefill.cu", "prefill_i32.cu"),
     "delta_spmm_segments": ("decode.cuh", "decode_segments_u8.cu", "decode_segments_i32.cu"),
     "fused_base_delta": ("fused.cu",),
     "dequant": ("delta_spmm.cu",),

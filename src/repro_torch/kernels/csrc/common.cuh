@@ -194,10 +194,12 @@ constexpr int kDecMinSlots = 8;                     // kept slots a step holds a
 // rows of full tiles ride 16-byte cp.async (vec: 16-byte aligned rows)
 // and whether x does (xvec), whether x is read from global memory instead
 // of a shared-memory slab (xg: where one row's slab does not fit; rt =
-// 1), and the blocks of a cluster (cb = min(G, 8): one a class that has a
-// group; the classes past G add their zero partial in the combine).
+// 1), the blocks of a cluster (cb = min(G, 8): one a class that has a
+// group; the classes past G add their zero partial in the combine) and
+// the columns of a tile (nc: kDecCols, or kNarCols at G < 8, the narrow
+// tile of narrow_correction).
 struct DecPlan {
-  int sg, kc, ns, rt, vec, xvec, xg, cb;
+  int sg, kc, ns, rt, vec, xvec, xg, cb, nc;
 };
 
 // code rows of kc kept slots from a multiple of 8 (codes per byte or 1)
@@ -212,10 +214,67 @@ __host__ __device__ __forceinline__ int dec_group_bytes(const Shape& s, int kc) 
   return (kc * kDecCols * s.isz + code_bytes + 15) / 16 * 16;
 }
 
+// G < 8: each class holds one group, so a cluster of G blocks has G
+// chains a (row, column) and a 128-column tile is G blocks of 64 threads.
+// The narrow tile spreads that work: 32 columns a tile (one a lane), and
+// a warp a row (blocks of 32 * rt threads).
+constexpr int kNarCols = 32;
+
+// raw bytes of kc kept slots of one group's [., kNarCols] tile: idx rows,
+// then code rows
+__host__ __device__ __forceinline__ int nar_group_bytes(const Shape& s, int kc) {
+  const int code_bytes = dec_code_rows(s, kc) * kNarCols * (s.wbits ? 1 : 4);
+  return (kc * kNarCols * s.isz + code_bytes + 15) / 16 * 16;
+}
+
+// Shared memory of a narrow tile: the ring [ns][kc slots], the group's x
+// slab [rt][h_g] f32 (none where xg) and the partial [rt][kNarCols] f32.
+inline size_t nar_smem_bytes(const Shape& s, const DecPlan& p) {
+  return static_cast<size_t>(p.ns) * nar_group_bytes(s, p.kc) +
+         (p.xg ? 0 : static_cast<size_t>(p.rt) * s.h_g * sizeof(float)) +
+         static_cast<size_t>(p.rt) * kNarCols * sizeof(float);
+}
+
+// The narrow tile's plan (G < 8): the largest row tile <= tb (and <= T:
+// a block's warps and slab rows are the rows it can have) whose x slab
+// and stages fit; the group's [keep, 32] tile whole as one step where it
+// is at most kDecShareMax bytes, else runs of kc slots (a multiple of 8)
+// through a ring of kDecStages (or 2) stages; x from global memory, one
+// row a block, where one row's slab does not fit.
+inline bool nar_plan(const Shape& s, int tb, DecPlan& p) {
+  p.cb = s.G;
+  p.nc = kNarCols;
+  p.sg = 1;
+  p.xg = 0;
+  const int rt0 = std::min(std::min(tb, kDecMaxRows), std::max(s.T, 1));
+  if (nar_group_bytes(s, s.keep) <= static_cast<int>(kDecShareMax)) {
+    p.kc = s.keep;
+    p.ns = 1;
+    for (p.rt = rt0; p.rt >= 1; p.rt /= 2)
+      if (nar_smem_bytes(s, p) <= kSmemMax) return true;
+  }
+  const size_t run8 = nar_group_bytes(s, kDecMinSlots);
+  for (int xg = 0; xg <= 1; ++xg) {
+    p.xg = xg;
+    for (p.rt = xg ? 1 : rt0; p.rt >= 1; p.rt /= 2)
+      for (p.ns = kDecStages; p.ns >= 2; p.ns /= 2) {
+        p.kc = 0;
+        const size_t fixed = nar_smem_bytes(s, p);
+        if (fixed >= kSmemMax) continue;
+        p.kc = static_cast<int>((kSmemMax - fixed) / p.ns / run8) * kDecMinSlots;
+        if (p.kc >= s.keep) p.kc = s.keep;
+        if (p.kc >= std::min(s.keep, kDecMinSlots) && nar_smem_bytes(s, p) <= kSmemMax)
+          return true;
+      }
+  }
+  return false;
+}
+
 // Shared memory: the ring [ns][sg groups of kc slots], the class's x slab
 // [rt][nq * h_g] f32 (none where xg) and the class partial [rt][kDecCols]
 // f32.
 inline size_t dec_smem_bytes(const Shape& s, const DecPlan& p) {
+  if (p.nc == kNarCols) return nar_smem_bytes(s, p);
   const size_t nq = class_count(0, s.G);
   return static_cast<size_t>(p.ns) * p.sg * dec_group_bytes(s, p.kc) +
          (p.xg ? 0 : static_cast<size_t>(p.rt) * nq * s.h_g * sizeof(float)) +
@@ -232,10 +291,13 @@ inline size_t dec_smem_bytes(const Shape& s, const DecPlan& p) {
 // many as kDecStages (or 2) stages beside the slab hold. Where not even
 // one row's slab fits beside them (nq * h_g near h_in at G < 8 and h_in
 // past ~50k), x is read from global memory, one row a block. So a plan
-// exists for every packing shape_ok takes.
+// exists for every packing shape_ok takes. At G < 8 the narrow tile's
+// plan (nar_plan).
 inline bool dec_plan(const Shape& s, int tb, DecPlan& p) {
+  if (s.G < kWarps) return nar_plan(s, tb, p);
   const int nq = class_count(0, s.G);
   const size_t gb = dec_group_bytes(s, s.keep);
+  p.nc = kDecCols;
   p.cb = std::min(s.G, kWarps);
   p.xg = 0;
   p.kc = s.keep;
@@ -341,6 +403,10 @@ cudaError_t launch_segments_i32(const float* x, Delta d, Shape s, Strides stride
 bool prefill_fits(int tb, int h_g, int keep);
 cudaError_t launch_prefill(const float* x, float* xT, Delta d, Shape s, float* y,
                            cudaStream_t st);
+cudaError_t launch_prefill_win_u8(const float* xT, int Tp, Delta d, Shape s, int vec, float* y,
+                                  cudaStream_t st);
+cudaError_t launch_prefill_win_i32(const float* xT, int Tp, Delta d, Shape s, int vec, float* y,
+                                   cudaStream_t st);
 int fused_splits_for(int T, int h_in, int O, int tb);
 cudaError_t launch_fused_any(const float* x, const void* w, int w_bf16, Delta d, Shape s,
                              float* y, float* ws, int splits, int tb, cudaStream_t st);

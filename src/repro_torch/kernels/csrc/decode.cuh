@@ -260,6 +260,159 @@ __device__ void cluster_correction(const float* __restrict__ x, const Delta& d,
   cluster.sync();  // no block leaves while another reads its partial
 }
 
+
+// G < 8 (the narrow tile): rows [row0, row0 + R) x columns [col0, col0 +
+// kNarCols) of x @ dequant(d), idx entries of type IT. Each class holds
+// one group, so block c of the cluster (its rank, c < G) runs group c:
+// warp r the chain of row r, lane l column col0 + l, one chain a thread
+// in slot order. It stages the rows' x columns of group c (XG: reads them
+// from global memory) and streams the group's [keep, 32] idx/code tile
+// (whole, or in runs of kc slots); then block c writes its share of the
+// tile's columns as ((P0 + P1) + ...) + P7, reading the other blocks'
+// partials from their shared memory, the classes past G adding their zero
+// partial. Called by all blocks of a cluster with the same arguments; R
+// (the rows, at most p.rt) is a runtime count, a warp a row.
+template <typename IT, bool RUNS, bool XG>
+__device__ void narrow_correction(int R, const float* __restrict__ x, const Delta& d,
+                                  const Shape& s, const DecPlan& p, int row0, int col0,
+                                  float* __restrict__ y, unsigned char* smem) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, wr = tid >> 5, nth = blockDim.x;
+  const int keep = s.keep, h_g = s.h_g;
+  const int gb = nar_group_bytes(s, p.kc);
+  const int ncol = min(kNarCols, s.O - col0);
+  const int code_rows = s.wbits ? s.kp : keep;
+  const int nsteps = RUNS ? (keep + p.kc - 1) / p.kc : 1;
+  constexpr int IB = kNarCols * static_cast<int>(sizeof(IT));  // bytes of a staged idx row
+  const int code_at = p.kc * IB;                               // the step's code rows
+  const int cw = s.wbits ? 1 : 4;                              // bytes of a code entry
+  unsigned char* ring = smem;
+  float* slab = reinterpret_cast<float*>(ring + p.ns * gb);
+  float* part = slab + (XG ? 0 : p.rt * h_g);
+  const Decode dc = decode_consts(d, s);
+  const int pshift = __ffs(dc.per) - 1;  // codes per byte is a power of two
+  const IT* idx = reinterpret_cast<const IT*>(d.idx);
+  const size_t g = c;
+
+  // step n (kept slots n * kc ..) -> stage n % ns, one cp.async group a
+  // step: 16-byte copies spread over the block for a full tile in 16-byte
+  // aligned rows, else plain loads (zero past O)
+  auto issue = [&](int n) {
+    if (n < nsteps) {
+      unsigned char* st = ring + (n % p.ns) * gb;
+      const int k0 = n * p.kc, nk = min(p.kc, keep - k0);
+      const int ncr = dec_code_rows(s, nk), kr0 = s.wbits ? k0 / dc.per : k0;
+      if (p.vec && ncol == kNarCols) {
+        // an idx row is 2 (uint8) or 8 (int32) chunks, a code row 2 or 8 (f32)
+        constexpr int li = sizeof(IT) == 1 ? 1 : 3;
+        const int lc = s.wbits ? 1 : 3;
+        const int ni = nk << li, P = ni + (ncr << lc);
+        for (int w = tid; w < P; w += nth) {
+          const unsigned char* src;
+          unsigned char* dst;
+          if (w < ni) {
+            const int r = w >> li, ch = w & ((1 << li) - 1);
+            src = d.idx + ((g * keep + k0 + r) * s.O + col0) * sizeof(IT) + ch * 16;
+            dst = st + r * IB + ch * 16;
+          } else {
+            const int w2 = w - ni, r = w2 >> lc, ch = w2 & ((1 << lc) - 1);
+            src = d.codes + ((g * code_rows + kr0 + r) * s.O + col0) * cw + ch * 16;
+            dst = st + code_at + r * (kNarCols * cw) + ch * 16;
+          }
+          cp_async16(dst, src, 16);
+        }
+      } else {
+        for (int e = tid; e < nk * kNarCols; e += nth) {
+          const int r = e / kNarCols, j = e % kNarCols;
+          reinterpret_cast<IT*>(st)[e] =
+              j < ncol ? idx[(g * keep + k0 + r) * s.O + col0 + j] : IT(0);
+        }
+        for (int e = tid; e < ncr * kNarCols; e += nth) {
+          const int r = e / kNarCols, j = e % kNarCols;
+          const size_t src = (g * code_rows + kr0 + r) * s.O + col0 + j;
+          if (s.wbits)
+            st[code_at + e] = j < ncol ? d.codes[src] : 0;
+          else
+            reinterpret_cast<float*>(st + code_at)[e] =
+                j < ncol ? reinterpret_cast<const float*>(d.codes)[src] : 0.f;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // x[row0 + r][c * h_g + i] -> slab[r][i] (the first cp.async group;
+  // empty where XG), then every stage, all free at the start
+  if (XG) {
+    // no slab
+  } else if (p.xvec) {
+    const int v4 = h_g / 4;
+    for (int e = tid; e < R * v4; e += nth) {
+      const int r = e / v4, i4 = e - r * v4;
+      cp_async16(slab + r * h_g + i4 * 4,
+                 x + static_cast<size_t>(row0 + r) * s.h_in + g * h_g + i4 * 4, 16);
+    }
+  } else {
+    for (int e = tid; e < R * h_g; e += nth) {
+      const int r = e / h_g, i = e - r * h_g;
+      slab[e] = x[static_cast<size_t>(row0 + r) * s.h_in + g * h_g + i];
+    }
+  }
+  cp_async_commit();
+  for (int n = 0; n < p.ns; ++n) issue(n);
+  int committed = 1 + p.ns;  // cp.async groups: the slab, then one a step
+
+  // row wr's x of the group: the slab, or x itself
+  const float* xr = XG ? x + static_cast<size_t>(row0 + wr) * s.h_in + g * h_g
+                       : slab + wr * h_g;
+  float acc = 0.f;
+  for (int n = 0; n < nsteps; ++n) {
+    cp_async_wait(max(committed - (n + 2), 0));  // the slab and steps <= n
+    __syncthreads();  // step n and the slab are in for all; step n - 1 is done
+    if (n > 0) {
+      issue(n + p.ns - 1);
+      ++committed;
+    }
+    if (wr < R && lane < ncol) {
+      const unsigned char* st = ring + (n % p.ns) * gb;
+      const int nk = RUNS ? min(p.kc, keep - n * p.kc) : keep;
+      const IT* ids = reinterpret_cast<const IT*>(st) + lane;
+      // the group's kept slots in order (a run continues where the step
+      // before ended; k0 is a multiple of the codes a byte holds, so a
+      // slot's code shift is its k's), one rounded product and one
+      // rounded sum a term
+#pragma unroll 4
+      for (int k = 0; k < nk; ++k) {
+        const unsigned raw =
+            s.wbits ? st[code_at + (k >> pshift) * kNarCols + lane]
+                    : reinterpret_cast<const unsigned*>(st + code_at)[k * kNarCols + lane];
+        acc = __fadd_rn(acc, __fmul_rn(xr[ids[k * kNarCols]], decode_raw(s, dc, raw, k)));
+      }
+    }
+  }
+
+  if (wr < R) part[wr * kNarCols + lane] = acc;
+  cluster.sync();  // every class partial of the tile is in
+  const int per = (kNarCols + p.cb - 1) / p.cb;  // columns each block of the cluster writes
+  for (int e = tid; e < R * per; e += nth) {
+    const int r = e / per;
+    const int cc = c * per + e % per;
+    if (cc < kNarCols && col0 + cc < s.O) {
+      float v[kWarps];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        v[w] = w < p.cb ? cluster.map_shared_rank(part, w)[r * kNarCols + cc] : 0.f;
+      float t = v[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, v[w]);
+      y[static_cast<size_t>(row0 + r) * s.O + col0 + cc] = t;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
 // cluster_correction at R = rows (1..8), one instance per count, so a
 // block computes only real rows; a plan with x in global memory has one
 // row a block
@@ -285,29 +438,51 @@ __device__ __forceinline__ void rows_correction(int rows, const float* x, const 
   }
 }
 
+// the tile's correction: the 128-column cluster routine, or the narrow
+// tile (NAR, G < 8; a plan with x in global memory has one row a block)
+template <typename IT, bool RUNS, bool NAR>
+__device__ __forceinline__ void tile_correction(int rows, const float* x, const Delta& d,
+                                                const Shape& s, const DecPlan& p, int row0,
+                                                int col0, float* y, unsigned char* smem) {
+  if constexpr (!NAR) {
+    rows_correction<IT, RUNS>(rows, x, d, s, p, row0, col0, y, smem);
+  } else {
+    if constexpr (RUNS) {
+      if (p.xg) {
+        narrow_correction<IT, true, true>(1, x, d, s, p, row0, col0, y, smem);
+        return;
+      }
+    }
+    narrow_correction<IT, RUNS, false>(rows, x, d, s, p, row0, col0, y, smem);
+  }
+}
+
 // grid (p.cb * column tiles, row tiles of p.rt rows), clusters of p.cb
 // blocks (a launch attribute); the last row tile holds what is left of T.
 // __maxnreg__: left to itself ptxas took 64 registers and spilled in the
-// 8-row instance.
-template <typename IT, bool RUNS>
+// 8-row instance. NAR: the narrow tile (G < 8), blocks of 32 * p.rt
+// threads.
+template <typename IT, bool RUNS, bool NAR>
 __global__ void __maxnreg__(128)
 spmm_decode_kernel(const float* __restrict__ x, Delta d, Shape s, DecPlan p,
                    float* __restrict__ y) {
   extern __shared__ __align__(16) unsigned char dsmem[];
   const int row0 = blockIdx.y * p.rt;
-  rows_correction<IT, RUNS>(min(p.rt, s.T - row0), x, d, s, p, row0,
-                      (blockIdx.x / p.cb) * kDecCols, y, dsmem);
+  tile_correction<IT, RUNS, NAR>(min(p.rt, s.T - row0), x, d, s, p, row0,
+                                 (blockIdx.x / p.cb) * (NAR ? kNarCols : kDecCols), y, dsmem);
 }
 
 // Rows [r0, r1) x this cluster block's share of the columns of the tile
 // at col0 <- 0.
+template <bool NAR>
 __device__ __forceinline__ void zero_rows(float* __restrict__ y, const Shape& s,
                                           const DecPlan& p, int r0, int r1, int col0) {
+  constexpr int NC = NAR ? kNarCols : kDecCols;
   const int c = static_cast<int>(cooperative_groups::this_cluster().block_rank());
-  const int per = (kDecCols + p.cb - 1) / p.cb;
-  for (int e = threadIdx.x; e < (r1 - r0) * per; e += kDecThreads) {
+  const int per = (NC + p.cb - 1) / p.cb;
+  for (int e = threadIdx.x; e < (r1 - r0) * per; e += (NAR ? blockDim.x : kDecThreads)) {
     const int cc = c * per + e % per, o = col0 + cc;
-    if (cc < kDecCols && o < s.O) y[static_cast<size_t>(r0 + e / per) * s.O + o] = 0.f;
+    if (cc < NC && o < s.O) y[static_cast<size_t>(r0 + e / per) * s.O + o] = 0.f;
   }
 }
 
@@ -318,18 +493,18 @@ __device__ __forceinline__ void zero_rows(float* __restrict__ y, const Shape& s,
 // rows before the first segment and after the last; a segment whose
 // tenant row lies outside the stack is zero-filled by its own tiles.
 // seg_offsets must be non-decreasing (tenant_segments' layout).
-template <typename IT, bool RUNS>
+template <typename IT, bool RUNS, bool NAR>
 __global__ void __maxnreg__(128)
 segments_decode_kernel(const float* __restrict__ x, Delta stack, Shape s, Strides st,
                        int n_tenants, const int* __restrict__ seg_rows,
                        const int* __restrict__ seg_offsets, int n_seg, DecPlan p,
                        float* __restrict__ y) {
   extern __shared__ __align__(16) unsigned char dsmem[];
-  const int col0 = (blockIdx.x / p.cb) * kDecCols;
+  const int col0 = (blockIdx.x / p.cb) * (NAR ? kNarCols : kDecCols);
   auto offset = [&](int i) { return min(max(seg_offsets[i], 0), s.T); };
   if (blockIdx.y == gridDim.y - 1) {
-    zero_rows(y, s, p, 0, offset(0), col0);
-    zero_rows(y, s, p, max(offset(0), offset(n_seg)), s.T, col0);
+    zero_rows<NAR>(y, s, p, 0, offset(0), col0);
+    zero_rows<NAR>(y, s, p, max(offset(0), offset(n_seg)), s.T, col0);
     return;
   }
   // the segment of tile blockIdx.y: each warp scans the segments 32 at a
@@ -358,12 +533,12 @@ segments_decode_kernel(const float* __restrict__ x, Delta stack, Shape s, Stride
   const int rows = min(p.rt, offset(seg + 1) - row0);
   const int t = seg_rows[seg];
   if (t < 0 || t >= n_tenants) {
-    zero_rows(y, s, p, row0, row0 + rows, col0);
+    zero_rows<NAR>(y, s, p, row0, row0 + rows, col0);
     return;
   }
   const Delta d{stack.idx + t * st.idx, stack.codes + t * st.codes, stack.scale + t * st.scale,
                 stack.zero + t * st.zero};
-  rows_correction<IT, RUNS>(rows, x, d, s, p, row0, col0, y, dsmem);
+  tile_correction<IT, RUNS, NAR>(rows, x, d, s, p, row0, col0, y, dsmem);
 }
 
 // The decode route's plan for row tile tb (1, 2, 4 or 8 rows at most a
@@ -383,13 +558,14 @@ inline bool dec_launch_plan(const float* x, const Delta& d, const Shape& s, int 
 inline bool dec_runs(const Shape& s, const DecPlan& p) { return p.kc < s.keep || p.xg; }
 
 // launches kernel on grid with clusters of p.cb blocks (set at launch:
-// the kernels carry no compile-time cluster shape)
+// the kernels carry no compile-time cluster shape), blocks of kDecThreads
+// threads, or a warp a row of the narrow tile
 template <typename... KArgs, typename... Args>
 cudaError_t launch_clustered(void (*kernel)(KArgs...), dim3 grid, size_t smem,
                              cudaStream_t st, const DecPlan& p, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kDecThreads);
+  cfg.blockDim = dim3(p.nc == kNarCols ? 32 * p.rt : kDecThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -408,10 +584,15 @@ cudaError_t launch_spmm_decode(const float* x, Delta d, Shape s, float* y, int t
   DecPlan p;
   size_t smem;
   if (!dec_launch_plan(x, d, s, tb, true, p, smem)) return cudaErrorInvalidValue;
-  const auto kernel = dec_runs(s, p) ? spmm_decode_kernel<IT, true> : spmm_decode_kernel<IT, false>;
+  const bool runs = dec_runs(s, p);
+  const auto kernel = p.nc == kNarCols
+                          ? (runs ? spmm_decode_kernel<IT, true, true>
+                                  : spmm_decode_kernel<IT, false, true>)
+                          : (runs ? spmm_decode_kernel<IT, true, false>
+                                  : spmm_decode_kernel<IT, false, false>);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.cb * ((s.O + kDecCols - 1) / kDecCols), (s.T + p.rt - 1) / p.rt);
+  const dim3 grid(p.cb * ((s.O + p.nc - 1) / p.nc), (s.T + p.rt - 1) / p.rt);
   const cudaError_t launched = launch_clustered(kernel, grid, smem, st, p, x, d, s, p, y);
   return launched != cudaSuccess ? launched : cudaGetLastError();
 }
@@ -424,15 +605,19 @@ cudaError_t launch_segments(const float* x, Delta d, Shape s, Strides strides,
   size_t smem;
   const bool strides_ok = strides.idx % 16 == 0 && strides.codes % 16 == 0;
   if (!dec_launch_plan(x, d, s, tb, strides_ok, p, smem)) return cudaErrorInvalidValue;
-  const auto kernel =
-      dec_runs(s, p) ? segments_decode_kernel<IT, true> : segments_decode_kernel<IT, false>;
+  const bool runs = dec_runs(s, p);
+  const auto kernel = p.nc == kNarCols
+                          ? (runs ? segments_decode_kernel<IT, true, true>
+                                  : segments_decode_kernel<IT, false, true>)
+                          : (runs ? segments_decode_kernel<IT, true, false>
+                                  : segments_decode_kernel<IT, false, false>);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   // segments' tiles: m nonempty segments (m <= min(n_seg, T)) of T rows in
   // all need at most m + (T - m) / rt tiles, largest at m = min(n_seg, T);
   // one more y zero-fills the rows outside the segments
   const int m = std::min(n_seg, s.T);
-  const dim3 grid(p.cb * ((s.O + kDecCols - 1) / kDecCols), m + (s.T - m) / p.rt + 1);
+  const dim3 grid(p.cb * ((s.O + p.nc - 1) / p.nc), m + (s.T - m) / p.rt + 1);
   const cudaError_t launched =
       launch_clustered(kernel, grid, smem, st, p, x, d, s, strides,
                        n_tenants, seg_rows, seg_offsets, n_seg, p, y);

@@ -8,7 +8,8 @@
 //                        replaces repro/kernels/delta_spmm.py:122
 //                        delta_spmm_kernel (body _spmm_body, :108);
 //                        spmm_decode_kernel up to 64 rows,
-//                        spmm_prefill_kernel (same bits) above
+//                        spmm_prefill_kernel (same bits) above, for
+//                        every packing
 //   delta_spmm_segments  row r of tenant-sorted x gets
 //                        x[r] @ dequant(delta[seg_rows[seg(r)]])
 //                        replaces repro/kernels/delta_spmm.py:240
@@ -84,12 +85,26 @@
 //    in slot order, so the chain and its bits are those of whole groups.
 //    The slab is rt x nq x h_g floats, h_in a row at G = 1: the plan
 //    lowers rt until it and the ring fit, and where one row's slab would
-//    not, x is read from global memory, one row a block. At G < 8 a
-//    cluster has G blocks (the cluster shape is a launch attribute,
-//    min(G, 8)) and the combine adds +0.0 for classes G..7, as the
-//    oracle's empty chains do (a chain starts at +0.0 and, rounding to
-//    nearest, never sums to -0.0, so those zeros carry no sign): no block
-//    idles holding an SM, but a G = 1 tile is one block's serial chain.
+//    not, x is read from global memory, one row a block.
+//  * G < 8 (the row-wise default, G = 1; h_g 1024 at wizard, G = 4): each
+//    class holds one group, so a 128-column tile would be G blocks of 64
+//    threads each walking all keep slots of its group alone (32 blocks of
+//    two warps at wq, T = 8: 0.1109 ms against a 0.0051 bound on an H100).
+//    Bound there: the same packed bytes, but only G chains a (row,
+//    column). The narrow tile (narrow_correction, its own plan nar_plan,
+//    so the G >= 8 instances are unchanged) spreads that work
+//    without splitting a chain: 32 columns a tile (one a lane: 4x the
+//    blocks) and a warp a row (blocks of 32 * rt threads, rt <= T), each
+//    thread one (row, column) chain in slot order over the group's [keep,
+//    32] tile, staged whole or in runs of kc slots as above. The cluster
+//    has G blocks (a launch attribute) and the combine adds +0.0 for
+//    classes G..7, as the oracle's empty chains do (a chain starts at +0.0
+//    and, rounding to nearest, never sums to -0.0, so those zeros carry no
+//    sign). 128 blocks of 8 warps at wq, T = 8 (one an SM: the 128 KB x
+//    slab); row-wise wq / wi / MLP wo at T = 8 0.0218 / 0.0621 / 0.1001
+//    ms, under torch.matmul on the dense delta (PERF.md). The segments
+//    kernel takes the same tile; a segment tile has the plan's rt warps
+//    whatever its length, so mixed 2-row segments gain less.
 //  * Rows: a block computes only real rows -- the count (1..8) selects
 //    an instance of the routine -- so T = 2 costs 2 rows, not a padded
 //    tile; T = 9..64 takes row tiles of 8 (the last one shorter).
@@ -132,7 +147,44 @@
 // Columns narrow from 64 to 32 when the 64-column grid would give SMs
 // fewer than 4 blocks (wq, MLP wo and wi at T = 128). A step's fixed cost
 // (barrier, copies, tables) set the speed on the card, hence the many
-// groups a step (PERF.md).
+// groups a step (PERF.md). That whole-group walk takes uint8 idx where two
+// 128-row slabs of a group fit (h_g <= 64, or 128 with keep <= 41).
+//
+// Every other packing (int32 idx up to h_g = h_in, keep up to h_g, the
+// codec lowerings' keep = h_g = 128) takes the windowed walk (win_walk in
+// prefill.cuh): a step is a window of 64 consecutive x indices of one
+// group, its [64][128] slab of xT one bulk copy into a ring of 4 windows.
+// Bound: the same 2 * T * nnz operations and one 16-byte shared-memory
+// load of x per (kept value, 4 rows); and each block reads all of x from
+// L2 (32 columns a block: 344 blocks x 2 MB at wi, T = 128, ~0.25 ms of
+// L2 reads on an H100, measured with everything else switched off).
+// Design: warp specialised. A producer warp starts each window and the
+// ring runs (8 kept slots of the block's 32 columns: idx rows, then code
+// rows, padded so 16 rows of one column spread over the banks) as 16-byte
+// cp.async, as far ahead as 4 windows and the ring allow, all landing on
+// the window's full barrier. Each of 16 consumer warps owns 2 columns end
+// to end and meets the others only at the windows' full/empty barriers,
+// so warps drift instead of waiting each step for the column with the
+// most slots. Per window a warp finds each column's kept slots inside it
+// from its cursor (half a warp a column, a lane a slot; the in-window
+// slots are a prefix because every producer sorts them, checked once per
+// (group, column) as the warp enters the group), tabulates (x offset,
+// value) in slot order, and applies them to its lanes' 4 rows with float4
+// loads, both columns side by side. Windows go in increasing index, so a
+// sorted column's chain is in slot order: the bits of
+// correction_kernel_order. An unsorted column is walked in slot order
+// with x from xT in global memory instead (slow, and only for data no
+// producer emits). Bytes of idx and codes a block reads beyond its
+// columns' own kept values: the sortedness pass over its columns' idx as
+// it enters each group (once more than its own idx, from L2), plus the
+// slots past a window's end that a round reads from shared memory; a run
+// is copied into the ring once, and a slot whose run has not landed is
+// read from global memory (none at wizard's sites: the ring holds 256
+// slots at int32 idx and f32 codes, against a spread of about 100 slots
+// between the block's cursors at keep 1376). At T = 128 on an H100:
+// row-wise wq / wi / MLP wo 0.1326 / 0.3852 / 0.3099 ms (the decode tiles'
+// 0.43 / 1.18 / 2.36 before it), h_g 1024 wi 0.3942, LowRank wi 1.9472
+// (PERF.md).
 //
 // fused_base_delta: the TPU kernel's function, y = x @ (W + dense(delta))
 // with the merged weight formed per element in f32 as (W + 0) + (0 + v),
@@ -185,11 +237,12 @@
 // return cudaGetLastError() after the launch.
 //
 // Sources: this file (the dequant kernel and the C interface),
-// common.cuh (layout, decode, helpers, the decode plan), decode.cuh (the
+// common.cuh (layout, decode, helpers, the decode plans), decode.cuh (the
 // decode route) instantiated by decode_{spmm,segments}_{u8,i32}.cu,
-// prefill.cu and fused.cu: one translation unit each, compiled by
-// parallel nvcc processes and linked into one library
-// (kernels/delta_spmm.py::build).
+// prefill.cuh (the 128-row tile) instantiated by prefill.cu (uint8 idx,
+// with the transpose and the dispatch) and prefill_i32.cu, and fused.cu:
+// one translation unit each, compiled by parallel nvcc processes and
+// linked into one library (kernels/delta_spmm.py::build).
 
 #include "common.cuh"
 
@@ -275,9 +328,9 @@ extern "C" {
 // (idx_bytes = 4); codes [G, kp, O] uint8 or f32 [G, keep, O] (wbits =
 // 0); scale f32 and zero int32 device scalars; y [T, O] f32. Row tiles 1,
 // 2, 4 and 8 take the decode kernel (tb caps the rows a block computes),
-// 128 the prefill kernel (same bits) where delta_spmm_prefill_ok and idx
-// is uint8, which needs xT: f32 scratch of h_in * Tp elements, Tp = T
-// rounded up to 128 (unused for the other tiles).
+// 128 the prefill kernel (same bits; every packing,
+// delta_spmm_prefill_ok), which needs xT: f32 scratch of h_in * Tp
+// elements, Tp = T rounded up to 128 (unused for the other tiles).
 int delta_spmm_launch(const void* x, const void* idx,
                       const void* codes, const void* scale, const void* zero,
                       void* y, void* xT, int T, int h_in, int O, int h_g, int keep, int kp,
@@ -285,7 +338,7 @@ int delta_spmm_launch(const void* x, const void* idx,
   const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits, idx_bytes};
   const bool prefill = tb == kPrefillRows;
   if (!shape_ok(s) ||
-      (prefill ? !prefill_fits(tb, h_g, keep) || idx_bytes != 1 : !dec_tile(tb)))
+      (prefill ? !prefill_fits(tb, h_g, keep) : !dec_tile(tb)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Delta d{static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(codes),
                 static_cast<const float*>(scale), static_cast<const int*>(zero)};
@@ -299,21 +352,23 @@ int delta_spmm_launch(const void* x, const void* idx,
 }
 
 // 1 where delta_spmm_launch takes row tile tb (128) on its prefill kernel
-// for groups of h_g rows with keep kept values: its shared memory fits.
+// for groups of h_g rows with keep kept values: every packing (1 <= keep
+// <= h_g), the whole-group walk where it fits, the windowed walk else.
 int delta_spmm_prefill_ok(int tb, int h_g, int keep) {
   return prefill_fits(tb, h_g, keep) ? 1 : 0;
 }
 
 // The decode route's plan (delta_spmm at row tile tb, and the segments
-// kernel) for one matrix: out[0..7] = groups a step holds, kept slots a
+// kernel) for one matrix: out[0..8] = groups a step holds, kept slots a
 // step holds of each, ring depth, rows a block computes at most, dynamic
 // shared memory bytes, steps a class's chain takes at most, whether x is
-// read from global memory, blocks a cluster. 1 where the packing is one
-// the kernels take (a plan then always exists), 0 otherwise. Host only:
-// launches nothing.
+// read from global memory, blocks a cluster, columns a tile (128, or 32
+// for the narrow tile at G < 8). 1 where the packing is one the kernels
+// take (a plan then always exists), 0 otherwise. Host only: launches
+// nothing.
 int delta_spmm_decode_plan(int h_in, int O, int h_g, int keep, int kp, int wbits,
                            int idx_bytes, int tb, int* out) {
-  const Shape s{1, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits, idx_bytes};
+  const Shape s{tb, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits, idx_bytes};
   DecPlan p;
   if (!shape_ok(s) || !dec_tile(tb) || !dec_plan(s, tb, p)) return 0;
   const int nq = class_count(0, s.G), nch = (keep + p.kc - 1) / p.kc;
@@ -325,6 +380,7 @@ int delta_spmm_decode_plan(int h_in, int O, int h_g, int keep, int kp, int wbits
   out[5] = nch == 1 ? (nq + p.sg - 1) / p.sg : nq * nch;
   out[6] = p.xg;
   out[7] = p.cb;
+  out[8] = p.nc;
   return 1;
 }
 

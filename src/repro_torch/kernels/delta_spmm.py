@@ -35,8 +35,10 @@ The kernels take every packing the compressor emits: any ``h_g``
 dividing ``h_in`` up to ``h_in`` itself (the row-wise default), any
 ``keep`` up to ``h_g``, ``idx`` uint8 up to ``h_g = 256`` and int32 above
 (the packer's rule, ``core.pack.idx_dtype``), codes at widths 1/2/4/8 or raw
-f32. The 128-row prefill tile alone stays within ``h_g <= 256`` (uint8
-``idx``) and its shared memory (:func:`prefill_fits`).
+f32 — on every tile: the 128-row prefill tile walks whole groups where
+they fit and windows of x indices elsewhere (:func:`prefill_fits`), and
+the decode tiles take a narrow 32-column tile at G < 8
+(:func:`decode_plan`).
 """
 from __future__ import annotations
 
@@ -177,8 +179,8 @@ def _load() -> ctypes.CDLL:
 
 def prefill_fits(tb: int, h_g: int, keep: int) -> bool:
     """Whether the prefill kernel takes row tile ``tb`` for groups of
-    ``h_g`` rows with ``keep`` kept values (its shared memory fits); asks
-    the library."""
+    ``h_g`` rows with ``keep`` kept values: every packing (1 <= keep <=
+    h_g) since the windowed walk; asks the library."""
     return tb in PREFILL_TILES and bool(_load().delta_spmm_prefill_ok(tb, h_g, keep))
 
 
@@ -190,20 +192,21 @@ def decode_plan(d: PackedDelta, tb: int) -> dict | None:
     (``stages``), rows a block computes at most (``rows``; below ``tb``
     where the shared memory does not fit), its dynamic shared memory
     bytes, the steps of a class chain (``steps``), whether x is read
-    from global memory (``x_global``) and the blocks of a cluster
-    (``cluster``: min(G, 8), one a class chain that has a group); None
-    for a packing the kernels do not take. Host arithmetic in the library:
-    launches nothing."""
+    from global memory (``x_global``), the blocks of a cluster
+    (``cluster``: min(G, 8), one a class chain that has a group) and the
+    columns of a tile (``cols``: 128, or 32 for the narrow tile at G < 8,
+    a warp a row); None for a packing the kernels do not take. Host
+    arithmetic in the library: launches nothing."""
     from repro_torch.core.quant import pack_width, packed_len
     kp, wbits = (d.keep, 0) if d.k_bits is None else (packed_len(d.keep, d.k_bits),
                                                       pack_width(d.k_bits))
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 9)()
     if not _load().delta_spmm_decode_plan(d.h_in, d.h_out, d.h_g, d.keep, kp, wbits,
                                           idx_dtype(d.h_g).itemsize, tb, out):
         return None
     return {"tb": tb, "sg": out[0], "kc": out[1], "stages": out[2], "rows": out[3],
             "smem_bytes": out[4], "steps": out[5], "x_global": bool(out[6]),
-            "cluster": out[7]}
+            "cluster": out[7], "cols": out[8]}
 
 
 def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, int]:
@@ -271,15 +274,15 @@ def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tenso
 
     ``tb`` in :data:`ROW_TILES` takes the decode route (at most ``tb``
     rows a block; the library lowers it where its shared memory would not
-    fit), in :data:`PREFILL_TILES` the rows-in-lanes prefill kernel (where
-    its shared memory fits, :func:`prefill_fits`); a row has the same bits
-    under every tile."""
+    fit), in :data:`PREFILL_TILES` the rows-in-lanes prefill kernel (every
+    packing, :func:`prefill_fits`); a row has the same bits under every
+    tile."""
     if tb not in SPMM_TILES:
         raise ValueError(f"tb={tb} not in {SPMM_TILES}")
     _require_cuda(x2)
     kp, wbits = check_inputs(x2, d, stacked=False)
     if tb in PREFILL_TILES and not prefill_fits(tb, d.h_g, d.keep):
-        raise ValueError(f"tb={tb}: the prefill kernel's shared memory does not fit "
+        raise ValueError(f"tb={tb}: the prefill kernel does not take "
                          f"h_g={d.h_g}, keep={d.keep}")
     lib = _load()
     T = x2.shape[0]

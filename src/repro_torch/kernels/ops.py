@@ -50,7 +50,7 @@ block computes only real rows, so the tile is the smallest holding the
 whole batch up to 8 rows — the decode fast path of ``ops.py:220-223`` —
 and 8 above (:func:`row_tile`); segments are tiled from their own first
 row. ``delta_spmm`` takes its prefill kernel's 128-row tile above 64 rows
-(:func:`rule_spmm_tile`); the fused kernel keeps its caps 8/16/32
+for every packing (:func:`rule_spmm_tile`); the fused kernel keeps its caps 8/16/32
 (:func:`fused_row_tile`). On a CUDA tensor the swept table
 (``kernels/autotune.py``) comes first: ``delta_spmm`` takes the ``tb``
 it holds for the delta's envelope point and the call's token-count
@@ -59,8 +59,9 @@ segments kernel takes it where it is a decode tile
 (:func:`segments_tile`); without a table, an entry or a matching card
 the rules above decide. The expert route, the fused kernel and dequant
 keep their rules. Output columns go 128 to a tile on the decode
-route (one cluster of 8 blocks, one per class chain), 32 or 64 in the
-prefill kernel, 128 in the fused kernel and 32 in dequant. No choice
+route (one cluster of 8 blocks, one per class chain; 32 at G < 8, a
+cluster of G blocks with a warp a row), 32 or 64 in the prefill kernel
+(32 on its windowed walk), 128 in the fused kernel and 32 in dequant. No choice
 changes a row's bits in the correction kernels.
 """
 from __future__ import annotations
@@ -78,9 +79,9 @@ KERNEL_OB = 128    # output columns per tile on the decode route and in segments
 FUSED_OB = 128     # output columns per block in the fused kernel
 DEQUANT_OB = 32    # output columns per block in the dequant kernel
 # delta_spmm takes the prefill kernel's 128-row tile from this many rows
-# (chip_smoke.py's [route] lines, PERF.md): on an H100 the decode route
-# beats it at every full-width site up to 64 rows; above, the 128-row tile
-# wins at MLP wo (h_in 11008) but loses at wq and wi
+# by rule (chip_smoke.py's [route] lines, PERF.md): on an H100 the decode
+# route beats it at every full-width site up to 64 rows; above, the swept
+# table (kernels/autotune.py) decides where it applies
 PREFILL_MIN_T = 65
 # delta_spmm_experts takes per-expert counts when at most this share of
 # the E * C buffer rows can be live (T * K assignments): on an H100 the
@@ -162,10 +163,9 @@ def fused_row_tile(T: int) -> int:
 
 def rule_spmm_tile(T: int, d: PackedDelta) -> int:
     """delta_spmm's row tile by rule: the prefill kernel's 128 rows from
-    :data:`PREFILL_MIN_T` rows where its shared memory fits (never above
-    h_g = 256 or keep = 128), else :func:`row_tile`: a wide packing's
-    prefill rows take decode tiles. Every tile gives a row the same
-    bits."""
+    :data:`PREFILL_MIN_T` rows where it takes the packing (every packing
+    since its windowed walk, :func:`delta_spmm.prefill_fits`), else
+    :func:`row_tile`. Every tile gives a row the same bits."""
     tb = _k.PREFILL_TILES[0]
     if T >= PREFILL_MIN_T and _k.prefill_fits(tb, d.h_g, d.keep):
         return tb

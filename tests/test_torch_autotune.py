@@ -28,8 +28,9 @@ TS = range(1, 301)
 
 
 def _fits(tb, h_g, keep):
-    """A stand-in for the library's answer (a card test holds the real one)."""
-    return tb in kern.PREFILL_TILES and h_g <= 128 and keep <= 16
+    """A stand-in for the library's answer (a card test holds the real
+    one): the 128-row tile takes every packing."""
+    return tb in kern.PREFILL_TILES and 1 <= keep <= h_g
 
 
 @pytest.fixture(autouse=True)
@@ -187,8 +188,9 @@ def test_ops_honours_the_table_in_every_bucket(tmp_path, monkeypatch):
 
 
 def test_table_naming_an_illegal_tile_raises(tmp_path, monkeypatch):
-    wide = (4096, 512, None, 4096, 4096)            # the prefill kernel does not take it
-    _table(tmp_path, monkeypatch, {tat.envelope_key(*wide, t=128): {"tb": 128},
+    wide = (4096, 512, None, 4096, 4096)
+    # no kernel has a 64-row or a 3-row tile (the 128-row tile takes every packing)
+    _table(tmp_path, monkeypatch, {tat.envelope_key(*wide, t=128): {"tb": 64},
                                    tat.envelope_key(*wide, t=8): {"tb": 3}})
     for T in (100, 8):
         with pytest.raises(ValueError, match="autotune table"):
@@ -234,7 +236,9 @@ def test_committed_table(monkeypatch):
         assert e["tb"] == min((int(tb) for tb in e["ms"]), key=lambda tb: e["ms"][str(tb)])
         assert str(e["rule_tb"]) in e["ms"], key
         assert e["rule_tb"] == 128 or e["rule_tb"] == _old_row_tile(T), key
-        assert set(int(tb) for tb in e["ms"]) >= set(kern.ROW_TILES), key
+        # swept with the 128-row tile at every point: it takes every packing
+        assert set(int(tb) for tb in e["ms"]) == set(kern.SPMM_TILES), key
+        assert e["rule_tb"] == (128 if T >= ops.PREFILL_MIN_T else _old_row_tile(T)), key
 
 
 def _site_shapes(arch: str, *paths) -> list:

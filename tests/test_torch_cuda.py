@@ -95,14 +95,14 @@ def test_delta_spmm_kernel_rows_bit_stable(cuda):
 @pytest.mark.parametrize("T", [64, 100, 128, 256])
 @pytest.mark.parametrize("h_in,h_out,h_g,alpha,k", [c[1:] for c in SWEEP])
 def test_delta_spmm_prefill_rows_equal_tb8_rows(cuda, T, h_in, h_out, h_g, alpha, k):
-    """delta_spmm above 32 rows, on the prefill route (128-row tile) where
-    ops takes it and on the decode route elsewhere (T=64; h_g=256, whose
-    128-row slabs do not fit), gives every row the bits of the tb=8 route
-    and of the kernel-order oracle."""
+    """delta_spmm above 32 rows, on the prefill route (128-row tile) above
+    64 rows, every packing (h_g=256 on its windowed walk), and on the
+    decode route at T=64, gives every row the bits of the tb=8 route and
+    of the kernel-order oracle."""
     d = _pack(h_in, h_out, h_g, alpha, k, 0, cuda)
     x = _x(T, h_in, 11, cuda)
     prefill = ops.spmm_row_tile(T, d) in kern.PREFILL_TILES
-    assert prefill == (T > 64 and h_g < 256)
+    assert prefill == (T > 64)
     before = dict(kern.ROUTES)
     got = ops.delta_spmm(x, d)
     torch.cuda.synchronize()
@@ -172,12 +172,14 @@ def test_decode_route_equals_kernel_order(cuda, T, h_in, h_out, h_g, alpha, k):
 @pytest.mark.parametrize("h_in,h_out,h_g,alpha,k", WIDE_CASES)
 def test_wide_packing_every_route(cuda, h_in, h_out, h_g, alpha, k):
     """A packing past the reference's envelope on every route of the
-    card: delta_spmm at DECODE_T and at 65 and 128 rows (decode tiles: the
-    prefill tile does not take it), the segments kernel (uncovered rows
-    and an out-of-stack tenant zero), the slots and the expert route (with
-    counts), all bit-equal to the kernel-order oracle and so to each
-    other; dequant bit-equal to its plain version, fused_base_delta
-    within the kernel tolerance; every call a kernel launch."""
+    card: delta_spmm at DECODE_T (decode tiles) and at 65 and 128 rows
+    (the 128-row tile, its windowed walk where a group does not fit), and
+    at 65 and 128 rows on every tile the packing takes, the segments
+    kernel (uncovered rows and an out-of-stack tenant zero), the slots and
+    the expert route (with counts), all bit-equal to the kernel-order
+    oracle and so to each other; dequant bit-equal to its plain version,
+    fused_base_delta within the kernel tolerance; every call a kernel
+    launch."""
     tenants = [_pack(h_in, h_out, h_g, alpha, k, 90 + t, cuda) for t in range(3)]
     d = tenants[0]
     assert d.idx.dtype == kern.idx_dtype(h_g) and ops.card_envelope_miss(d) is None
@@ -185,10 +187,14 @@ def test_wide_packing_every_route(cuda, h_in, h_out, h_g, alpha, k):
     stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
     x = _x(128, h_in, 91, cuda)
     wants = [ref.correction_kernel_order(x, t) for t in tenants]
+    assert kern.prefill_fits(128, d.h_g, d.keep)
+    for T in (65, 128):
+        for tb in kern.SPMM_TILES:
+            assert _bits_equal(kern.delta_spmm_cuda(x[:T], d, tb=tb), wants[0][:T]), (T, tb)
     kern.reset_launches()
     Ts = (*DECODE_T, 65, 128)
     for T in Ts:
-        assert ops.spmm_row_tile(T, d) in kern.ROW_TILES
+        assert ops.spmm_row_tile(T, d) == (128 if T > 64 else ops.row_tile(T))
         assert _bits_equal(ops.delta_spmm(x[:T], d), wants[0][:T]), T
     rows = torch.tensor([1, 0, 2, 5], dtype=torch.int32, device=cuda)
     offs = torch.tensor([1, 4, 8, 11, 12], dtype=torch.int32, device=cuda)
@@ -215,7 +221,7 @@ def test_wide_packing_every_route(cuda, h_in, h_out, h_g, alpha, k):
             torch.testing.assert_close(ops.fused_base_delta(x[:T], w, d),
                                        fb.fused_base_delta(x[:T], w, d), **TOL)
     torch.cuda.synchronize()
-    assert kern.ROUTES == {"delta_spmm_decode": len(Ts), "delta_spmm_prefill": 0}
+    assert kern.ROUTES == {"delta_spmm_decode": len(DECODE_T), "delta_spmm_prefill": 2}
     assert kern.LAUNCHES == {"delta_spmm": len(Ts), "delta_spmm_segments": 3,
                              "fused_base_delta": 4, "dequant": 1}
 
@@ -237,6 +243,62 @@ def test_unsorted_kept_slots_on_every_kernel(cuda):
         torch.testing.assert_close(got, ops.fused_base_delta(x[:T], w, d), **TOL)
         assert _bits_equal(ops.delta_spmm(x[:T], flip), ref.correction_kernel_order(x[:T], flip))
     assert torch.equal(ops.dequant(flip).view(torch.int32), fb.dequant(flip).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h_g,k", [(2048, None), (512, 4), (256, 2)])
+def test_prefill_window_one_unsorted_column(cuda, h_g, k):
+    """One column's kept slots shuffled (no producer emits it): the
+    128-row tile's windowed walk finds that column unsorted as it enters
+    the group and walks it in slot order, every other column through the
+    windows; every row equals the kernel-order oracle, and the decode
+    tiles."""
+    d = _pack(2048, 96, h_g, 8, k, 130, cuda)
+    idx, codes = d.idx.clone(), d.codes.clone()
+    perm = torch.randperm(d.keep, generator=torch.Generator().manual_seed(131)).to(cuda)
+    idx[:, :, 37] = idx[:, perm, 37]
+    if k is None:        # f32 codes move with their slots
+        codes[:, :, 37] = codes[:, perm, 37]
+    shuffled = d.with_arrays(idx, codes, d.scale, d.zero)
+    x = _x(200, 2048, 132, cuda)
+    want = ref.correction_kernel_order(x, shuffled)
+    assert not _bits_equal(want, ref.correction_kernel_order(x, d))
+    for T in (65, 128, 200):
+        got = kern.delta_spmm_cuda(x[:T], shuffled, tb=128)
+        assert _bits_equal(got, want[:T]), T
+        assert _bits_equal(got, kern.delta_spmm_cuda(x[:T], shuffled, tb=8)), T
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("k", [None, 4])
+def test_narrow_decode_tiles_below_eight_groups(cuda, G, k):
+    """G < 8 takes the narrow decode tile (32 columns, a warp a row, a
+    cluster of G blocks): at every decode tile and T up to 9, and in the
+    segments kernel (uncovered rows and an out-of-stack tenant zero),
+    every row equals the kernel-order oracle."""
+    # f32 codes at a ragged width (plain loads), 4-bit codes at 7 full
+    # 32-column tiles (16-byte copies)
+    h_in, h_out = 1024, 200 if k is None else 224
+    tenants = [_pack(h_in, h_out, h_in // G, 8, k, 140 + t, cuda) for t in range(3)]
+    d = tenants[0]
+    for tb in kern.ROW_TILES:
+        plan = kern.decode_plan(d, tb)
+        assert plan["cols"] == 32 and plan["cluster"] == G, plan
+    x = _x(13, h_in, 141, cuda)
+    wants = [ref.correction_kernel_order(x, t) for t in tenants]
+    for T in (1, 2, 3, 5, 8, 9):
+        for tb in kern.ROW_TILES:
+            assert _bits_equal(kern.delta_spmm_cuda(x[:T], d, tb=tb), wants[0][:T]), (T, tb)
+    stack = stack_tenant_deltas([{"w": t} for t in tenants])["w"]
+    rows = torch.tensor([1, 0, 2, 5], dtype=torch.int32, device=cuda)
+    offs = torch.tensor([1, 4, 8, 11, 12], dtype=torch.int32, device=cuda)
+    want = torch.zeros((13, h_out), device=cuda)
+    for t, lo, hi in ((1, 1, 4), (0, 4, 8), (2, 8, 11)):
+        want[lo:hi] = wants[t][lo:hi]
+    for tb in kern.ROW_TILES:
+        got = kern.delta_spmm_segments_cuda(x, stack, rows, offs, tb=tb)
+        assert _bits_equal(got, want), tb
 
 
 @pytest.mark.gpu
@@ -582,12 +644,14 @@ def test_prefill_row_tiles_are_delta_spmm_only(monkeypatch):
     # up to 64 rows the choice never asks whether the prefill tile fits
     assert [ops.spmm_row_tile(T, d) for T in (1, 2, 3, 5, 8, 9, 32, 33, 64)] \
         == [1, 2, 4, 8, 8, 8, 8, 8, 8]
-    # past 64 rows it does (the library's answer, a card test, stood in for)
-    monkeypatch.setattr(kern, "prefill_fits", lambda tb, h_g, keep: h_g < 256)
+    # past 64 rows it does (the library's answer, a card test, stood in
+    # for: every packing, since the windowed walk)
+    monkeypatch.setattr(kern, "prefill_fits",
+                        lambda tb, h_g, keep: tb in kern.PREFILL_TILES and 1 <= keep <= h_g)
     assert [ops.spmm_row_tile(T, d) for T in (65, 100, 128, 129, 160, 161, 256, 300)] \
         == [128] * 8
-    big = _pack(512, 32, 256, 16, 4, 7, "cpu")             # h_g 256: 128 rows do not fit
-    assert ops.spmm_row_tile(128, big) == 8
+    big = _pack(512, 32, 256, 16, 4, 7, "cpu")             # h_g 256: the windowed walk
+    assert ops.spmm_row_tile(128, big) == 128
     assert [ops.row_tile(T) for T in (1, 2, 3, 4, 7, 9, 33, 128, 256)] == \
         [1, 2, 4, 4, 8, 8, 8, 8, 8]
     assert [ops.fused_row_tile(T) for T in (1, 9, 33, 128, 256)] == [8, 16, 32, 32, 32]
@@ -597,7 +661,10 @@ def test_prefill_row_tiles_are_delta_spmm_only(monkeypatch):
 @pytest.mark.gpu
 def test_prefill_fits_asks_the_library(cuda):
     assert kern.prefill_fits(128, 16, 2) and kern.prefill_fits(128, 128, 16)
-    assert not kern.prefill_fits(128, 256, 16)       # two 128-row slabs of 256 rows
+    # every packing: the windowed walk takes what no whole group fits
+    assert kern.prefill_fits(128, 256, 16) and kern.prefill_fits(128, 128, 128)
+    assert kern.prefill_fits(128, 11008, 1376) and kern.prefill_fits(128, 4096, 4096)
+    assert not kern.prefill_fits(128, 16, 17)        # keep above h_g: no packing
     assert not kern.prefill_fits(64, 16, 2)          # not a prefill tile
 
 
@@ -783,18 +850,23 @@ def test_codec_packings_through_both_kernels(cuda, codec, T):
 
 @pytest.mark.gpu
 def test_prefill_tile_refuses_keep_128_and_decode_route_takes_it(cuda):
+    """The BitDelta lowering (keep = h_g = 128), once refused by the
+    128-row tile, takes it by rule from 65 rows on the windowed walk, bit
+    for bit the decode route's tile 8 and a row alone; a tile the kernels
+    do not have still raises."""
     d = _codec_packed("bitdelta", 256, 96, 52, cuda)
-    assert not kern.prefill_fits(128, 128, 128)
-    assert ops.spmm_row_tile(128, d) == 8
+    assert kern.prefill_fits(128, 128, 128)
+    assert ops.spmm_row_tile(128, d) == 128
     x = _x(128, 256, 53, cuda)
     before = dict(kern.ROUTES)
     y = ops.delta_spmm(x, d)
     torch.cuda.synchronize()
-    assert kern.ROUTES["delta_spmm_decode"] == before["delta_spmm_decode"] + 1
-    assert kern.ROUTES["delta_spmm_prefill"] == before["delta_spmm_prefill"]
+    assert kern.ROUTES["delta_spmm_prefill"] == before["delta_spmm_prefill"] + 1
+    assert kern.ROUTES["delta_spmm_decode"] == before["delta_spmm_decode"]
+    assert _bits_equal(y, kern.delta_spmm_cuda(x, d, tb=8))
     assert _bits_equal(y[5:6], ops.delta_spmm(x[5:6], d))
-    with pytest.raises(ValueError, match="does not fit"):
-        kern.delta_spmm_cuda(x, d, tb=128)
+    with pytest.raises(ValueError, match="not in"):
+        kern.delta_spmm_cuda(x, d, tb=64)
 
 
 @pytest.mark.gpu

@@ -512,6 +512,54 @@ def test_card_envelope_takes_every_searched_group_size(alpha):
     assert n > 5 * 2 * 5
 
 
+def _card_prefill_fits(tb, h_g, keep):
+    """The library's ``delta_spmm_prefill_ok`` (a card test holds it):
+    the 128-row tile takes every packing, its windowed walk what no whole
+    group fits."""
+    from repro_torch.kernels import delta_spmm as kern
+    return tb in kern.PREFILL_TILES and 1 <= keep <= h_g
+
+
+@pytest.mark.parametrize("packing", ["row-wise", "h_g 1024", "bitdelta"])
+def test_wide_packings_take_the_prefill_tile_by_rule_on_the_card(monkeypatch, tmp_path,
+                                                                packing):
+    """By rule (no table) on the card, DeltaDQSpec()'s row-wise default, an
+    h_g 1024 packing (int32 idx, G = 2) and the BitDelta lowering (keep =
+    h_g = 128) take the decode tile that holds T up to 64 rows and the
+    128-row tile from PREFILL_MIN_T rows; every row is the kernel-order
+    oracle's, within the kernel tolerance of the reference's
+    ``delta_spmm``. The device kind, the library's answer and the
+    wrapper (by its oracle, recording the tile) are stood in."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import delta_spmm as kern
+    h_in, h_out, h_g, alpha, k = {"row-wise": (512, 24, 512, 8, None),
+                                  "h_g 1024": (2048, 24, 1024, 8, 4),
+                                  "bitdelta": (256, 24, 128, 1, 2)}[packing]
+    monkeypatch.setenv(autotune.TABLE_ENV, str(tmp_path / "absent.json"))
+    autotune.invalidate_cache()
+    monkeypatch.setattr(tops, "_device_kind", lambda x: "cuda")
+    monkeypatch.setattr(kern, "prefill_fits", _card_prefill_fits)
+    tiles = []
+
+    def stand(x2, d, tb):
+        tiles.append(tb)
+        return tref.correction_kernel_order(x2, d)
+    monkeypatch.setattr(kern, "delta_spmm_cuda", stand)
+    p = _pack(h_in, h_out, h_g, alpha, k)
+    tp = br.packed_to_port(p)
+    assert (tp.keep, tp.idx.dtype) == (h_g // alpha, kern.idx_dtype(h_g))
+    x = torch.from_numpy(_x(130, h_in, 2))
+    Ts = (1, 8, 64, tops.PREFILL_MIN_T, 128, 130)
+    for T in Ts:
+        assert torch.equal(tops.delta_spmm(x[:T], tp).view(torch.int32),
+                           tref.correction_kernel_order(x[:T], tp).view(torch.int32))
+    assert tiles == [1, 8, 8, 128, 128, 128]
+    want = np.asarray(jax.jit(lambda x, p: jops.delta_spmm(x, p, interpret=True))(
+        jnp.asarray(x.numpy()), p))
+    np.testing.assert_allclose(tops.delta_spmm(x, tp).numpy(), want, **TOL)
+    autotune.invalidate_cache()
+
+
 def test_wide_packings_take_the_kernels_on_the_card(monkeypatch):
     """On a CUDA tensor every entry point sends a wide packing to its
     kernel wrapper and leaves no plain-out-of-envelope note; only what
@@ -530,7 +578,7 @@ def test_wide_packings_take_the_kernels_on_the_card(monkeypatch):
         return call
 
     monkeypatch.setattr(tops, "_device_kind", lambda x: "cuda")
-    monkeypatch.setattr(kern, "prefill_fits", lambda tb, h_g, keep: h_g <= 256 and keep <= 64)
+    monkeypatch.setattr(kern, "prefill_fits", _card_prefill_fits)
     monkeypatch.setattr(kern, "delta_spmm_cuda", stand("delta_spmm", tref.correction_kernel_order))
     monkeypatch.setattr(kern, "delta_spmm_segments_cuda",
                         stand("delta_spmm_segments", tref.segments_kernel_order))
@@ -555,7 +603,9 @@ def test_wide_packings_take_the_kernels_on_the_card(monkeypatch):
     assert calls == ["delta_spmm", "delta_spmm", "delta_spmm_segments", "delta_spmm_segments",
                      "delta_spmm_segments", "fused_base_delta", "dequant"]
     assert not [n for n in notes if n.get("formulation") == "plain-out-of-envelope"]
-    assert {n["formulation"] for n in notes if n["site"] == "delta_spmm"} == {"cuda"}
+    # T = 4 on a decode tile, T = 70 on the 128-row tile
+    assert [n["formulation"] for n in notes if n["site"] == "delta_spmm"] == \
+        ["cuda", "cuda-prefill"]
     bad = d.with_arrays(d.idx, d.codes, d.scale, d.zero)
     bad = type(d)(**{**bad.__dict__, "k_bits": 12})
     bad_stack = stack_tenant_deltas([{"w": bad}, {"w": bad}])["w"]
