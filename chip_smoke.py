@@ -149,6 +149,7 @@ ENGINE_GAP, ENGINE_TICK, ENGINE_SEED, ENGINE_CHUNK = 0.002, 1e-3, 15, 16
 # lowerings, keep = h_g = 128, held to the plain versions at these T and
 # timed at these sites and T
 CODEC_T = (1, 8, 16, 64, 128)
+CODEC_BITS_T = 16      # rows up to which [parity] holds the dense walk to its twins
 CODEC_TIME_SITES = ("wi", "mlp_wo")
 CODEC_TIME_T = (8, 128)
 # the LowRank tenant beside a DeltaDQ one and compress(codec="auto") run
@@ -719,7 +720,8 @@ def _ms(v) -> str:
 def _log_time(t: dict, extra: str = "", tag: str = "time") -> None:
     codec = "" if t.get("codec", "deltadq") == "deltadq" else f" [{t['codec']}]"
     log(f"[{tag}] {t['kernel']:20s} {t['site']:6s} T={t['T']:3d}{codec}"
-        f"{'' if 'layout' not in t else ' ' + t['layout']}: kernel {t['ms']:.4f} ms, "
+        f"{'' if 'layout' not in t else ' ' + t['layout']}"
+        f"{'' if 'walk' not in t else ' (' + t['walk'] + ' walk)'}: kernel {t['ms']:.4f} ms, "
         f"plain {_ms(t['plain_ms'])} ms, library {_ms(t['library_ms'])} ms, "
         f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){extra}")
 
@@ -736,9 +738,9 @@ def _time_spmm(torch, ops, fb, ring, dense, gen, site, T, route, full=True) -> d
                         reps=3, eager=True)
         lib = time_ms(torch, [lambda w=w: torch.matmul(x, w) for w in dense])
     from repro_torch.roofline import analysis as rl
-    b_ms, b_by = rl.bound_ms(*rl.delta_spmm_work(T, ring[0]))
     from repro_torch.kernels import delta_spmm as kern
     route_tb = ops.spmm_row_tile(T, ring[0])
+    b_ms, b_by = rl.bound_ms(*rl.delta_spmm_work(T, ring[0], route_tb))
     t = {"kernel": "delta_spmm", "site": site, "h_in": h_in, "h_out": h_out, "T": T,
          "codec": ring[0].codec, "tb": route_tb,
          "route": "decode" if route_tb in kern.ROW_TILES else "prefill", "ms": ms,
@@ -1188,7 +1190,7 @@ def _engine_run(torch, kern, ce, stream, idx, tag: str) -> dict:
     finally:
         untime()
     wall = time.perf_counter() - t0
-    launches, routes = dict(kern.LAUNCHES), dict(kern.ROUTES)
+    launches, routes, walks = dict(kern.LAUNCHES), dict(kern.ROUTES), dict(kern.WALKS)
     for r in handles:
         if not r.done or len(r.tokens) != ENGINE_NEW:
             fail(f"[engine] {tag}: request {r.rid} finished with {len(r.tokens)} tokens")
@@ -1197,7 +1199,7 @@ def _engine_run(torch, kern, ce, stream, idx, tag: str) -> dict:
         fail(f"[engine] {tag}: tokens outside the vocabulary")
     step_ms = 1e3 * sum(spent) / max(len(spent), 1)
     out = {"tokens": {i: r.output() for i, r in zip(idx, handles)}, "report": rep,
-           "launches": launches, "routes": routes, "wall_s": wall,
+           "launches": launches, "routes": routes, "walks": walks, "wall_s": wall,
            "decode_steps": rep["decode_steps"], "ms_per_step": step_ms,
            "step_s_total": sum(spent), "tokens_per_s": rep["total_tokens"] / wall}
     log(f"[engine] {tag}: {len(idx)} requests, {rep['total_tokens']} tokens in "
@@ -1488,47 +1490,29 @@ def _groups_gb(ce) -> list:
             for g in ce._groups]
 
 
-def _codec_packing(torch, codec: str, h_in: int, h_out: int, gen):
-    """The runtime lowering of one [h_in, h_out] codec leaf (keep = h_g =
-    128 at every full-width site): BitDelta compressed from a random
-    delta on the card; LowRank lowered from a leaf of random 4-bit core
-    codes and rank-8 factors (its compression's host SVD runs in
-    ``[codecs]``; the kernels see the lowering only)."""
-    from repro_torch.core import codecs, quant
-    c = codecs.get_codec(codec)
-    if codec == "bitdelta":
-        delta = torch.randn((h_in, h_out), generator=gen, device=DEVICE) * 0.02
-        return c.runtime_packed(c.compress_leaf(torch.zeros_like(delta), delta,
-                                                codecs.BitDeltaSpec()))
-    q = torch.randint(0, 16, (h_in, h_out), generator=gen, device=DEVICE)
-    leaf = codecs.LowRankLeaf(
-        codes=quant.pack_bits(q, 4, axis=0),
-        scale=torch.tensor(0.004, device=DEVICE),
-        zero=torch.tensor(8, dtype=torch.int32, device=DEVICE),
-        u=torch.randn((h_in, 8), generator=gen, device=DEVICE) * 0.01,
-        v=torch.randn((8, h_out), generator=gen, device=DEVICE) * 0.01,
-        h_in=h_in, h_out=h_out, k_bits=4, rank=8)
-    return c.runtime_packed(leaf)
-
-
 def phase_codec_parity(torch, report: dict) -> dict:
     """Both correction kernels on the codec packings at every full-width
     site: delta_spmm and a two-group segments layout (rows of the other
     group mapped to this group's zero row) against their plain versions
-    at KERNEL_TOL; a row's bits equal under every tile the packing takes
-    (the decode tiles, and the 128-row tile's windowed walk, which keep =
-    h_g = 128 takes since it has one) and in its segment; the zero row
-    exactly 0.0; no call reaches the out-of-envelope branch."""
+    at KERNEL_TOL; the decode tiles on the dense-group walk (the plan
+    says so, the walk's counters count it), bit-equal to its plain twins
+    (``ref.dense_groups_kernel_order``, ``dense_segments_kernel_order``)
+    at T up to CODEC_BITS_T; a row's bits equal under every tile the
+    packing takes (the decode tiles, and the 128-row tile's windowed walk)
+    and in its segment; the zero row exactly 0.0; no call reaches the
+    out-of-envelope branch."""
     import numpy as np
     from repro_torch.core.apply import stack_tenant_deltas, zero_delta_like
     from repro_torch.kernels import delta_spmm as kern
+    from repro_torch.kernels import autotune, ops, ref
     from repro_torch.kernels import fallback as fb
-    from repro_torch.kernels import ops
     from repro_torch.serve.scheduler import tenant_segments
     from repro_torch.serve.trace import attribution
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4321)
+    walks0 = dict(kern.WALKS)
+    n_dense = {"delta_spmm_dense": 0, "delta_spmm_segments_dense": 0}
     pre = kern.PREFILL_TILES[0]
     if not kern.prefill_fits(pre, 128, 128):
         fail(f"prefill_fits({pre}, 128, 128) is false; the windowed walk takes keep = 128")
@@ -1537,11 +1521,15 @@ def phase_codec_parity(torch, report: dict) -> dict:
     with attribution() as notes:
         for site, (h_in, h_out) in SITES.items():
             for codec in ("bitdelta", "lowrank"):
-                d = _codec_packing(torch, codec, h_in, h_out, gen)
+                d = autotune.pack_lowering(codec, h_in, h_out, generator=gen, device=DEVICE,
+                                           scale=0.02)
                 if ops.envelope_miss(d) is not None or (d.h_g, d.keep, d.alpha, d.m) != \
                         (128, 128, 1.0, 1):
                     fail(f"{codec} {site}: packing h_g={d.h_g} keep={d.keep} outside "
                          f"the kernels' envelope ({ops.envelope_miss(d)})")
+                walks = {tb: kern.decode_plan(d, tb)["walk"] for tb in kern.ROW_TILES}
+                if set(walks.values()) != {"dense"}:
+                    fail(f"{codec} {site}: the decode tiles plan {walks}, not the dense walk")
                 stack = stack_tenant_deltas([zero_delta_like({"w": d}), {"w": d}])["w"]
                 for T in CODEC_T:
                     where = f"{codec} {site} T={T}"
@@ -1558,10 +1546,22 @@ def phase_codec_parity(torch, report: dict) -> dict:
                     for tb in kern.SPMM_TILES:
                         if not torch.equal(kern.delta_spmm_cuda(x, d, tb=tb), y):
                             fail(f"delta_spmm {where}: rows differ at tb={tb}")
+                    n_dense["delta_spmm_dense"] += len(kern.ROW_TILES) + \
+                        (ops.spmm_row_tile(T, d) in kern.ROW_TILES)
+                    if T <= CODEC_BITS_T and not _bits_equal(
+                            torch, y, ref.dense_groups_kernel_order(x, d)):
+                        fail(f"delta_spmm {where}: the dense walk's rows != "
+                             f"dense_groups_kernel_order")
                     rows = (np.arange(T) % 3 == 1).astype(np.int32)
                     seg = tenant_segments(rows).to(DEVICE)
                     xs = x.index_select(0, seg.order)
                     ys = ops.delta_spmm_segments(xs, stack, seg.seg_rows, seg.seg_offsets)
+                    n_dense["delta_spmm_segments_dense"] += 1
+                    if T <= CODEC_BITS_T and not _bits_equal(
+                            torch, ys, ref.dense_segments_kernel_order(
+                                xs, stack, seg.seg_rows, seg.seg_offsets)):
+                        fail(f"delta_spmm_segments {where}: the dense walk's rows != "
+                             f"dense_segments_kernel_order")
                     wants = _plain_segments(torch, fb, xs, stack, seg.seg_rows,
                                             seg.seg_offsets, gather_max_t=8)
                     torch.cuda.synchronize()
@@ -1580,24 +1580,34 @@ def phase_codec_parity(torch, report: dict) -> dict:
     edge = [n for n in notes if n.get("formulation") == "plain-out-of-envelope"]
     if edge:
         fail(f"codec shapes reached the out-of-envelope branch: {edge}")
+    got = {k: kern.WALKS[k] - walks0[k] for k in n_dense}
+    if got != n_dense:
+        fail(f"codec parity: dense-group walk launches {got}, expected {n_dense}")
     log(f"[parity] codec packings (BitDelta k=2, LowRank f32; h_g = keep = 128): "
         f"{len(rows_out)} cases x 2 kernels within atol/rtol 1e-4 (worst |err| spmm "
         f"{worst['delta_spmm']:.3e}, segments {worst['delta_spmm_segments']:.3e}) at "
-        f"T {list(CODEC_T)}, all sites; rows equal under tiles {list(kern.SPMM_TILES)} "
-        f"and in their segment, zero row exactly 0.0; prefill_fits({pre}, 128, 128) "
-        f"true; no out-of-envelope note")
+        f"T {list(CODEC_T)}, all sites; the decode tiles {list(kern.ROW_TILES)} and the "
+        f"segments kernel on the dense-group walk ({got} launches), bit-equal to its "
+        f"plain twins at T <= {CODEC_BITS_T}; rows equal under tiles "
+        f"{list(kern.SPMM_TILES)} and in their segment, zero row exactly 0.0; "
+        f"prefill_fits({pre}, 128, 128) true; no out-of-envelope note")
     report["codec_parity"] = rows_out
     return worst
 
 
 def _time_codecs(torch, report: dict) -> list:
-    """delta_spmm (on the tile ops names: at T = 128 the 128-row tile's
-    windowed walk by rule) and the segments kernel's mixed decode layout
-    on the codec packings, on rings of 8 distinct deltas, with bounds and
-    library times."""
+    """delta_spmm (on the tile ops names: a decode tile's dense-group walk,
+    or the 128-row tile's windowed walk, as the table says) and the
+    segments kernel's mixed decode layout (the dense walk) on the codec
+    packings, on rings of 8 distinct deltas, with bounds and library
+    times; each line names its walk."""
     from repro_torch.core.pack import reconstruct_dense
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import delta_spmm as kern
     from repro_torch.kernels import fallback as fb
-    from repro_torch.kernels import ops
+
+    def walk(d, tb):
+        return kern.decode_plan(d, tb)["walk"] if tb in kern.ROW_TILES else "windowed"
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(99)
@@ -1605,16 +1615,23 @@ def _time_codecs(torch, report: dict) -> list:
     for site in CODEC_TIME_SITES:
         h_in, h_out = SITES[site]
         for codec in ("bitdelta", "lowrank"):
-            ring = [_codec_packing(torch, codec, h_in, h_out, gen) for _ in range(8)]
+            ring = [autotune.pack_lowering(codec, h_in, h_out, generator=gen, device=DEVICE,
+                                          scale=0.02) for _ in range(8)]
             dense = [reconstruct_dense(d) for d in ring]
             for T in CODEC_TIME_T:
                 t = _time_spmm(torch, ops, fb, ring, dense, gen, site, T, None)
+                t["walk"] = walk(ring[0], t["tb"])
+                log(f"[walk] delta_spmm {site:6s} T={T:3d} [{codec}]: tb={t['tb']}, "
+                    f"the {t['walk']} walk")
                 times.append(t)
                 if T >= PREFILL_T[0]:
                     log(f"[route] delta_spmm {site:6s} T={T:3d} [{codec}]: {t['route']} "
                         f"tb={t['tb']} {t['ms']:.4f} ms (ops' tile)")
             del dense
-            times.append(_time_segments(torch, ops, fb, ring, gen, site, "mixed", 8))
+            times.append(dict(_time_segments(torch, ops, fb, ring, gen, site, "mixed", 8),
+                              walk=walk(ring[0], ops.segments_tile(8, ring[0])[0])))
+            log(f"[walk] delta_spmm_segments {site:6s} T=  8 [{codec}] mixed: the "
+                f"{times[-1]['walk']} walk")
             del ring
             torch.cuda.empty_cache()
     report["codec_times"] = times
@@ -1679,6 +1696,15 @@ def _mixed_vs_alone(torch, kern, cfg, base, fleet, stream, tag: str,
             f"{steps} steps{f' + {n_chunks} chunks' if chunked else ''})")
         if run["launches"] != want:
             fail(f"[{phase}] {tag} {mode}: launches {run['launches']}, expected {want}")
+        # a group holding a codec lowering runs the dense-group walk (its
+        # segments at every decode step, its whole-prompt prefills on the
+        # decode tiles the table names), a DeltaDQ-only fleet never
+        lowered = any(c != "deltadq" for g in groups for c in g["codecs"])
+        log(f"[{phase}] {tag} {mode}: dense-group walk launches {run['walks']}")
+        if lowered != (run["walks"]["delta_spmm_segments_dense"] > 0) or \
+                (not lowered and any(run["walks"].values())):
+            fail(f"[{phase}] {tag} {mode}: dense-group walk launches {run['walks']} with "
+                 f"codec groups {[g['codecs'] for g in groups]}")
         edge = [p for p in run["report"]["decode_paths"] or {} if "out-of-envelope" in p]
         if edge:
             fail(f"[{phase}] {tag} {mode}: steps took the out-of-envelope branch: {edge}")
@@ -1805,7 +1831,8 @@ def phase_codecs(torch, kern, ctx: dict, report: dict) -> dict:
 
     def summary(run):
         return {k: run[k] for k in ("wall_s", "decode_steps", "ms_per_step", "step_s_total",
-                                    "tokens_per_s", "launches", "memory", "alone_mismatches")}
+                                    "tokens_per_s", "launches", "walks", "memory",
+                                    "alone_mismatches")}
 
     report["codecs"] = {
         "bitdelta_compress_s": compress_s, "bitdelta_lower_s": lower_s,
@@ -2515,7 +2542,9 @@ def phase_autotune(torch, report: dict) -> float:
                    "live_tb": ov["tb"], "rule_tb": ov["rule_tb"], "table_tb": entry.get("tb"),
                    "table_ms": entry.get("ms", {}).get(str(entry.get("tb"))),
                    "ops_tb": ov["rule_tb"] if swept is None else swept,
-                   "ops_source": "rule" if swept is None else "table", "live_ms": live}
+                   "ops_source": "rule" if swept is None else "table", "live_ms": live,
+                   "live_seg_tb": ov.get("seg_tb"), "table_seg_tb": entry.get("seg_tb"),
+                   "live_seg_ms": ov.get("seg_ms")}
             rows.append(row)
             tb_t = row["table_tb"]
             table = "no entry" if tb_t not in live else \
@@ -2524,7 +2553,11 @@ def phase_autotune(torch, report: dict) -> float:
                 f"live best tb={ov['tb']} {live[ov['tb']]:.4f} ms, table tb={tb_t} ({table}), "
                 f"rule tb={ov['rule_tb']} {live[ov['rule_tb']]:.4f} ms; ops takes "
                 f"tb={row['ops_tb']} ({row['ops_source']}); all "
-                + ", ".join(f"{tb}: {ms:.4f}" for tb, ms in sorted(live.items())))
+                + ", ".join(f"{tb}: {ms:.4f}" for tb, ms in sorted(live.items()))
+                + ("" if "seg_tb" not in ov else
+                   f"; segments live best tb={ov['seg_tb']}, table tb={row['table_seg_tb']}, "
+                   "all " + ", ".join(f"{tb}: {ms:.4f}"
+                                      for tb, ms in sorted(ov["seg_ms"].items()))))
     wall = time.perf_counter() - t0
     log(f"[autotune] {len(rows)} buckets, every candidate bit-equal, {wall:.1f} s")
     report["autotune"] = {"applied": applies, "device": tab.get("device"),
@@ -4647,9 +4680,10 @@ def kernel_times(torch) -> list:
 # each kernel's translation units under src/repro_torch/kernels/csrc (all
 # include common.cuh; delta_spmm.cu holds the C interface)
 KERNEL_SOURCES = {
-    "delta_spmm": ("decode.cuh", "decode_spmm_u8.cu", "decode_spmm_i32.cu", "prefill.cuh",
-                   "prefill.cu", "prefill_i32.cu"),
-    "delta_spmm_segments": ("decode.cuh", "decode_segments_u8.cu", "decode_segments_i32.cu"),
+    "delta_spmm": ("decode.cuh", "decode_spmm_u8.cu", "decode_spmm_i32.cu", "dense.cuh",
+                   "dense_spmm.cu", "prefill.cuh", "prefill.cu", "prefill_i32.cu"),
+    "delta_spmm_segments": ("decode.cuh", "decode_segments_u8.cu", "decode_segments_i32.cu",
+                            "dense.cuh", "dense_segments.cu"),
     "fused_base_delta": ("fused.cu",),
     "dequant": ("delta_spmm.cu",),
 }
@@ -4685,8 +4719,15 @@ def kernel_entries(report: dict, worst: dict, main: dict, by_path: dict) -> list
                 "T": 2, "launches": report["main"]["decode_route_launches"],
                 **{k: d2[k] for k in keys}}
         if name in ("delta_spmm", "delta_spmm_segments"):   # the codec packings
+            # their dense-group walk (dense.cuh), launched by this wrapper:
+            # its launches in [codecs]' mixed fleet (whole-prompt, chunked)
+            extra["dense_walk"] = {
+                "source": "src/repro_torch/kernels/csrc/dense.cuh",
+                "launches": {m: r["walks"][f"{name}_dense"]
+                             for m, r in report["codecs"]["fleet"].items()}}
             extra["codec_shapes"] = [
-                {k: c[k] for k in ("codec", "site", "T", "layout", "tb", *keys) if k in c}
+                {k: c[k] for k in ("codec", "site", "T", "layout", "tb", "walk", *keys)
+                 if k in c}
                 for c in report["codec_times"] if c["kernel"] == name]
         if name in ("delta_spmm", "delta_spmm_segments"):   # the other configs' sites
             extra["arch_sites"] = [

@@ -137,12 +137,14 @@ def _dense_as_structured(codes: torch.Tensor, scale: torch.Tensor,
                          k_bits: Optional[int], codec: str) -> PackedDelta:
     """Wrap per-group codes [..., G, hg|kp, O] as a keep-everything
     PackedDelta (idx = arange within each group). ``idx`` is materialized
-    contiguous, not a stride-0 broadcast: the kernels take contiguous
-    tiles only."""
+    contiguous, not a stride-0 broadcast, and ``codes`` made contiguous
+    (bit packing along a group whose size is no multiple of the codes a
+    byte holds returns a strided view): the kernels take contiguous tiles
+    only."""
     lead_g = codes.shape[:-2]
     idx = torch.arange(hg, dtype=torch.uint8, device=codes.device)[:, None]
     idx = idx.expand(*lead_g, hg, h_out).contiguous()
-    return PackedDelta(idx=idx, codes=codes, scale=scale, zero=zero,
+    return PackedDelta(idx=idx, codes=codes.contiguous(), scale=scale, zero=zero,
                        h_in=h_in, h_out=h_out, h_g=hg, keep=hg,
                        alpha=1.0, k_bits=k_bits, m=1, codec=codec)
 

@@ -115,6 +115,18 @@ class PackedDelta:
         return per_matrix * stack
 
 
+def dense_groups(d: PackedDelta) -> bool:
+    """Whether every group of ``d`` keeps all its ``h_g`` slots with
+    ``idx[g, k, o] = k``, by construction: the codecs' keep-everything
+    lowerings (``core.codecs._dense_as_structured``, the only producer of a
+    ``codec`` other than ``"deltadq"``; stacking, layer slices and mesh
+    column slices keep the label). A DeltaDQ packing at keep = h_g (alpha
+    1) is not one: its idx is whatever the packer wrote. The correction
+    kernels' decode tiles take their dense-group walk, which reads no idx,
+    where this holds (``kernels/delta_spmm.py``)."""
+    return d.codec != "deltadq" and d.keep == d.h_g
+
+
 def decode_values(d: PackedDelta) -> torch.Tensor:
     """Return dequantized kept values, f32 [..., G, K, O]."""
     if d.k_bits is None:

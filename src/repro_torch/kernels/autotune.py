@@ -10,8 +10,10 @@ The port's knob is ``tb``, one for each envelope point
 ``h_g/keep/k_bits/h_in/h_out`` and token-count bucket (:data:`T_GRID`,
 :func:`snap_t`): a decode row tile 1/2/4/8 or the 128-row prefill tile
 (``delta_spmm.SPMM_TILES``), so ``tb`` decides both ``delta_spmm``'s
-route and its row tile. The segments kernel takes the entry's ``tb``
-where it is a decode tile. No tile and no route changes a row's bits
+route and its row tile. The segments kernel takes the entry's
+``seg_tb`` where the sweep timed it (:data:`SEG_T`: the decode step's
+layouts), else its ``tb`` where that is a decode tile. No tile and no
+route changes a row's bits
 (``ops.py``'s module doc), so the table is a speed choice only: a
 missing table, a missing entry, a table swept on another card and the
 CPU all give ``ops``' fixed rules (``spmm_row_tile``, ``row_tile``).
@@ -38,7 +40,9 @@ Table format (JSON; ``@T`` keys are :func:`envelope_key` with ``t=``)::
      "power_limit": "700.00 W",
      "entries": {"16/2/4/4096/11008": {"sweep_s": 2.1},
                  "16/2/4/4096/11008@T8": {"tb": 8, "rule_tb": 8,
-                                          "ms": {"1": 0.05, "2": 0.03}}}}
+                                          "ms": {"1": 0.05, "2": 0.03},
+                                          "seg_tb": 4,
+                                          "seg_ms": {"1": 0.09, "4": 0.05}}}}
 
 :func:`lookup` merges :data:`DEFAULTS`, the base entry and the ``@T``
 entry's tile keys, as the reference does. Entries apply only where the
@@ -66,6 +70,13 @@ MIN_GATHER_T = 32
 # token-count buckets, the reference's: a count snaps to the smallest
 # bucket holding it, counts past 256 share the 256 bucket
 T_GRID = (1, 4, 8, 16, 32, 64, 128, 256)
+
+# buckets at which the sweep also times the segments kernel, on the
+# decode step's layout: T rows over min(4, T) tenants in turn (the mixed
+# step's 2-row segments at 8); the segments kernel's best tile there can
+# differ from delta_spmm's (a plan's row slab costs shared memory that a
+# short segment never fills)
+SEG_T = (1, 4, 8)
 
 TABLE_VERSION = 3
 TABLE_ENV = "REPRO_TORCH_AUTOTUNE_TABLE"
@@ -210,21 +221,21 @@ def lookup(h_g: int, keep: int, k_bits: Optional[int], h_in: int, h_out: int,
 
 
 def swept_tb(h_g: int, keep: int, k_bits: Optional[int], h_in: int, h_out: int,
-             t: int, device=None) -> Optional[int]:
-    """The ``tb`` the table holds for this point at ``t``'s bucket, where
-    it applies (:func:`lookup`), else None. Cached per (point, bucket):
-    ``ops`` asks on every call, so a call costs a dict hit."""
+             t: int, device=None, key: str = "tb") -> Optional[int]:
+    """The ``tb`` (or, with ``key="seg_tb"``, the segments kernel's tile)
+    the table holds for this point at ``t``'s bucket, where it applies
+    (:func:`lookup`), else None. Cached per (point, bucket, key): ``ops``
+    asks on every call, so a call costs a dict hit."""
     if not _on_card(device):
         return None
-    key = envelope_key(h_g, keep, k_bits, h_in, h_out, t=t)
+    ekey = envelope_key(h_g, keep, k_bits, h_in, h_out, t=t)
     try:
-        return _tb_cache[key]
+        return _tb_cache[ekey, key]
     except KeyError:
         pass
-    tb = None
-    if "tb" in _entries(device).get(key, {}):
-        tb = int(lookup(h_g, keep, k_bits, h_in, h_out, t=t, device=device)["tb"])
-    _tb_cache[key] = tb
+    entry = _entries(device).get(ekey, {})
+    tb = int(entry[key]) if key in entry else None
+    _tb_cache[ekey, key] = tb
     return tb
 
 
@@ -275,14 +286,52 @@ def _iters_for(torch, fn) -> int:
     return max(2, min(40, int(GRAPH_MS / max(a.elapsed_time(b), 1e-3))))
 
 
+def lowering_codec(h_g: int, keep: int, k_bits: Optional[int], h_in: int) -> Optional[str]:
+    """The codec whose runtime lowering lands on this point, or None: keep
+    = h_g = the lowering's group size with BitDelta's 2-bit codes or
+    LowRank's f32 values. The key cannot tell such a lowering from a
+    DeltaDQ packing at alpha 1; the sweep times the lowering, which is what
+    the configs serve there (``DEFAULT_POINTS``)."""
+    from repro_torch.core.codecs import _runtime_hg
+    if keep != h_g or h_g != _runtime_hg(h_in):
+        return None
+    return {2: "bitdelta", None: "lowrank"}.get(k_bits)
+
+
+def pack_lowering(codec: str, h_in: int, h_out: int, *, generator, device="cuda",
+                  scale: float = 0.01):
+    """The runtime lowering of a random [h_in, h_out] leaf of ``codec``, as
+    the serving engines hold it: BitDelta compressed from a ``scale`` N(0,
+    1) delta; LowRank lowered from random 4-bit core codes and rank-8
+    factors (its compression's host SVD is not what the kernels see)."""
+    import torch
+    from repro_torch.core import codecs, quant
+    c = codecs.get_codec(codec)
+    if codec == "bitdelta":
+        delta = torch.randn((h_in, h_out), generator=generator, device=device) * scale
+        return c.runtime_packed(c.compress_leaf(torch.zeros_like(delta), delta,
+                                                codecs.BitDeltaSpec()))
+    q = torch.randint(0, 16, (h_in, h_out), generator=generator, device=device)
+    return c.runtime_packed(codecs.LowRankLeaf(
+        codes=quant.pack_bits(q, 4, axis=0), scale=torch.tensor(0.004, device=device),
+        zero=torch.tensor(8, dtype=torch.int32, device=device),
+        u=torch.randn((h_in, 8), generator=generator, device=device) * 0.01,
+        v=torch.randn((8, h_out), generator=generator, device=device) * 0.01,
+        h_in=h_in, h_out=h_out, k_bits=4, rank=8))
+
+
 def pack_point(h_g: int, keep: int, k_bits: Optional[int], h_in: int, h_out: int, *,
                generator, device="cuda"):
-    """A 0.01 N(0, 1) delta packed at the point with the port's packer;
+    """A 0.01 N(0, 1) delta packed at the point with the port's packer, or
+    a codec's lowering where one lands there (:func:`lowering_codec`);
     raises ``ValueError`` where no packing reaches the point."""
     import torch
     from repro_torch.core import dropout
     if h_in % h_g or not 1 <= keep <= h_g or (k_bits is not None and not 1 <= k_bits <= 8):
         raise ValueError(f"no packing reaches {envelope_key(h_g, keep, k_bits, h_in, h_out)}")
+    codec = lowering_codec(h_g, keep, k_bits, h_in)
+    if codec is not None:
+        return pack_lowering(codec, h_in, h_out, generator=generator, device=device)
     delta = torch.randn((h_in, h_out), generator=generator, device=device) * 0.01
     d = dropout.groupwise_dropout_pack(delta, h_g=h_g, alpha=h_g / keep, k_bits=k_bits,
                                        generator=generator)
@@ -309,12 +358,19 @@ def sweep_point(h_g: int, keep: int, k_bits: Optional[int], h_in: int, h_out: in
     every candidate once against the rule's tile (``ops.spmm_row_tile``
     without a table) and raises ``RuntimeError`` unless the outputs are
     bit-equal (a difference is a kernel fault), then times each as
-    CUDA-graph replays. Returns ``(base_entry, {T: overlay})``; an
-    overlay holds the fastest ``tb``, the rule's and every candidate's ms.
+    CUDA-graph replays. At the buckets of :data:`SEG_T` it does the same
+    for the segments kernel's decode tiles on the decode step's layout
+    over stacks of four tenants. Returns ``(base_entry, {T: overlay})``;
+    an overlay holds the fastest ``tb``, the rule's and every candidate's
+    ms, and at :data:`SEG_T` the segments kernel's fastest ``seg_tb`` and
+    its tiles' ``seg_ms``.
     """
+    import numpy as np
     import torch
+    from repro_torch.core.apply import stack_tenant_deltas
     from repro_torch.kernels import delta_spmm as kern
     from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import tenant_segments
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_point times the CUDA kernels: it needs a card")
     t0 = time.perf_counter()
@@ -343,7 +399,28 @@ def sweep_point(h_g: int, keep: int, k_bits: Optional[int], h_in: int, h_out: in
         best = min(cands, key=lambda tb: ms[str(tb)])
         overlays[T] = {"tb": best, "rule_tb": rule, "ms": ms}
         del x, want
-    del ring
+    stacks = [stack_tenant_deltas([{"w": ring[(i + j) % len(ring)]} for j in range(4)])["w"]
+              for i in range(2)] if any(T in SEG_T for T in ts) else []
+    for T in (T for T in ts if T in SEG_T):
+        seg = tenant_segments(np.arange(T, dtype=np.int32) % min(4, T))
+        rows, offs = (torch.as_tensor(a, dtype=torch.int32, device="cuda").contiguous()
+                      for a in (seg.seg_rows, seg.seg_offsets))
+        x = torch.randn((T, h_in), generator=gen, device="cuda")
+        rule = ops.row_tile(T)
+        want = kern.delta_spmm_segments_cuda(x, stacks[0], rows, offs, tb=rule)
+        ms = {}
+        for tb in kern.ROW_TILES:
+            got = kern.delta_spmm_segments_cuda(x, stacks[0], rows, offs, tb=tb)
+            if not torch.equal(got, want):
+                raise RuntimeError(
+                    f"{envelope_key(h_g, keep, k_bits, h_in, h_out, t=T)}: segments tb={tb} "
+                    f"gives other bits than tb={rule}: a kernel fault")
+            fns = [lambda s=s, tb=tb: kern.delta_spmm_segments_cuda(x, s, rows, offs, tb=tb)
+                   for s in stacks]
+            ms[str(tb)] = _time_ms(torch, fns, _iters_for(torch, fns[0]))
+        overlays[T].update(seg_tb=min(kern.ROW_TILES, key=lambda tb: ms[str(tb)]), seg_ms=ms)
+        del x, want
+    del ring, stacks
     return {"sweep_s": time.perf_counter() - t0}, overlays
 
 
@@ -387,7 +464,9 @@ def main(argv: Optional[list] = None) -> int:
                 entries[envelope_key(*point, t=T)] = ov
             print(f"{key}: {entries[key]['sweep_s']:.1f} s; tb by T "
                   f"{ {T: ov['tb'] for T, ov in overlays.items()} }, rule "
-                  f"{ {T: ov['rule_tb'] for T, ov in overlays.items()} }", flush=True)
+                  f"{ {T: ov['rule_tb'] for T, ov in overlays.items()} }, segments "
+                  f"{ {T: ov['seg_tb'] for T, ov in overlays.items() if 'seg_tb' in ov} }",
+                  flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"version": TABLE_VERSION, "backend": "cuda", "device": name,

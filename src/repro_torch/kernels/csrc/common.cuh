@@ -332,6 +332,65 @@ inline bool dec_plan(const Shape& s, int tb, DecPlan& p) {
   return false;
 }
 
+// ---------------------------------------------------------------------------
+// The dense-group walk (dense.cuh): the decode tiles and the segments
+// kernel on a packing whose every group keeps all h_g slots with idx =
+// arange(h_g) (the codecs' lowerings), which the host says; no idx is
+// staged or read, x is a broadcast. Same clusters of min(G, 8) blocks of
+// kDecThreads threads, 128 columns a tile, as cluster_correction.
+// ---------------------------------------------------------------------------
+constexpr size_t kDenseStageBytes = 12 * 1024;  // a ring stage of a large class share
+
+// raw bytes of kc slots of one group's [., kDecCols] code tile (no idx rows)
+__host__ __device__ __forceinline__ int dense_group_bytes(const Shape& s, int kc) {
+  return (dec_code_rows(s, kc) * kDecCols * (s.wbits ? 1 : 4) + 15) / 16 * 16;
+}
+
+// Shared memory: the ring [ns][sg groups of kc slots], the class's x slab
+// [rt][nq * h_g] f32 (none where xg) and the class partial [rt][kDecCols].
+inline size_t dense_smem_bytes(const Shape& s, const DecPlan& p) {
+  const size_t nq = class_count(0, s.G);
+  return static_cast<size_t>(p.ns) * p.sg * dense_group_bytes(s, p.kc) +
+         (p.xg ? 0 : static_cast<size_t>(p.rt) * nq * s.h_g * sizeof(float)) +
+         static_cast<size_t>(p.rt) * kDecCols * sizeof(float);
+}
+
+// The dense walk's plan for row tile tb: a class share of at most
+// kDecShareMax bytes of codes is one step (BitDelta's 2-bit codes at
+// every wizard site); otherwise whole groups a step where a group is at
+// most kDenseStageBytes, else runs of kc slots (a multiple of 8, about
+// kDenseStageBytes: LowRank's f32 codes, 64 KB a 128-slot group) through
+// a ring of kDecStages (or 2) stages, so a block holds tens of KB and an
+// SM several blocks; the largest row tile <= tb whose slab fits beside
+// them; x from global memory, one row a block, where none does. Only for
+// keep = h_g.
+inline bool dense_plan(const Shape& s, int tb, DecPlan& p) {
+  if (s.keep != s.h_g) return false;
+  const int nq = class_count(0, s.G);
+  const size_t gb = dense_group_bytes(s, s.keep), run8 = dense_group_bytes(s, kDecMinSlots);
+  p.nc = kDecCols;
+  p.cb = std::min(s.G, kWarps);
+  p.xg = 0;
+  p.kc = s.keep;
+  int ns = kDecStages;
+  if (nq * gb <= kDecShareMax) {
+    p.sg = nq;
+    ns = 1;
+  } else if (gb <= kDenseStageBytes) {
+    p.sg = static_cast<int>(kDenseStageBytes / gb);
+  } else {
+    p.sg = 1;
+    p.kc = std::min(s.keep, std::max(1, static_cast<int>(kDenseStageBytes / run8)) * kDecMinSlots);
+  }
+  for (int xg = 0; xg <= 1; ++xg) {
+    p.xg = xg;
+    for (p.rt = xg ? 1 : std::min(tb, kDecMaxRows); p.rt >= 1; p.rt /= 2)
+      for (p.ns = ns; p.ns >= std::min(ns, 2); p.ns /= 2)
+        if (dense_smem_bytes(s, p) <= kSmemMax) return true;
+  }
+  return false;
+}
+
 // Raw idx/code bytes of a [rows, width] tile of a [.., O] byte array (or
 // f32 array, elem = 4), row r0.., columns c0.. -> smem rows of width *
 // elem bytes. 16-byte cp.async where `vec` (O * elem and the base pointer
@@ -400,6 +459,11 @@ cudaError_t launch_segments_u8(const float* x, Delta d, Shape s, Strides strides
 cudaError_t launch_segments_i32(const float* x, Delta d, Shape s, Strides strides,
                                 int n_tenants, const int* seg_rows, const int* seg_offsets,
                                 int n_seg, float* y, int tb, cudaStream_t st);
+cudaError_t launch_dense_decode(const float* x, Delta d, Shape s, float* y, int tb,
+                                cudaStream_t st);
+cudaError_t launch_dense_segments(const float* x, Delta d, Shape s, Strides strides,
+                                  int n_tenants, const int* seg_rows, const int* seg_offsets,
+                                  int n_seg, float* y, int tb, cudaStream_t st);
 bool prefill_fits(int tb, int h_g, int keep);
 cudaError_t launch_prefill(const float* x, float* xT, Delta d, Shape s, float* y,
                            cudaStream_t st);

@@ -9,6 +9,68 @@
 
 namespace dq {
 
+// x[row0 + r][g * h_g + i] of class c's nq groups (g = c, c + 8, ...)
+// for rows r < R -> slab[r][q * h_g + i] (row stride nq * h_g): 16-byte
+// cp.async where xvec (a shift where h_g / 4 is a power of two), else
+// plain loads; the caller commits the cp.async group.
+template <int R>
+__device__ __forceinline__ void stage_class_x(float* slab, const float* __restrict__ x,
+                                              const Shape& s, int c, int nq, int row0,
+                                              bool xvec) {
+  const int h_g = s.h_g, SW = nq * h_g;
+  if (xvec) {
+    // 16-byte chunk e of a slab row: group q = e / v4, chunk e % v4 of it
+    const int v4 = h_g / 4, lv = (v4 & (v4 - 1)) ? -1 : __ffs(v4) - 1;
+    for (int r = 0; r < R; ++r)
+      for (int e = threadIdx.x; e < nq * v4; e += kDecThreads) {
+        const int q = lv >= 0 ? e >> lv : e / v4, i4 = e - q * v4;
+        cp_async16(slab + r * SW + q * h_g + i4 * 4,
+                   x + static_cast<size_t>(row0 + r) * s.h_in +
+                       static_cast<size_t>(c + kWarps * q) * h_g + i4 * 4,
+                   16);
+      }
+  } else {
+    for (int e = threadIdx.x; e < R * SW; e += kDecThreads) {
+      const int r = e / SW, rem = e - r * SW;
+      const int q = rem / h_g, i = rem - q * h_g;
+      slab[e] = x[static_cast<size_t>(row0 + r) * s.h_in +
+                  static_cast<size_t>(c + kWarps * q) * h_g + i];
+    }
+  }
+}
+
+// The cluster's combine, once every block has written its class partial
+// [R][NC] to `part` in its shared memory: block c writes its share of the
+// tile's columns as ((P0 + P1) + ...) + P7, reading the other blocks'
+// partials over distributed shared memory (all eight loads first,
+// unrolled, so the remote reads overlap); a class past the cluster (no
+// group) adds its zero partial. Synchronises the cluster before and
+// after (no block leaves while another reads its partial).
+template <int NC>
+__device__ __forceinline__ void combine_classes(float* part, int R, const Shape& s,
+                                                const DecPlan& p, int row0, int col0,
+                                                float* __restrict__ y) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  cluster.sync();  // every class partial of the tile is in
+  const int per = (NC + p.cb - 1) / p.cb;  // columns each block of the cluster writes
+  for (int e = threadIdx.x; e < R * per; e += blockDim.x) {
+    const int r = e / per;
+    const int cc = c * per + e % per;
+    if (cc < NC && col0 + cc < s.O) {
+      float v[kWarps];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        v[w] = w < p.cb ? cluster.map_shared_rank(part, w)[r * NC + cc] : 0.f;
+      float t = v[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, v[w]);
+      y[static_cast<size_t>(row0 + r) * s.O + col0 + cc] = t;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
 // Rows [row0, row0 + R) x columns [col0, col0 + kDecCols) of x @
 // dequant(d), idx entries of type IT (uint8_t or uint32_t). Called by all
 // 8 blocks of a cluster with the same arguments (it synchronises the
@@ -140,28 +202,7 @@ __device__ void cluster_correction(const float* __restrict__ x, const Delta& d,
   // (the first cp.async group; empty where XG), then every stage, all free
   // at the start; a later step goes into the stage that the step before
   // it freed
-  if (XG) {
-    // no slab
-  } else if (p.xvec) {
-    // 16-byte chunk e of a slab row: group q = e / v4, chunk e % v4 of it
-    // (a shift where h_g is a power of two)
-    const int v4 = h_g / 4, lv = (v4 & (v4 - 1)) ? -1 : __ffs(v4) - 1;
-    for (int r = 0; r < R; ++r)
-      for (int e = tid; e < nq * v4; e += kDecThreads) {
-        const int q = lv >= 0 ? e >> lv : e / v4, i4 = e - q * v4;
-        cp_async16(slab + r * SW + q * h_g + i4 * 4,
-                   x + static_cast<size_t>(row0 + r) * s.h_in +
-                       static_cast<size_t>(c + kWarps * q) * h_g + i4 * 4,
-                   16);
-      }
-  } else {
-    for (int e = tid; e < R * SW; e += kDecThreads) {
-      const int r = e / SW, rem = e - r * SW;
-      const int q = rem / h_g, i = rem - q * h_g;
-      slab[e] = x[static_cast<size_t>(row0 + r) * s.h_in +
-                  static_cast<size_t>(c + kWarps * q) * h_g + i];
-    }
-  }
+  if (!XG) stage_class_x<R>(slab, x, s, c, nq, row0, p.xvec);
   cp_async_commit();
   for (int n = 0; n < p.ns; ++n) issue(n);
   int committed = 1 + p.ns;  // cp.async groups: the slab, then one a step
@@ -239,25 +280,7 @@ __device__ void cluster_correction(const float* __restrict__ x, const Delta& d,
 #pragma unroll
   for (int r = 0; r < R; ++r)
     *reinterpret_cast<float2*>(part + r * kDecCols + 2 * tid) = make_float2(acc[0][r], acc[1][r]);
-  cluster.sync();  // every class partial of the tile is in
-  const int per = (kDecCols + p.cb - 1) / p.cb;  // columns each block of the cluster writes
-  for (int e = tid; e < R * per; e += kDecThreads) {
-    const int r = e / per;
-    const int cc = c * per + e % per;
-    if (cc < kDecCols && col0 + cc < s.O) {
-      // all eight loads first, unrolled, so the remote reads overlap; a
-      // class past the cluster (no group) adds its zero partial
-      float v[kWarps];
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w)
-        v[w] = w < p.cb ? cluster.map_shared_rank(part, w)[r * kDecCols + cc] : 0.f;
-      float t = v[0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, v[w]);
-      y[static_cast<size_t>(row0 + r) * s.O + col0 + cc] = t;
-    }
-  }
-  cluster.sync();  // no block leaves while another reads its partial
+  combine_classes<kDecCols>(part, R, s, p, row0, col0, y);
 }
 
 
@@ -394,6 +417,8 @@ __device__ void narrow_correction(int R, const float* __restrict__ x, const Delt
   }
 
   if (wr < R) part[wr * kNarCols + lane] = acc;
+  // combine_classes' combine, written out: through the helper this tile
+  // ran 2-3% slower at 4 and 8 rows (row-wise T = 8, PERF.md)
   cluster.sync();  // every class partial of the tile is in
   const int per = (kNarCols + p.cb - 1) / p.cb;  // columns each block of the cluster writes
   for (int e = tid; e < R * per; e += nth) {
@@ -486,26 +511,29 @@ __device__ __forceinline__ void zero_rows(float* __restrict__ y, const Shape& s,
   }
 }
 
-// grid (p.cb * column tiles, tiles + 1): blockIdx.y enumerates the row tiles
-// of the segments in segment order, each tile p.rt rows from its
-// segment's start (gridDim.y - 1 bounds their count from above; the
-// blocks past the last tile leave at once). The last y zero-fills the
-// rows before the first segment and after the last; a segment whose
-// tenant row lies outside the stack is zero-filled by its own tiles.
-// seg_offsets must be non-decreasing (tenant_segments' layout).
-template <typename IT, bool RUNS, bool NAR>
-__global__ void __maxnreg__(128)
-segments_decode_kernel(const float* __restrict__ x, Delta stack, Shape s, Strides st,
-                       int n_tenants, const int* __restrict__ seg_rows,
-                       const int* __restrict__ seg_offsets, int n_seg, DecPlan p,
-                       float* __restrict__ y) {
-  extern __shared__ __align__(16) unsigned char dsmem[];
-  const int col0 = (blockIdx.x / p.cb) * (NAR ? kNarCols : kDecCols);
+// The segments kernels' tiles (segments_decode_kernel here,
+// dense_segments_kernel in dense.cuh): grid y enumerates the row tiles of
+// the segments in segment order, each tile p.rt rows from its segment's
+// start (gridDim.y - 1 bounds their count from above; the blocks past the
+// last tile leave at once). The last y zero-fills the rows before the
+// first segment and after the last; a segment whose tenant row lies
+// outside the stack is zero-filled by its own tiles. Every other block
+// gets its tile's first row, its rows (at most p.rt: a tile takes only
+// its segment's rows) and its tenant's delta, and true. A cluster's
+// blocks share blockIdx.y, so they agree. seg_offsets must be
+// non-decreasing (tenant_segments' layout).
+template <bool NAR>
+__device__ __forceinline__ bool segment_tile(const Delta& stack, const Shape& s,
+                                             const Strides& st, int n_tenants,
+                                             const int* __restrict__ seg_rows,
+                                             const int* __restrict__ seg_offsets, int n_seg,
+                                             const DecPlan& p, int col0, float* __restrict__ y,
+                                             Delta& d, int& row0, int& rows) {
   auto offset = [&](int i) { return min(max(seg_offsets[i], 0), s.T); };
   if (blockIdx.y == gridDim.y - 1) {
     zero_rows<NAR>(y, s, p, 0, offset(0), col0);
     zero_rows<NAR>(y, s, p, max(offset(0), offset(n_seg)), s.T, col0);
-    return;
+    return false;
   }
   // the segment of tile blockIdx.y: each warp scans the segments 32 at a
   // time (a prefix sum of their tile counts), all warps alike
@@ -528,17 +556,32 @@ segments_decode_kernel(const float* __restrict__ x, Delta stack, Shape s, Stride
       want -= total;
     }
   }
-  if (seg < 0) return;  // past the last tile: the whole cluster leaves
-  const int row0 = offset(seg) + tile * p.rt;
-  const int rows = min(p.rt, offset(seg + 1) - row0);
+  if (seg < 0) return false;  // past the last tile: the whole cluster leaves
+  row0 = offset(seg) + tile * p.rt;
+  rows = min(p.rt, offset(seg + 1) - row0);
   const int t = seg_rows[seg];
   if (t < 0 || t >= n_tenants) {
     zero_rows<NAR>(y, s, p, row0, row0 + rows, col0);
-    return;
+    return false;
   }
-  const Delta d{stack.idx + t * st.idx, stack.codes + t * st.codes, stack.scale + t * st.scale,
-                stack.zero + t * st.zero};
-  tile_correction<IT, RUNS, NAR>(rows, x, d, s, p, row0, col0, y, dsmem);
+  d = Delta{stack.idx + t * st.idx, stack.codes + t * st.codes, stack.scale + t * st.scale,
+            stack.zero + t * st.zero};
+  return true;
+}
+
+template <typename IT, bool RUNS, bool NAR>
+__global__ void __maxnreg__(128)
+segments_decode_kernel(const float* __restrict__ x, Delta stack, Shape s, Strides st,
+                       int n_tenants, const int* __restrict__ seg_rows,
+                       const int* __restrict__ seg_offsets, int n_seg, DecPlan p,
+                       float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  const int col0 = (blockIdx.x / p.cb) * (NAR ? kNarCols : kDecCols);
+  Delta d;
+  int row0, rows;
+  if (segment_tile<NAR>(stack, s, st, n_tenants, seg_rows, seg_offsets, n_seg, p, col0, y, d,
+                        row0, rows))
+    tile_correction<IT, RUNS, NAR>(rows, x, d, s, p, row0, col0, y, dsmem);
 }
 
 // The decode route's plan for row tile tb (1, 2, 4 or 8 rows at most a

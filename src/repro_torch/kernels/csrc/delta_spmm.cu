@@ -1,8 +1,8 @@
 // DeltaDQ delta kernels for Hopper (sm_90a).
 //
 // Four kernels; the two correction kernels share one device routine
-// (cluster_correction), and all four share the code decode (decode_value,
-// decode_raw):
+// (cluster_correction; dense_correction for the codecs' lowerings), and
+// all four share the code decode (decode_value, decode_raw):
 //
 //   delta_spmm           y[T, O] = x[T, h_in] @ dequant(delta)
 //                        replaces repro/kernels/delta_spmm.py:122
@@ -105,6 +105,31 @@
 //    ms, under torch.matmul on the dense delta (PERF.md). The segments
 //    kernel takes the same tile; a segment tile has the plan's rt warps
 //    whatever its length, so mixed 2-row segments gain less.
+//  * The codecs' lowerings (BitDelta's 2-bit codes, LowRank's f32 values,
+//    keep = h_g, idx[g, k, o] = k by construction; the host says so with
+//    `dense`) take the dense-group walk (dense.cuh: dense_correction,
+//    dense_spmm_kernel, dense_segments_kernel). The general walk staged
+//    their idx next to the codes (45 MB of BitDelta's 56 MB at wizard wi,
+//    which carry no information) and gathered x per column where every
+//    column wants the same x[r, g * h_g + k]. Bound at wi, T = 8: BitDelta
+//    11.3 MB of codes, ~0.003 ms, against 2 * T * h_in * O = 0.72 G FP32
+//    operations, 0.0108 ms, and 0.0215 ms at the two instructions a term
+//    the order allows (no FMA, no tensor cores); LowRank 180 MB, 0.054 ms
+//    of bytes. Design: the same clusters of min(G, 8) blocks (one a class
+//    chain), 128 columns a tile, two adjacent columns a thread and the
+//    same combine, so every row has the general walk's bits; the ring
+//    holds code rows only (16-byte cp.async); x of the class's groups is
+//    staged as before and read as a broadcast, 16 bytes (four slots) a
+//    row, so a term costs its two FP32 instructions plus a share of the
+//    decode (once a (slot, column) for all the tile's rows). A class
+//    share of codes up to 48 KB (BitDelta at every wizard site) is one
+//    step; LowRank's 64 KB groups stream in runs of 24 slots through a
+//    ring of 4 stages of 12 KB, so an SM holds several blocks. The grid
+//    launches a column tile's row tiles one after the other (row tiles
+//    in y, column tiles in z), so above 8 rows its codes come from L2
+//    after the first. A segment's tile computes and stages only its
+//    segment's rows (the R instance), so a 2-row segment pays for 2.
+//    The 128-row tile reads idx either way (its windowed walk).
 //  * Rows: a block computes only real rows -- the count (1..8) selects
 //    an instance of the routine -- so T = 2 costs 2 rows, not a padded
 //    tile; T = 9..64 takes row tiles of 8 (the last one shorter).
@@ -239,6 +264,8 @@
 // Sources: this file (the dequant kernel and the C interface),
 // common.cuh (layout, decode, helpers, the decode plans), decode.cuh (the
 // decode route) instantiated by decode_{spmm,segments}_{u8,i32}.cu,
+// dense.cuh (the dense-group walk) instantiated by
+// dense_{spmm,segments}.cu,
 // prefill.cuh (the 128-row tile) instantiated by prefill.cu (uint8 idx,
 // with the transpose and the dispatch) and prefill_i32.cu, and fused.cu:
 // one translation unit each, compiled by parallel nvcc processes and
@@ -331,13 +358,17 @@ extern "C" {
 // 128 the prefill kernel (same bits; every packing,
 // delta_spmm_prefill_ok), which needs xT: f32 scratch of h_in * Tp
 // elements, Tp = T rounded up to 128 (unused for the other tiles).
+// dense = 1 says that every group keeps all h_g slots with idx[g, k, o] =
+// k (the codecs' lowerings; keep must equal h_g): the decode tiles then
+// take the dense-group walk, which reads no idx (same bits); the 128-row
+// tile reads idx either way.
 int delta_spmm_launch(const void* x, const void* idx,
                       const void* codes, const void* scale, const void* zero,
                       void* y, void* xT, int T, int h_in, int O, int h_g, int keep, int kp,
-                      int wbits, int idx_bytes, int tb, void* stream) {
+                      int wbits, int idx_bytes, int tb, int dense, void* stream) {
   const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits, idx_bytes};
   const bool prefill = tb == kPrefillRows;
-  if (!shape_ok(s) ||
+  if (!shape_ok(s) || (dense && keep != h_g) ||
       (prefill ? !prefill_fits(tb, h_g, keep) : !dec_tile(tb)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Delta d{static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(codes),
@@ -347,6 +378,7 @@ int delta_spmm_launch(const void* x, const void* idx,
   const float* xp = static_cast<const float*>(x);
   if (prefill && xT == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (prefill) return static_cast<int>(launch_prefill(xp, static_cast<float*>(xT), d, s, yp, st));
+  if (dense) return static_cast<int>(launch_dense_decode(xp, d, s, yp, tb, st));
   return static_cast<int>(idx_bytes == 1 ? launch_spmm_decode_u8(xp, d, s, yp, tb, st)
                                          : launch_spmm_decode_i32(xp, d, s, yp, tb, st));
 }
@@ -359,28 +391,31 @@ int delta_spmm_prefill_ok(int tb, int h_g, int keep) {
 }
 
 // The decode route's plan (delta_spmm at row tile tb, and the segments
-// kernel) for one matrix: out[0..8] = groups a step holds, kept slots a
-// step holds of each, ring depth, rows a block computes at most, dynamic
-// shared memory bytes, steps a class's chain takes at most, whether x is
-// read from global memory, blocks a cluster, columns a tile (128, or 32
-// for the narrow tile at G < 8). 1 where the packing is one the kernels
-// take (a plan then always exists), 0 otherwise. Host only: launches
-// nothing.
+// kernel) for one matrix, dense as for delta_spmm_launch: out[0..9] =
+// groups a step holds, kept slots a step holds of each, ring depth, rows
+// a block computes at most, dynamic shared memory bytes, steps a class's
+// chain takes at most, whether x is read from global memory, blocks a
+// cluster, columns a tile (128, or 32 for the narrow tile at G < 8), the
+// walk (0 the general walk, 1 the narrow tile, 2 the dense-group walk).
+// 1 where the packing is one the kernels take (a plan then always
+// exists), 0 otherwise. Host only: launches nothing.
 int delta_spmm_decode_plan(int h_in, int O, int h_g, int keep, int kp, int wbits,
-                           int idx_bytes, int tb, int* out) {
+                           int idx_bytes, int tb, int dense, int* out) {
   const Shape s{tb, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits, idx_bytes};
   DecPlan p;
-  if (!shape_ok(s) || !dec_tile(tb) || !dec_plan(s, tb, p)) return 0;
+  if (!shape_ok(s) || !dec_tile(tb) || (dense ? !dense_plan(s, tb, p) : !dec_plan(s, tb, p)))
+    return 0;
   const int nq = class_count(0, s.G), nch = (keep + p.kc - 1) / p.kc;
   out[0] = p.sg;
   out[1] = p.kc;
   out[2] = p.ns;
   out[3] = p.rt;
-  out[4] = static_cast<int>(dec_smem_bytes(s, p));
+  out[4] = static_cast<int>(dense ? dense_smem_bytes(s, p) : dec_smem_bytes(s, p));
   out[5] = nch == 1 ? (nq + p.sg - 1) / p.sg : nq * nch;
   out[6] = p.xg;
   out[7] = p.cb;
   out[8] = p.nc;
+  out[9] = dense ? 2 : p.nc == kNarCols ? 1 : 0;
   return 1;
 }
 
@@ -392,7 +427,8 @@ int delta_spmm_decode_plan(int h_in, int O, int h_g, int keep, int kp, int wbits
 // half-open row ranges over the tenant-sorted rows of x. Every row of y
 // is written: rows no segment covers, and rows of a segment whose
 // tenant row is outside [0, R), are zero. seg_offsets must be
-// non-decreasing; tb (1, 2, 4 or 8) caps the rows a block computes.
+// non-decreasing; tb (1, 2, 4 or 8) caps the rows a block computes;
+// dense as for delta_spmm_launch (every tenant's groups dense).
 int delta_spmm_segments_launch(const void* x, const void* idx,
                                const void* codes, const void* scale,
                                const void* zero, int n_tenants, long long idx_stride,
@@ -400,10 +436,10 @@ int delta_spmm_segments_launch(const void* x, const void* idx,
                                long long zero_stride, const void* seg_rows,
                                const void* seg_offsets, int n_seg, void* y, int T,
                                int h_in, int O, int h_g, int keep, int kp,
-                               int wbits, int idx_bytes, int tb, void* stream) {
+                               int wbits, int idx_bytes, int tb, int dense, void* stream) {
   const Shape s{T, h_in, O, h_g > 0 ? h_in / h_g : 0, h_g, keep, kp, wbits, idx_bytes};
   if (!shape_ok(s) || !dec_tile(tb) || n_seg < 1 || n_tenants < 1 || idx_stride < 0 ||
-      codes_stride < 0 || scale_stride < 0 || zero_stride < 0)
+      codes_stride < 0 || scale_stride < 0 || zero_stride < 0 || (dense && keep != h_g))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides strides{static_cast<size_t>(idx_stride), static_cast<size_t>(codes_stride),
                         static_cast<size_t>(scale_stride), static_cast<size_t>(zero_stride)};
@@ -414,6 +450,9 @@ int delta_spmm_segments_launch(const void* x, const void* idx,
   const float* xp = static_cast<const float*>(x);
   const int* sr = static_cast<const int*>(seg_rows);
   const int* so = static_cast<const int*>(seg_offsets);
+  if (dense)
+    return static_cast<int>(
+        launch_dense_segments(xp, d, s, strides, n_tenants, sr, so, n_seg, yp, tb, st));
   return static_cast<int>(
       idx_bytes == 1
           ? launch_segments_u8(xp, d, s, strides, n_tenants, sr, so, n_seg, yp, tb, st)

@@ -38,7 +38,10 @@ dividing ``h_in`` up to ``h_in`` itself (the row-wise default), any
 f32 — on every tile: the 128-row prefill tile walks whole groups where
 they fit and windows of x indices elsewhere (:func:`prefill_fits`), and
 the decode tiles take a narrow 32-column tile at G < 8
-(:func:`decode_plan`).
+(:func:`decode_plan`). The codecs' lowerings (``core.pack.dense_groups``:
+keep = h_g, idx = arange) take a dense-group walk on the decode tiles and
+in the segments kernel, which reads no idx; the wrappers tell the
+library so, which never infers it from shapes.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.pack import PackedDelta, idx_dtype
+from repro_torch.core.pack import PackedDelta, dense_groups, idx_dtype
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -81,13 +84,16 @@ FUSED_TILES = (8, 16, 32)
 LAUNCHES = {"delta_spmm": 0, "delta_spmm_segments": 0, "fused_base_delta": 0,
             "dequant": 0}
 ROUTES = {"delta_spmm_decode": 0, "delta_spmm_prefill": 0}
+# launches of the dense-group walk (``dense_groups`` packings on a decode
+# tile), a share of the two correction kernels' counts above
+WALKS = {"delta_spmm_dense": 0, "delta_spmm_segments_dense": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, WALKS):
         for k in counts:
             counts[k] = 0
 
@@ -154,19 +160,19 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.delta_spmm_launch.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_launch.restype = i
             ll = ctypes.c_longlong
             lib.delta_spmm_segments_launch.argtypes = [
                 p, p, p, p, p, i, ll, ll, ll, ll, p, p, i, p,
-                i, i, i, i, i, i, i, i, i, p]
+                i, i, i, i, i, i, i, i, i, i, p]
             lib.delta_spmm_segments_launch.restype = i
             lib.fused_base_delta_launch.argtypes = [
                 p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
             lib.fused_base_delta_launch.restype = i
             lib.delta_spmm_prefill_ok.argtypes = [i, i, i]
             lib.delta_spmm_prefill_ok.restype = i
-            lib.delta_spmm_decode_plan.argtypes = [i, i, i, i, i, i, i, i,
+            lib.delta_spmm_decode_plan.argtypes = [i, i, i, i, i, i, i, i, i,
                                                    ctypes.POINTER(i)]
             lib.delta_spmm_decode_plan.restype = i
             lib.fused_base_delta_splits.argtypes = [i, i, i, i]
@@ -195,18 +201,22 @@ def decode_plan(d: PackedDelta, tb: int) -> dict | None:
     from global memory (``x_global``), the blocks of a cluster
     (``cluster``: min(G, 8), one a class chain that has a group) and the
     columns of a tile (``cols``: 128, or 32 for the narrow tile at G < 8,
-    a warp a row); None for a packing the kernels do not take. Host
+    a warp a row) and the walk it planned (``walk``: ``"dense"`` for a
+    :func:`dense_groups` packing, which stages no idx, ``"narrow"``, or
+    ``"general"``); None for a packing the kernels do not take. Host
     arithmetic in the library: launches nothing."""
     from repro_torch.core.quant import pack_width, packed_len
     kp, wbits = (d.keep, 0) if d.k_bits is None else (packed_len(d.keep, d.k_bits),
                                                       pack_width(d.k_bits))
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 10)()
     if not _load().delta_spmm_decode_plan(d.h_in, d.h_out, d.h_g, d.keep, kp, wbits,
-                                          idx_dtype(d.h_g).itemsize, tb, out):
+                                          idx_dtype(d.h_g).itemsize, tb,
+                                          int(dense_groups(d)), out):
         return None
     return {"tb": tb, "sg": out[0], "kc": out[1], "stages": out[2], "rows": out[3],
             "smem_bytes": out[4], "steps": out[5], "x_global": bool(out[6]),
-            "cluster": out[7], "cols": out[8]}
+            "cluster": out[7], "cols": out[8],
+            "walk": ("general", "narrow", "dense")[out[9]]}
 
 
 def check_inputs(x2: torch.Tensor, d: PackedDelta, stacked: bool) -> tuple[int, int]:
@@ -276,7 +286,8 @@ def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tenso
     rows a block; the library lowers it where its shared memory would not
     fit), in :data:`PREFILL_TILES` the rows-in-lanes prefill kernel (every
     packing, :func:`prefill_fits`); a row has the same bits under every
-    tile."""
+    tile. On a decode tile a :func:`dense_groups` packing takes the
+    dense-group walk, which reads no idx (:data:`WALKS`)."""
     if tb not in SPMM_TILES:
         raise ValueError(f"tb={tb} not in {SPMM_TILES}")
     _require_cuda(x2)
@@ -294,14 +305,18 @@ def delta_spmm_cuda(x2: torch.Tensor, d: PackedDelta, *, tb: int) -> torch.Tenso
     xT = torch.empty((-(-T // tb), d.h_in, tb), dtype=torch.float32, device=x2.device) \
         if tb in PREFILL_TILES else None
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    dense = dense_groups(d)
     err = lib.delta_spmm_launch(
         x2.data_ptr(), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(), y.data_ptr(),
         None if xT is None else xT.data_ptr(),
-        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(), tb, stream)
+        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(), tb, int(dense),
+        stream)
     _raise_on(err, "delta_spmm")
     LAUNCHES["delta_spmm"] += 1
     ROUTES["delta_spmm_prefill" if tb in PREFILL_TILES else "delta_spmm_decode"] += 1
+    if dense and tb in ROW_TILES:
+        WALKS["delta_spmm_dense"] += 1
     return y
 
 
@@ -314,7 +329,9 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
     outside the stack, come back zero (the reference kernel zero-fills its
     output). ``seg_offsets`` must be non-decreasing (the layout of
     ``serve.scheduler.tenant_segments``); ``tb`` in :data:`ROW_TILES` caps
-    the rows one block computes."""
+    the rows one block computes, and a segment's tile computes only its
+    segment's rows. A :func:`dense_groups` stack takes the dense-group
+    walk, which reads no idx (:data:`WALKS`)."""
     if tb not in ROW_TILES:
         raise ValueError(f"tb={tb} not in {ROW_TILES}")
     _require_cuda(x2)
@@ -331,6 +348,7 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
     if T == 0:
         return y
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    dense = dense_groups(d)
     err = lib.delta_spmm_segments_launch(
         x2.data_ptr(), d.idx.data_ptr(),
         d.codes.data_ptr(), d.scale.data_ptr(), d.zero.data_ptr(),
@@ -338,9 +356,12 @@ def delta_spmm_segments_cuda(x2: torch.Tensor, d: PackedDelta,
         d.codes.stride(0) * d.codes.element_size(),
         d.scale.stride(0), d.zero.stride(0),
         seg_rows.data_ptr(), seg_offsets.data_ptr(), S, y.data_ptr(),
-        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(), tb, stream)
+        T, d.h_in, d.h_out, d.h_g, d.keep, kp, wbits, d.idx.element_size(), tb, int(dense),
+        stream)
     _raise_on(err, "delta_spmm_segments")
     LAUNCHES["delta_spmm_segments"] += 1
+    if dense:
+        WALKS["delta_spmm_segments_dense"] += 1
     return y
 
 

@@ -55,21 +55,24 @@ for every packing (:func:`rule_spmm_tile`); the fused kernel keeps its caps 8/16
 (``kernels/autotune.py``) comes first: ``delta_spmm`` takes the ``tb``
 it holds for the delta's envelope point and the call's token-count
 bucket (a decode tile or the prefill tile, :func:`spmm_tile`), the
-segments kernel takes it where it is a decode tile
-(:func:`segments_tile`); without a table, an entry or a matching card
+segments kernel its own swept ``seg_tb`` at the decode step's buckets,
+else ``tb`` where it is a decode tile (:func:`segments_tile`); without a table, an entry or a matching card
 the rules above decide. The expert route, the fused kernel and dequant
 keep their rules. Output columns go 128 to a tile on the decode
 route (one cluster of 8 blocks, one per class chain; 32 at G < 8, a
 cluster of G blocks with a warp a row), 32 or 64 in the prefill kernel
 (32 on its windowed walk), 128 in the fused kernel and 32 in dequant. No choice
-changes a row's bits in the correction kernels.
+changes a row's bits in the correction kernels. The codecs' lowerings
+(``core.pack.dense_groups``) take the dense-group walk on the decode tiles
+and in the segments kernel (no idx read; the notes say ``walk="dense"``,
+else ``"general"``: a walk that reads idx).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.pack import PackedDelta
+from repro_torch.core.pack import PackedDelta, dense_groups
 from repro_torch.kernels import autotune, fallback
 from repro_torch.kernels import delta_spmm as _k
 
@@ -172,12 +175,12 @@ def rule_spmm_tile(T: int, d: PackedDelta) -> int:
     return row_tile(T)
 
 
-def _swept_tb(T: int, d: PackedDelta) -> int | None:
-    """The table's ``tb`` for ``d`` at T rows (None off the card, without
-    a table for this card or without an entry); a column slice keys on
-    the whole matrix's width, as :func:`_gather_max_t`."""
+def _swept_tb(T: int, d: PackedDelta, key: str = "tb") -> int | None:
+    """The table's ``tb`` (or ``key``) for ``d`` at T rows (None off the
+    card, without a table for this card or without an entry); a column
+    slice keys on the whole matrix's width, as :func:`_gather_max_t`."""
     return autotune.swept_tb(d.h_g, d.keep, d.k_bits, d.h_in, d.h_out * d.shards, T,
-                             device=d.idx.device)
+                             device=d.idx.device, key=key)
 
 
 def spmm_tile(T: int, d: PackedDelta) -> tuple[int, str]:
@@ -202,9 +205,13 @@ def spmm_row_tile(T: int, d: PackedDelta) -> int:
 
 def segments_tile(T: int, d: PackedDelta) -> tuple[int, str]:
     """The segments kernel's row tile for segments of at most T rows of
-    the (stacked) ``d``, and where it came from: the table's ``tb`` where
-    it is a decode tile, else :func:`row_tile`."""
-    tb = _swept_tb(T, d)
+    the (stacked) ``d``, and where it came from: the table's ``seg_tb``
+    (swept on the segments kernel at the decode step's layouts) where it
+    holds one, else its ``tb``, where either is a decode tile; else
+    :func:`row_tile`."""
+    tb = _swept_tb(T, d, "seg_tb")
+    if tb is None:
+        tb = _swept_tb(T, d)
     if tb in _k.ROW_TILES:
         return tb, "table"
     return row_tile(T), "rule"
@@ -273,7 +280,7 @@ def _delta_spmm(x: torch.Tensor, d: PackedDelta) -> torch.Tensor:
         tb, src = spmm_tile(x2.shape[0], d)
         if tb in _k.ROW_TILES:
             _note("delta_spmm", formulation="cuda", codec=d.codec, tb=tb, ob=KERNEL_OB,
-                  tile=src)
+                  tile=src, walk="dense" if dense_groups(d) else "general")
         else:   # the prefill kernel picks 64 or 32 columns by the SM count
             _note("delta_spmm", formulation="cuda-prefill", codec=d.codec, tb=tb, tile=src)
         # the kernels take f32 activations (the TPU kernel upcasts x itself)
@@ -366,7 +373,8 @@ def _delta_spmm_segments(x_sorted, d, seg_rows, seg_offsets, values, res_map, ma
     T = x_sorted.shape[0] if max_rows is None else max_rows
     tb, src = segments_tile(T, d) if table else (row_tile(T), "rule")
     _note("delta_spmm_segments", formulation="segments-cuda", codec=d.codec,
-          residency="packed", tb=tb, ob=KERNEL_OB, tile=src)
+          residency="packed", tb=tb, ob=KERNEL_OB, tile=src,
+          walk="dense" if dense_groups(d) else "general")
     return _k.delta_spmm_segments_cuda(
         x_sorted.to(torch.float32).contiguous(), d,
         seg_rows.to(torch.int32).contiguous(),

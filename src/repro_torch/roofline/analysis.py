@@ -204,18 +204,33 @@ def packed_bytes(d) -> int:
     return sum(t.numel() * t.element_size() for t in (d.idx, d.codes, d.scale, d.zero))
 
 
-def delta_spmm_work(T: int, d) -> tuple:
-    """``x @ dequant(d)`` for T rows of f32 x: read x and the packed
-    delta, write f32 y; two operations a kept entry and row."""
-    return 2.0 * T * d.nnz, T * d.h_in * 4 + packed_bytes(d) + T * d.h_out * 4, "f32"
+def read_bytes(d, tb: int = 8) -> int:
+    """Bytes of ``d`` that the correction kernels must read on row tile
+    ``tb``: :func:`packed_bytes`, less ``idx`` where the decode tiles
+    (1, 2, 4, 8) run a packing whose groups keep every slot with idx =
+    arange (``core.pack.dense_groups``: the codecs' lowerings) and so
+    take their dense-group walk, which reads no idx. The 128-row tile's
+    windowed walk reads idx for every packing. The stored bytes stay
+    :func:`packed_bytes`."""
+    from repro_torch.core.pack import dense_groups
+    idx = d.idx.numel() * d.idx.element_size() if tb <= 8 and dense_groups(d) else 0
+    return packed_bytes(d) - idx
+
+
+def delta_spmm_work(T: int, d, tb: int = 8) -> tuple:
+    """``x @ dequant(d)`` for T rows of f32 x on row tile ``tb`` (a
+    decode tile unless given): read x and the packed delta
+    (:func:`read_bytes`), write f32 y; two operations a kept entry and
+    row."""
+    return 2.0 * T * d.nnz, T * d.h_in * 4 + read_bytes(d, tb) + T * d.h_out * 4, "f32"
 
 
 def segments_work(T: int, d, n_deltas: int) -> tuple:
     """The segments kernel on T rows over ``n_deltas`` distinct tenant
-    deltas shaped like ``d`` (one matrix): each tenant's packed bytes
-    read once."""
+    deltas shaped like ``d`` (one matrix), on its decode tiles: each
+    tenant's bytes (:func:`read_bytes`) read once."""
     return (2.0 * T * d.nnz,
-            T * d.h_in * 4 + n_deltas * packed_bytes(d) + T * d.h_out * 4, "f32")
+            T * d.h_in * 4 + n_deltas * read_bytes(d) + T * d.h_out * 4, "f32")
 
 
 def experts_work(d_expert, live: int, read: int, n_experts: int, cap: int) -> tuple:

@@ -187,6 +187,27 @@ def test_ops_honours_the_table_in_every_bucket(tmp_path, monkeypatch):
         assert tb in kern.ROW_TILES or _fits(tb, narrow[0], narrow[1])
 
 
+def test_segments_take_their_own_swept_tile(tmp_path, monkeypatch):
+    """Where a bucket holds the segments kernel's own ``seg_tb``, the
+    segments kernel takes it (a decode tile) and delta_spmm keeps ``tb``;
+    a bucket without one falls back to ``tb``, and a ``seg_tb`` that is no
+    decode tile to the rule."""
+    p = (1024, 128, 4, 4096, 11008)
+    _table(tmp_path, monkeypatch, {
+        tat.envelope_key(*p, t=8): {"tb": 8, "seg_tb": 4},
+        tat.envelope_key(*p, t=4): {"tb": 2},
+        tat.envelope_key(*p, t=1): {"tb": 1, "seg_tb": 128}})
+    for d in (_d(p), _d(p, shards=2)):
+        assert [ops.spmm_tile(T, d) for T in (1, 4, 8)] == [(1, "table"), (2, "table"),
+                                                           (8, "table")]
+        assert [ops.segments_tile(T, d) for T in (1, 3, 4, 5, 8)] == [
+            (1, "rule"), (2, "table"), (2, "table"), (4, "table"), (4, "table")]
+        assert ops.segments_tile(16, d) == (8, "rule")
+    assert tat.swept_tb(*p, 8, device="cuda", key="seg_tb") == 4
+    assert tat.swept_tb(*p, 4, device="cuda", key="seg_tb") is None
+    assert tat.swept_tb(*p, 8, device="cpu", key="seg_tb") is None
+
+
 def test_table_naming_an_illegal_tile_raises(tmp_path, monkeypatch):
     wide = (4096, 512, None, 4096, 4096)
     # no kernel has a 64-row or a 3-row tile (the 128-row tile takes every packing)
@@ -215,7 +236,8 @@ def test_invalidate_cache_rereads_the_file(tmp_path, monkeypatch):
 def test_committed_table(monkeypatch):
     """results/autotune_cuda.json loads, names an NVIDIA card and its
     power limit, covers every DEFAULT_POINTS key at every bucket, and
-    each entry's tb is a tile, the fastest of its timed candidates."""
+    each entry's tb is a tile, the fastest of its timed candidates (and
+    at SEG_T its seg_tb the fastest of the segments kernel's tiles)."""
     monkeypatch.delenv(tat.TABLE_ENV, raising=False)
     tat.invalidate_cache()
     tab = tat.load_table()
@@ -239,6 +261,11 @@ def test_committed_table(monkeypatch):
         # swept with the 128-row tile at every point: it takes every packing
         assert set(int(tb) for tb in e["ms"]) == set(kern.SPMM_TILES), key
         assert e["rule_tb"] == (128 if T >= ops.PREFILL_MIN_T else _old_row_tile(T)), key
+        # the segments kernel's own tile at the decode step's buckets
+        assert ("seg_tb" in e) == (T in tat.SEG_T), key
+        if T in tat.SEG_T:
+            assert set(int(tb) for tb in e["seg_ms"]) == set(kern.ROW_TILES), key
+            assert e["seg_tb"] == min(kern.ROW_TILES, key=lambda tb: e["seg_ms"][str(tb)])
 
 
 def _site_shapes(arch: str, *paths) -> list:

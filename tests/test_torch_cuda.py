@@ -345,7 +345,8 @@ def test_decode_plan_found_for_every_emitted_packing(cuda):
             for h_g in candidate_group_sizes(h_in, alpha):
                 for k in (None, 1, 2, 4, 8):
                     d = SimpleNamespace(h_in=h_in, h_out=h_out, h_g=h_g,
-                                        keep=keep_count(h_g, alpha), k_bits=k)
+                                        keep=keep_count(h_g, alpha), k_bits=k,
+                                        codec="deltadq")
                     for tb in kern.ROW_TILES:
                         plan = kern.decode_plan(d, tb)
                         assert plan is not None, (h_in, h_out, h_g, alpha, k, tb)
@@ -849,6 +850,108 @@ def test_codec_packings_through_both_kernels(cuda, codec, T):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h_in,h_out", [(2048, 384), (1024, 200), (11008 // 8, 136), (200, 40)])
+@pytest.mark.parametrize("codec", ["bitdelta", "lowrank"])
+def test_dense_walk_equals_its_twin_at_every_tile(cuda, codec, h_in, h_out):
+    """The dense-group walk (the codecs' lowerings: no idx read) is bit-equal
+    to its plain twin at every decode tile and every T up to 8 rows a
+    tile, in a two-group segments layout (rows of the other group on the
+    zero row) with each segment row equal to delta_spmm's row; the plan
+    and the launch counters say the walk ran."""
+    from repro_torch.core.apply import zero_delta_like
+    from repro_torch.core.pack import dense_groups
+    d = _codec_packed(codec, h_in, h_out, 60, cuda)
+    assert dense_groups(d)
+    stack = stack_tenant_deltas([zero_delta_like({"w": d}), {"w": d}])["w"]
+    for tb in kern.ROW_TILES:
+        plan = kern.decode_plan(d, tb)
+        assert plan["walk"] == "dense" and plan["cols"] == 128 and plan["rows"] <= tb
+    for T in (1, 2, 3, 5, 8, 13, 37):
+        x = _x(T, h_in, 61 + T, cuda)
+        want = ref.dense_groups_kernel_order(x, d)
+        assert _bits_equal(want, ref.correction_kernel_order(x, d))
+        before = dict(kern.WALKS)
+        for tb in kern.ROW_TILES:
+            assert _bits_equal(kern.delta_spmm_cuda(x, d, tb=tb), want), (T, tb)
+        rows = (np.arange(T) % 3 == 1).astype(np.int32)
+        seg = tenant_segments(rows).to(cuda)
+        xs = x.index_select(0, seg.order)
+        seg_rows, seg_offsets = (t.to(torch.int32).contiguous()
+                                 for t in (seg.seg_rows, seg.seg_offsets))
+        wants = ref.dense_segments_kernel_order(xs, stack, seg_rows, seg_offsets)
+        for tb in kern.ROW_TILES:
+            ys = kern.delta_spmm_segments_cuda(xs, stack, seg_rows, seg_offsets, tb=tb)
+            assert _bits_equal(ys, wants), (T, tb)
+        own = torch.as_tensor(rows, device=cuda)[seg.order] == 1
+        assert torch.equal(ys[own], want.index_select(0, seg.order)[own])
+        assert torch.equal(ys[~own], torch.zeros_like(ys[~own]))
+        torch.cuda.synchronize()
+        assert kern.WALKS["delta_spmm_dense"] == before["delta_spmm_dense"] + 4
+        assert kern.WALKS["delta_spmm_segments_dense"] == before["delta_spmm_segments_dense"] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["bitdelta", "lowrank"])
+def test_dense_walk_on_layer_and_column_slices(cuda, codec):
+    """A layer slice of an [R, L] codec group (strided along R) and a mesh
+    rank's column slice take the dense walk and equal the twin: a slice's
+    columns are the whole matrix's columns bit for bit."""
+    from repro_torch.launch import mesh as mesh_lib
+    layers = [_codec_packed(codec, 512, 256, 70 + i, cuda) for i in range(3)]
+    tenant = layers[0].with_arrays(*(torch.stack([getattr(d, f) for d in layers])
+                                     for f in ("idx", "codes", "scale", "zero")))
+    table = stack_tenant_deltas([{"w": tenant}, {"w": tenant}])["w"]        # [R, L, ...]
+    sl = table.with_arrays(table.idx[:, 1], table.codes[:, 1], table.scale[:, 1],
+                           table.zero[:, 1])
+    x = _x(8, 512, 71, cuda)
+    offs = torch.tensor([0, 5, 8], dtype=torch.int32, device=cuda)
+    rows = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    before = dict(kern.WALKS)
+    want = ref.dense_groups_kernel_order(x, layers[1])
+    got = ops.delta_spmm_segments(x, sl, rows, offs)
+    assert _bits_equal(got, want)
+    for m in range(2):
+        view = mesh_lib.ServingMesh.view(model=2, model_index=m)
+        cut = mesh_lib.shard_delta(layers[1], view)
+        assert cut.shards == 2 and kern.decode_plan(cut, 8)["walk"] == "dense"
+        assert _bits_equal(ops.delta_spmm(x, cut), want[:, m * 128:(m + 1) * 128])
+    torch.cuda.synchronize()
+    assert kern.WALKS["delta_spmm_dense"] == before["delta_spmm_dense"] + 2
+    assert kern.WALKS["delta_spmm_segments_dense"] == before["delta_spmm_segments_dense"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h_in", [512, 1024])
+@pytest.mark.parametrize("k", [2, None])
+def test_deltadq_keep_h_g_with_permuted_idx_takes_the_general_walk(cuda, k, h_in):
+    """A DeltaDQ packing at keep = h_g (alpha 1) is no lowering: its idx is
+    what the packer wrote, here permuted in every group and column, so the
+    decode tiles take a walk that reads it (the general one, the narrow
+    tile's at G < 8) and match plain."""
+    d = _pack(h_in, 136, 128, 1.0, k, 62, cuda)
+    G, K, O = d.idx.shape
+    perm = torch.stack([torch.randperm(K, generator=torch.Generator().manual_seed(o))
+                        for o in range(O)], dim=1).to(cuda)
+    d = d.with_arrays(torch.gather(d.idx, 1, perm.expand(G, K, O)).contiguous(), d.codes,
+                      d.scale, d.zero)
+    assert d.codec == "deltadq" and d.keep == d.h_g
+    x = _x(8, h_in, 63, cuda)
+    before = dict(kern.WALKS)
+    want = ref.correction_kernel_order(x, d)
+    for tb in kern.ROW_TILES:
+        assert kern.decode_plan(d, tb)["walk"] == ("narrow" if G < 8 else "general")
+        assert _bits_equal(kern.delta_spmm_cuda(x, d, tb=tb), want)
+    torch.testing.assert_close(ops.delta_spmm(x, d), fb.correction(x, d, gather_max_t=8),
+                               **TOL)
+    stack = stack_tenant_deltas([{"w": d}, {"w": d}])["w"]
+    offs = torch.tensor([0, 3, 8], dtype=torch.int32, device=cuda)
+    rows = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    assert _bits_equal(kern.delta_spmm_segments_cuda(x, stack, rows, offs, tb=8), want)
+    torch.cuda.synchronize()
+    assert kern.WALKS == before
+
+
+@pytest.mark.gpu
 def test_prefill_tile_refuses_keep_128_and_decode_route_takes_it(cuda):
     """The BitDelta lowering (keep = h_g = 128), once refused by the
     128-row tile, takes it by rule from 65 rows on the windowed walk, bit
@@ -1309,7 +1412,8 @@ BUCKET_EDGES = (1, 2, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 256, 300)
 @pytest.mark.gpu
 def test_sweep_point_finds_every_candidate_bit_equal(cuda):
     """The sweep at a small point: every candidate bit-equal to the rule's
-    tile (the sweep raises otherwise), a legal fastest tb at every bucket."""
+    tile (the sweep raises otherwise), a legal fastest tb at every bucket,
+    and the segments kernel's fastest decode tile at SEG_T's buckets."""
     from types import SimpleNamespace
     point = (16, 2, 4, 256, 384)
     base, overlays = autotune.sweep_point(*point, seed=3)
@@ -1321,6 +1425,10 @@ def test_sweep_point_finds_every_candidate_bit_equal(cuda):
         assert ov["tb"] in cands and sorted(map(int, ov["ms"])) == sorted(cands)
         assert ov["ms"][str(ov["tb"])] == min(ov["ms"].values())
         assert ov["rule_tb"] == ops.rule_spmm_tile(T, stand_in)
+        assert ("seg_tb" in ov) == (T in autotune.SEG_T)
+        if T in autotune.SEG_T:
+            assert sorted(map(int, ov["seg_ms"])) == list(kern.ROW_TILES)
+            assert ov["seg_ms"][str(ov["seg_tb"])] == min(ov["seg_ms"].values())
 
 
 @pytest.mark.gpu

@@ -159,6 +159,43 @@ def test_kernel_work_equals_inline_counts(h_in, h_out, k, T):
             E * C * h_in * 4, E * pb, E * C * h_out * 4, 2.0 * E * C * d.nnz)[0]
 
 
+@pytest.mark.parametrize("codec", ["bitdelta", "lowrank", "deltadq alpha 1", "deltadq 128x"])
+@pytest.mark.parametrize("T", [1, 8, 128])
+def test_work_functions_read_no_idx_of_the_lowerings_only(codec, T):
+    """The decode tiles' dense-group walk reads no idx of a codec lowering
+    (``core.pack.dense_groups``), so the bounds of delta_spmm and the
+    segments kernel on those tiles leave its idx bytes out; the 128-row
+    tile's windowed walk reads them, and every other packing (a
+    DeltaDQ one at keep = h_g included) keeps them, and the stored bytes
+    (``packed_bytes``, the dequant and fused bounds) keep them too."""
+    from repro_torch.core import codecs
+    from repro_torch.core.pack import dense_groups
+    h_in, h_out = 256, 48
+    g = torch.Generator().manual_seed(1)
+    if codec in ("bitdelta", "lowrank"):
+        c = codecs.get_codec(codec)
+        ft = torch.randn(h_in, h_out, generator=g) * 0.02
+        spec = BitDeltaSpec() if codec == "bitdelta" else LowRankSpec(rank=4)
+        d = c.runtime_packed(c.compress_leaf(torch.zeros_like(ft), ft, spec))
+    else:
+        d = _pack(h_in, h_out, *((128, 1.0, 2) if codec == "deltadq alpha 1" else (16, 8, 4)))
+    assert dense_groups(d) == (codec in ("bitdelta", "lowrank"))
+    pb = _inline_packed_bytes(d)
+    read = pb - (d.idx.numel() * d.idx.element_size() if dense_groups(d) else 0)
+    assert rl.packed_bytes(d) == pb and rl.read_bytes(d) == read
+    assert rl.bound_ms(*rl.delta_spmm_work(T, d)) == _inline_bound_ms(
+        T * h_in * 4, read, T * h_out * 4, 2.0 * T * d.nnz)
+    # the 128-row tile's windowed walk reads idx for every packing
+    assert rl.read_bytes(d, 128) == pb
+    assert rl.bound_ms(*rl.delta_spmm_work(T, d, 128)) == _inline_bound_ms(
+        T * h_in * 4, pb, T * h_out * 4, 2.0 * T * d.nnz)
+    for n_deltas in (1, 4):
+        assert rl.bound_ms(*rl.segments_work(T, d, n_deltas)) == _inline_bound_ms(
+            T * h_in * 4, n_deltas * read, T * h_out * 4, 2.0 * T * d.nnz)
+    assert rl.bound_ms(*rl.dequant_work(d)) == _inline_bound_ms(
+        0, pb, h_in * h_out * 4, 2.0 * d.nnz)
+
+
 # ---------------------------------------------------------------------------
 # dry run and delta_specs vs the reference, every registered arch
 # ---------------------------------------------------------------------------
